@@ -1,0 +1,42 @@
+"""Weights carried across between the JAX package and the port.
+
+The JAX ImplicitNet keeps its parameters as the pytree
+``{"layers": [{"w": (in, out), "b": (out,), ("c": ())}, ...]}``; the port's
+module keeps ``lin{i}.weight`` (out, in), ``lin{i}.bias`` and, for the
+Lipschitz variant, ``lip{i}``. Both functions take and give numpy arrays on
+the JAX side, so the port never imports JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+
+def params_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """JAX ImplicitNet params (numpy or array-likes) -> the port's state_dict."""
+    sd = {}
+    for i, layer in enumerate(tree["layers"]):
+        w = np.asarray(layer["w"], np.float32)
+        sd[f"lin{i}.weight"] = torch.from_numpy(w.T.copy())
+        sd[f"lin{i}.bias"] = torch.from_numpy(np.array(layer["b"], np.float32))
+        if "c" in layer:
+            sd[f"lip{i}"] = torch.from_numpy(np.array(layer["c"], np.float32))
+    return sd
+
+
+def params_to_numpy(module) -> dict:
+    """The port's ImplicitNet -> the JAX params pytree, as numpy arrays."""
+    layers = []
+    for i in range(module.num_layers - 1):
+        lin = getattr(module, f"lin{i}")
+        entry = {
+            "w": lin.weight.detach().cpu().numpy().T.copy(),
+            "b": lin.bias.detach().cpu().numpy().copy(),
+        }
+        if module.lipschitz:
+            entry["c"] = getattr(module, f"lip{i}").detach().cpu().numpy().copy()
+        layers.append(entry)
+    return {"layers": layers}
