@@ -2,8 +2,12 @@
 
 Mirrors the JAX package's ``python main.py <config.ini>`` (main.py:8-42),
 with the reference's INI schema. It runs on the card unless ``--device cpu``
-is given. Only reconstruction (``ppo = True, reconstruct = True``) is
-ported; the other modes raise NotImplementedError.
+is given. Modes, as in the JAX package: ``samplingonly = True`` samples and
+labels the training points; ``ppo = True`` reconstructs a mesh
+(``reconstruct = True``) or audits the field's accuracy on the dense grid
+(``reconstruct = False``) from the run's checkpoints; otherwise it samples
+if needed, trains and writes checkpoints. The point-cloud trainer
+(``distributed = True``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default=None,
                         help="torch device; default: the card (raises without one)")
     parser.add_argument("--compute-dtype", choices=sorted(_DTYPES), default="bfloat16",
-                        help="working type of the fused kernels")
+                        help="working type of the fused evaluation kernels")
     args = parser.parse_args(argv)
     print(f"Running with config file: {args.config}")
 

@@ -7,6 +7,8 @@ Kept from the JAX package: every section and field name, the rule that
 reference config_reader.py:26-32), and the optional ``[TPU]`` keys.
 ``use_pallas`` keeps its name: here it means "use the hand-written kernels",
 and ``False`` is accepted only on the CPU, where the plain path runs anyway.
+``epochs_per_call`` is read and ignored: it sizes the JAX trainer's jitted
+multi-epoch block, which the port's eager loop does not have.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Tuple
 
 import torch
 
+from ..losses.losses import get_loss_class
 from ..models.implicit_net import ImplicitNet
 from ..models.registry import get_model_class
 
@@ -122,6 +125,6 @@ class Configuration:
         )
 
     def make_loss(self):
-        raise NotImplementedError(
-            "the losses are not ported yet: slice 2, see ROADMAP.md"
-        )
+        """The configured loss (raises NotImplementedError for the eikonal
+        family, which is not ported yet)."""
+        return get_loss_class(self.loss_name)(**self.loss_kwargs)

@@ -2,8 +2,8 @@
 
 A ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
 into ``build/torch_kernels/lib<name>-<hash>.so`` at the root of the checkout
-(the hash covers the source and the flags, so an edited source is rebuilt).
-Nothing is built or loaded at import time.
+(the hash covers the source and all its flags, so an edited source or a
+changed flag is rebuilt). Nothing is built or loaded at import time.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
@@ -24,7 +24,16 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
+# flags of one source only. sdf_streams: no contraction of a*b+c into FMA, so
+# a point-triangle pair rounds where the plain version and the JAX kernels
+# round (see the note at the top of csrc/sdf_streams.cu)
+SOURCE_FLAGS: Dict[str, Tuple[str, ...]] = {"sdf_streams": ("-fmad=false",)}
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_flags(name: str) -> Tuple[str, ...]:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
 
 
 def _nvcc() -> str:
@@ -37,7 +46,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
+        (CSRC / f"{name}.cu").read_bytes() + " ".join(nvcc_flags(name)).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -52,7 +61,7 @@ def build(name: str, verbose: bool = False) -> float:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []),
+    cmd = [_nvcc(), *nvcc_flags(name), *(["-Xptxas=-v"] if verbose else []),
            "-o", str(tmp), str(CSRC / f"{name}.cu")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -62,6 +71,16 @@ def build(name: str, verbose: bool = False) -> float:
         print(f"[nvcc {name}.cu]\n{proc.stdout}{proc.stderr}", flush=True)
     os.replace(tmp, out)
     return time.perf_counter() - t0
+
+
+def build_all(names: Iterable[str], verbose: bool = False) -> Dict[str, float]:
+    """Build several sources at once, one nvcc process each, all started
+    together; returns the wall seconds per source."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(lambda n: build(n, verbose=verbose), names)))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,0 +1,296 @@
+"""Exact-SDF work streams — counterpart of sdf_representation_tpu/ops/pallas_streams.py.
+
+Two streams over a schedule of (point block, triangle chunk) steps:
+
+  ``dist_stream``  per point the minimum squared distance to the triangles of
+                   its block's chunks and the face that gives it
+                   (<- _dist_kernel, the pallas_call in _dist_slab_call)
+  ``wind_stream``  per point the summed solid angle of those triangles
+                   (<- _wind_kernel, the pallas_call in _wind_slab_call)
+
+The schedule keeps the JAX interface ``(P_blocks, step_block, step_chunk,
+tables, tri_chunk)``: ``ops/sdf_exact.py`` calls it with every (block, chunk)
+pair; a culled caller passes fewer steps. Steps that name block ``B`` (the
+sink) are padding. Results are (B + 1, M) with row B the sink; rows no step
+visits read +inf / face 0 / angle 0.
+
+Each wrapper takes its kernel's plain PyTorch version (``*_plain``) when the
+points lie on the CPU, and launches the CUDA kernel (``csrc/sdf_streams.cu``)
+or raises when they lie on a card: there is no fallback. ``LAUNCHES`` counts
+kernel launches. All arithmetic is float32: no TF32, no bf16.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Callable, Dict, Tuple
+
+import numpy as np
+import torch
+
+from .. import kernels
+from .sdf_exact import _eberly_st
+
+# distance-table columns (15 used, padded to 16): the tile pass needs P.E0 and
+# P.E1 (d = e0v0 - P.E0, e = e1v0 - P.E1) plus v0/E0/E1 for the closest point
+_D_V0, _D_E0, _D_E1 = 0, 3, 6
+_D_A, _D_B, _D_C, _D_E0V0, _D_E1V0, _D_VALID = 9, 10, 11, 12, 13, 14
+_D_ROWS = 16
+
+# winding-table columns (20 used, padded to 24)
+_W_V0, _W_V1, _W_V2, _W_K = 0, 3, 6, 9
+_W_N00, _W_N11, _W_N22, _W_N01, _W_N12, _W_N20, _W_D0, _W_VALID = 12, 13, 14, 15, 16, 17, 18, 19
+_W_ROWS = 24
+
+# kernel launches per wrapper; chip_smoke.py zeroes them around the main path
+LAUNCHES = {"dist_stream": 0, "wind_stream": 0}
+
+
+def reset_launches() -> None:
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def stream_tiling_ok(tri_chunk: int, m: int) -> bool:
+    """True iff the streams can tile (tri_chunk, m) without dropping work.
+    The CUDA kernels walk a chunk in strips of 128 triangles with a ragged
+    last strip and mask points past ``m``, so any positive tiling is covered
+    (the TPU kernels need multiples of their 128 x 1024 strips)."""
+    return tri_chunk >= 1 and m >= 1
+
+
+def _check_tiling(tri_chunk: int, m: int) -> None:
+    if not stream_tiling_ok(tri_chunk, m):
+        raise ValueError(f"the streams need tri_chunk >= 1 and point_chunk >= 1, "
+                         f"got {tri_chunk} and {m}")
+
+
+def pack_dist_table(tables: Dict[str, np.ndarray], tri_chunk: int) -> np.ndarray:
+    """(C, T, 16) f32 from the ``_triangle_tables`` dict (host, once): one
+    row of constants per triangle, so a chunk is one dense block."""
+    C = tables["a"].shape[0]
+    out = np.zeros((C, tri_chunk, _D_ROWS), np.float32)
+    for base, key in ((_D_V0, "v0"), (_D_E0, "E0"), (_D_E1, "E1")):
+        out[:, :, base:base + 3] = tables[key]
+    for col, key in ((_D_A, "a"), (_D_B, "b"), (_D_C, "c"), (_D_E0V0, "e0v0"),
+                     (_D_E1V0, "e1v0"), (_D_VALID, "valid")):
+        out[:, :, col] = tables[key]
+    return out
+
+
+def pack_wind_table(tables: Dict[str, np.ndarray], tri_chunk: int) -> np.ndarray:
+    """(C, T, 24) f32 winding constants (layout: see pack_dist_table)."""
+    C = tables["d0"].shape[0]
+    out = np.zeros((C, tri_chunk, _W_ROWS), np.float32)
+    for base, key in ((_W_V0, "v0"), (_W_V1, "v1"), (_W_V2, "v2"), (_W_K, "K")):
+        out[:, :, base:base + 3] = tables[key]
+    for col, key in ((_W_N00, "n00"), (_W_N11, "n11"), (_W_N22, "n22"), (_W_N01, "n01"),
+                     (_W_N12, "n12"), (_W_N20, "n20"), (_W_D0, "d0"), (_W_VALID, "valid")):
+        out[:, :, col] = tables[key]
+    return out
+
+
+def stream_steps(keep: np.ndarray, sink: int) -> Tuple[np.ndarray, np.ndarray, int]:
+    """Flatten a (B, C) keep matrix into block-major (step_block,
+    step_chunk) int32 arrays, padded to a power of two with sink steps
+    (sdf_culled._stream_steps)."""
+    blocks, chunks = np.nonzero(keep)
+    S = len(blocks)
+    S_pad = 1 << max(0, (max(S, 1) - 1).bit_length())
+    sb = np.full(S_pad, sink, np.int32)
+    sc = np.zeros(S_pad, np.int32)
+    sb[:S] = blocks
+    sc[:S] = chunks
+    return sb, sc, S
+
+
+def block_ranges(step_block, step_chunk, n_blocks: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The step list as per-block ranges: (offs (B + 1,), chunks (S,)) int32
+    with block b's chunks at chunks[offs[b]:offs[b + 1]], in step order (the
+    order decides ties between chunks). Sink steps are dropped."""
+    sb = np.asarray(step_block, np.int64)
+    sc = np.asarray(step_chunk, np.int32)
+    live = (sb >= 0) & (sb < n_blocks)
+    sb, sc = sb[live], sc[live]
+    order = np.argsort(sb, kind="stable")
+    offs = np.zeros(n_blocks + 1, np.int32)
+    offs[1:] = np.cumsum(np.bincount(sb, minlength=n_blocks))
+    return offs, np.ascontiguousarray(sc[order])
+
+
+def _check_points(P_blocks: torch.Tensor) -> Tuple[int, int]:
+    if not isinstance(P_blocks, torch.Tensor) or P_blocks.dim() != 3 or P_blocks.shape[2] != 3:
+        raise ValueError("P_blocks must be a (B, M, 3) tensor")
+    if P_blocks.dtype != torch.float32:
+        raise ValueError(f"P_blocks must be float32, got {P_blocks.dtype}")
+    return P_blocks.shape[0], P_blocks.shape[1]
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (the CPU path; on a card only compared against)
+# ---------------------------------------------------------------------------
+
+def _dots(P: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+    """(M, 3) points . (T, 3) vectors -> (M, T), as three float32 products
+    summed left to right (no matmul: nothing may round the operands)."""
+    return (P[:, 0:1] * V[:, 0] + P[:, 1:2] * V[:, 1]) + P[:, 2:3] * V[:, 2]
+
+
+def _dist_tile(P: torch.Tensor, tt: torch.Tensor):
+    """One (M points x T triangles) distance tile: (M, T) squared distances
+    of the Eberly closest points, +inf for padding triangles."""
+    col = lambda c: tt[:, c]
+    d = col(_D_E0V0) - _dots(P, tt[:, _D_E0:_D_E0 + 3])
+    e = col(_D_E1V0) - _dots(P, tt[:, _D_E1:_D_E1 + 3])
+    s, t = _eberly_st(col(_D_A), col(_D_B), col(_D_C), d, e)
+    d2 = None
+    for k in range(3):
+        dk = P[:, k:k + 1] - ((col(_D_V0 + k) + s * col(_D_E0 + k)) + t * col(_D_E1 + k))
+        d2 = dk * dk if d2 is None else d2 + dk * dk
+    return torch.where(col(_D_VALID) > 0, d2, torch.inf)
+
+
+def _wind_tile(P: torch.Tensor, tt: torch.Tensor, dots: Callable = _dots) -> torch.Tensor:
+    """One winding tile: (M,) summed solid angles of the T triangles, in the
+    table form n00 - 2 P.v0 + |P|^2 of the JAX kernel. ``dots`` computes the
+    four P . [v0 v1 v2 K] products (a check may pass a rounding one)."""
+    col = lambda c: tt[:, c]
+    p2 = ((P[:, 0] * P[:, 0] + P[:, 1] * P[:, 1]) + P[:, 2] * P[:, 2])[:, None]
+    pv0 = dots(P, tt[:, _W_V0:_W_V0 + 3])
+    pv1 = dots(P, tt[:, _W_V1:_W_V1 + 3])
+    pv2 = dots(P, tt[:, _W_V2:_W_V2 + 3])
+    pk = dots(P, tt[:, _W_K:_W_K + 3])
+    la = torch.sqrt(torch.clamp_min(col(_W_N00) - 2.0 * pv0 + p2, 1e-30))
+    lb = torch.sqrt(torch.clamp_min(col(_W_N11) - 2.0 * pv1 + p2, 1e-30))
+    lc = torch.sqrt(torch.clamp_min(col(_W_N22) - 2.0 * pv2 + p2, 1e-30))
+    ab = col(_W_N01) - pv0 - pv1 + p2
+    bc = col(_W_N12) - pv1 - pv2 + p2
+    ca = col(_W_N20) - pv2 - pv0 + p2
+    numer = col(_W_D0) - pk
+    denom = la * lb * lc + ab * lc + bc * la + ca * lb
+    omega = 2.0 * torch.atan2(numer, denom) * col(_W_VALID)
+    return omega.sum(dim=1)
+
+
+def dist_stream_plain(P_blocks: torch.Tensor, step_block, step_chunk, tables, tri_chunk: int):
+    """``dist_stream`` as torch ops walking the same steps, one (M, T) tile
+    per step; the first minimal face index wins ties."""
+    B, M = _check_points(P_blocks)
+    _check_tiling(tri_chunk, M)
+    dev = P_blocks.device
+    tab = torch.from_numpy(pack_dist_table(tables, tri_chunk)).to(dev)
+    out_d2 = torch.full((B + 1, M), torch.inf, dtype=torch.float32, device=dev)
+    out_best = torch.zeros((B + 1, M), dtype=torch.int32, device=dev)
+    tri = torch.arange(tri_chunk, dtype=torch.int32, device=dev)
+    offs, chunks = block_ranges(step_block, step_chunk, B)
+    for b in range(B):
+        for c in chunks[offs[b]:offs[b + 1]].tolist():
+            d2 = _dist_tile(P_blocks[b], tab[c])
+            loc_min = d2.min(dim=1).values
+            loc_arg = torch.where(d2 <= loc_min[:, None], tri, tri_chunk).min(dim=1).values
+            better = loc_min < out_d2[b]
+            out_d2[b] = torch.where(better, loc_min, out_d2[b])
+            out_best[b] = torch.where(better, c * tri_chunk + loc_arg, out_best[b])
+    return out_d2, out_best
+
+
+def wind_stream_plain(P_blocks: torch.Tensor, step_block, step_chunk, tables, tri_chunk: int,
+                      dots: Callable = _dots) -> torch.Tensor:
+    """``wind_stream`` as torch ops walking the same steps."""
+    B, M = _check_points(P_blocks)
+    _check_tiling(tri_chunk, M)
+    dev = P_blocks.device
+    tab = torch.from_numpy(pack_wind_table(tables, tri_chunk)).to(dev)
+    out_w = torch.zeros((B + 1, M), dtype=torch.float32, device=dev)
+    offs, chunks = block_ranges(step_block, step_chunk, B)
+    for b in range(B):
+        for c in chunks[offs[b]:offs[b + 1]].tolist():
+            out_w[b] += _wind_tile(P_blocks[b], tab[c], dots)
+    return out_w
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels
+# ---------------------------------------------------------------------------
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = kernels.load("sdf_streams")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.sdf_dist_stream.argtypes = [P, P, P, P, I, I, I, P, P, P]
+    lib.sdf_wind_stream.argtypes = [P, P, P, P, I, I, I, P, P]
+    lib.sdf_dist_stream.restype = lib.sdf_wind_stream.restype = I
+    lib.sdf_streams_error_string.argtypes = [I]
+    lib.sdf_streams_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_launch(rc: int, what: str) -> None:
+    if rc != 0:
+        msg = _lib().sdf_streams_error_string(rc).decode()
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc} ({msg})")
+
+
+def _cuda_schedule(P_blocks, step_block, step_chunk, table: np.ndarray):
+    """Validate a launch; returns (table, offs, chunks) on the points' card."""
+    B, _ = _check_points(P_blocks)
+    if not P_blocks.is_contiguous():
+        raise ValueError("kernel inputs must be contiguous")
+    offs, chunks = block_ranges(step_block, step_chunk, B)
+    if len(chunks) and (chunks.min() < 0 or chunks.max() >= table.shape[0]):
+        raise ValueError("a step names a triangle chunk outside the table")
+    dev = P_blocks.device
+    return (torch.from_numpy(table).to(dev), torch.from_numpy(offs).to(dev),
+            torch.from_numpy(chunks).to(dev))
+
+
+def dist_stream(P_blocks: torch.Tensor, step_block, step_chunk, tables, tri_chunk: int):
+    """Distance stream over (B, M, 3) f32 points. Returns (d2 (B + 1, M) f32,
+    best (B + 1, M) i32): per point the minimum squared distance to the
+    triangles of its block's chunks and the winning face (chunk * tri_chunk
+    + index in the chunk; the first minimal index wins)."""
+    B, M = _check_points(P_blocks)
+    if P_blocks.device.type == "cpu":
+        return dist_stream_plain(P_blocks, step_block, step_chunk, tables, tri_chunk)
+    _check_tiling(tri_chunk, M)
+    tab, offs, chunks = _cuda_schedule(P_blocks, step_block, step_chunk,
+                                       pack_dist_table(tables, tri_chunk))
+    dev = P_blocks.device
+    out_d2 = torch.empty((B + 1, M), dtype=torch.float32, device=dev)
+    out_best = torch.empty((B + 1, M), dtype=torch.int32, device=dev)
+    out_d2[B] = torch.inf
+    out_best[B] = 0
+    if B:
+        with torch.cuda.device(dev):
+            rc = _lib().sdf_dist_stream(
+                P_blocks.data_ptr(), tab.data_ptr(), offs.data_ptr(), chunks.data_ptr(), B, M,
+                tri_chunk, out_d2.data_ptr(), out_best.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+        _check_launch(rc, "dist_stream")
+        LAUNCHES["dist_stream"] += 1
+    return out_d2, out_best
+
+
+def wind_stream(P_blocks: torch.Tensor, step_block, step_chunk, tables,
+                tri_chunk: int) -> torch.Tensor:
+    """Winding stream over (B, M, 3) f32 points. Returns (B + 1, M) f32: per
+    point the summed solid angle of the triangles of its block's chunks
+    (4 pi times the winding number when every chunk is visited)."""
+    B, M = _check_points(P_blocks)
+    if P_blocks.device.type == "cpu":
+        return wind_stream_plain(P_blocks, step_block, step_chunk, tables, tri_chunk)
+    _check_tiling(tri_chunk, M)
+    tab, offs, chunks = _cuda_schedule(P_blocks, step_block, step_chunk,
+                                       pack_wind_table(tables, tri_chunk))
+    dev = P_blocks.device
+    out_w = torch.empty((B + 1, M), dtype=torch.float32, device=dev)
+    out_w[B] = 0.0
+    if B:
+        with torch.cuda.device(dev):
+            rc = _lib().sdf_wind_stream(
+                P_blocks.data_ptr(), tab.data_ptr(), offs.data_ptr(), chunks.data_ptr(), B, M,
+                tri_chunk, out_w.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        _check_launch(rc, "wind_stream")
+        LAUNCHES["wind_stream"] += 1
+    return out_w

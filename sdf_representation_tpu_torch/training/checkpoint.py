@@ -10,6 +10,10 @@ The FORMAT differs: the JAX package writes flax msgpack, which the port
 does not read (the card's machine has no flax). A port checkpoint
 is a dict ``{"model": state_dict, "epoch": int, ...}`` of tensors and plain
 Python values, so ``weights_only=True`` loads it without unpickling code.
+Training checkpoints add ``"optimizer"`` and ``"scheduler"`` (their
+state_dicts; the scheduler's is None without ``lr_step``), the loss
+histories ``"train_losses"`` / ``"val_losses"`` and ``"best_val"``, so a
+resumed run continues with its Adam moments and learning-rate staircase.
 Weights move between the two packages through ``convert.params_from_jax``.
 """
 

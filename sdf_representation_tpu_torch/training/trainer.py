@@ -1,31 +1,128 @@
-"""Trainer of the port — so far only what reconstruction needs.
+"""Training executor of the port.
 
-Counterpart of sdf_representation_tpu/training/trainer.py: the run-directory
-tree (trainer.py:391-438, reference executor/executor.py:29-48), checkpoint
-loading (trainer.py:690-717) and the mode dispatch of ``run``
-(trainer.py:742-759). Sampling, training and the accuracy audit are the next
-slice of the port (ROADMAP.md) and raise NotImplementedError.
+Counterpart of sdf_representation_tpu/training/trainer.py (reference
+executor/executor.py:23-499): the run-directory tree, sampling, supervised
+training, checkpoints and the mode dispatch of ``run``.
+
+  * the whole dataset lives on the device; every epoch draws a permutation
+    from an explicit ``torch.Generator`` on the device seeded from
+    (init_seed + 1, epoch), so the schedule depends on nothing else; partial
+    final batches are dropped.
+  * ``torch.optim.Adam`` (optax's ``adam`` defaults: b1 0.9, b2 0.999,
+    eps 1e-8 outside the root — the same update); ``lr_step`` / ``lr_gamma``
+    give a staircase per ``lr_step`` epochs.
+  * validation runs in float32 on min(batch, n_val)-sized batches; the best
+    validation epoch is kept as best_model.ckpt; early stop on
+    ``min_epochs`` / ``patience``; model_epoch{E}.ckpt every ``checkpointing``
+    epochs; checkpoints carry optimizer and scheduler state through resume.
+  * losses stay on the device within an epoch: one host read per epoch.
+
+Not carried over from the JAX trainer: its jitted multi-epoch block
+(``epochs_per_call``), which exists to amortise dispatch latency there; the
+key is read and ignored. The matrix products of training are library
+matmuls here as they are XLA's there: the supervised step has no
+hand-written kernel in either package.
+
+``train_matmul_precision``:
+  None            float32 everywhere.
+  "bfloat16"      float32 master weights and optimizer state; forward and
+                  backward run on bfloat16 copies of the parameters and
+                  inputs, the loss in float32. The forward noise of this mode
+                  can hold the clamp-family losses on their all-clipped
+                  plateau at lr >= 1e-4 (measured in the JAX package).
+  "bfloat16_mxu"  float32 tensors whose matrix products may use reduced-
+                  precision tensor-core passes
+                  (``torch.set_float32_matmul_precision("medium")``), set for
+                  the step and restored after it: per-product rounding
+                  instead of stored-activation rounding.
 """
 
 from __future__ import annotations
 
+import contextlib
+import math
 import os
-from typing import Dict, Tuple
+import time
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from ..configgen.config_reader import Configuration
+from ..data.dataset import SDFDataset, load_data
 from ..utils.device import resolve_device
 from ..utils.files import create_directory
 from . import checkpoint as ckpt
 
+PRECISIONS = (None, "bfloat16", "bfloat16_mxu")
+
+# the last ``Trainer.train``: seconds up to the dataset on the device, epochs
+# run, seconds in the epoch loop (closed by the last epoch's host read),
+# points per second over those seconds
+LAST_RUN: dict = {}
+
+
+@contextlib.contextmanager
+def _matmul_precision(precision: Optional[str]):
+    """Reduced-precision float32 matmul passes for "bfloat16_mxu", restored
+    on exit (the global switch is never left changed)."""
+    if precision != "bfloat16_mxu":
+        yield
+        return
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("medium")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(before)
+
+
+def bind_apply(model, precision: Optional[str]) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The forward a training step differentiates: the module itself, or for
+    "bfloat16" the module run on bfloat16 copies of its float32 master
+    parameters and of its input, its output widened back to float32."""
+    if precision != "bfloat16":
+        return model
+
+    def apply(x: torch.Tensor) -> torch.Tensor:
+        params = {k: (v.to(torch.bfloat16) if v.dtype == torch.float32 else v)
+                  for k, v in model.named_parameters()}
+        out = torch.func.functional_call(model, params, (x.to(torch.bfloat16),))
+        return out.to(torch.float32)
+
+    return apply
+
+
+def make_train_step(model, loss_fn, optimizer: torch.optim.Optimizer,
+                    precision: Optional[str] = None) -> Callable:
+    """(x, y, epoch) -> loss (a detached scalar tensor on the device): one
+    optimizer update on the batch."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"train_matmul_precision must be one of {PRECISIONS}, got {precision!r}")
+    apply = bind_apply(model, precision)
+    lipschitz = model.lipschitz and model.lipschitz_weight > 0
+
+    def step(xb: torch.Tensor, yb: torch.Tensor, epoch: int) -> torch.Tensor:
+        optimizer.zero_grad(set_to_none=True)
+        with _matmul_precision(precision):
+            value = loss_fn(apply, xb, yb, epoch)
+            if lipschitz:
+                # arXiv:2202.08345 eq. 7: alpha * prod softplus(c_i)
+                value = value + model.lipschitz_weight * model.lipschitz_bound()
+            value.backward()
+        optimizer.step()
+        return value.detach()
+
+    return step
+
 
 class Trainer:
-    """Run directories, model and checkpoints for one config.
+    """Sampling -> training -> checkpointing for one config, and the
+    checkpoints' consumers (reconstruction, the accuracy audit).
 
     ``device``: None runs on the card (and raises without one); "cpu" runs
     the plain PyTorch path. ``compute_dtype`` is the working type of the
-    fused kernels (bfloat16, as in the JAX package's TPU path, or float32).
+    fused evaluation kernels (bfloat16, as in the JAX package's TPU path, or
+    float32); training precision is the config's ``train_matmul_precision``.
     """
 
     def __init__(self, config: Configuration, device=None, init_seed: int = 0,
@@ -85,6 +182,189 @@ class Trainer:
         self.model = config.make_model(
             generator=torch.Generator().manual_seed(init_seed), device=self.device
         )
+        self._plot_skip_said = False
+
+    # -- sampling ----------------------------------------------------------
+
+    def rescale(self) -> str:
+        from ..geometry.rescale import rescale_file
+
+        self.rescaled_path = os.path.join(
+            self.main_path, self.geometry_name + "_rescaled.stl"
+        )
+        return rescale_file(self.config.geometry, self.rescaled_path)
+
+    def sampling(self) -> None:
+        """Sample and label the training points unless their CSVs exist
+        (cf. Executor.sampling, executor.py:86-111)."""
+        c = self.config
+        if "pcd" in c.name:
+            return
+        if any(
+            os.path.exists(os.path.join(self.data_path, f))
+            for f in ("uniform.csv", "surface.csv", "narrow.csv")
+        ):
+            return
+        if c.two_dim:
+            raise NotImplementedError(
+                "the 2-D circle mode (two_dim = True) is not ported yet: see ROADMAP.md"
+            )
+        from ..sampling import sampler
+
+        t0 = time.perf_counter()
+        geometry_path = self.rescale() if c.rescale else c.geometry
+        t1 = time.perf_counter()
+        uniform, surface, narrow = sampler.generate_signed_distance_data(
+            geometry_path, c.uniform_points, c.surface, c.narrowband,
+            c.narrowband_width, device=self.device,
+        )
+        t2 = time.perf_counter()
+        uniform.to_csv(os.path.join(self.data_path, "uniform.csv"))
+        surface.to_csv(os.path.join(self.data_path, "surface.csv"))
+        narrow.to_csv(os.path.join(self.data_path, "narrow.csv"))
+        sampler.LAST_STAGE_SECONDS.update(rescale=t1 - t0, write_csv=time.perf_counter() - t2)
+
+    # -- training ----------------------------------------------------------
+
+    def _make_optimizer(self) -> Tuple[torch.optim.Optimizer, Optional[Any]]:
+        """(Adam, scheduler): the scheduler, stepped once per epoch, halves
+        (``lr_gamma``) the rate every ``lr_step`` epochs; None without
+        ``lr_step``."""
+        c = self.config
+        optimizer = torch.optim.Adam(self.model.parameters(), lr=c.lr,
+                                     betas=(0.9, 0.999), eps=1e-8)
+        scheduler = None
+        if c.lr_step and c.lr_step > 0:
+            scheduler = torch.optim.lr_scheduler.StepLR(
+                optimizer, step_size=c.lr_step, gamma=c.lr_gamma)
+        return optimizer, scheduler
+
+    def _epoch_batches(self, epoch: int, n_train: int, batch: int) -> torch.Tensor:
+        """(n_batches, batch) row indices of one epoch: a device permutation
+        seeded from (init_seed + 1, epoch), the partial batch dropped."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(((self.init_seed + 1) << 32) + epoch)
+        n_batches = max(1, n_train // batch)
+        perm = torch.randperm(n_train, generator=gen, device=self.device)
+        return perm[: n_batches * batch].reshape(n_batches, batch)
+
+    def _validate(self, loss_fn, Xv, Yv, batch: int, epoch: int) -> Optional[torch.Tensor]:
+        """Mean float32 loss over min(batch, n_val)-sized validation batches
+        (the remainder dropped); None without validation data."""
+        n_val = Xv.shape[0]
+        if n_val == 0:
+            return None
+        vb = min(batch, n_val)
+        n_vbatches = max(1, n_val // vb)
+        with torch.no_grad():
+            losses = [loss_fn(self.model, Xv[i * vb:(i + 1) * vb], Yv[i * vb:(i + 1) * vb], epoch)
+                      for i in range(n_vbatches)]
+        return torch.stack(losses).mean()
+
+    def train(self, dataset: Optional[SDFDataset] = None) -> Dict[str, Any]:
+        c = self.config
+        loss_fn = c.make_loss()
+        t_load = time.time()
+        if dataset is None:
+            self.sampling()
+            dataset = load_data(self.data_path, c)
+
+        dev = self.device
+        X = torch.from_numpy(dataset.train_x).to(dev)
+        Y = torch.from_numpy(dataset.train_y).to(dev)
+        Xv = torch.from_numpy(dataset.val_x).to(dev)
+        Yv = torch.from_numpy(dataset.val_y).to(dev)
+
+        optimizer, scheduler = self._make_optimizer()
+        start_epoch = 0
+        train_losses: list = []
+        val_losses: list = []
+        best_val = float("inf")
+
+        best_path = os.path.join(self.model_save_path, "best_model.ckpt")
+        if c.contd and os.path.exists(best_path):
+            state = ckpt.load_checkpoint(best_path)
+            self.model.load_state_dict(state["model"])
+            if "optimizer" in state:  # optimizer state resumes
+                optimizer.load_state_dict(state["optimizer"])
+                if scheduler is not None and state.get("scheduler") is not None:
+                    scheduler.load_state_dict(state["scheduler"])
+            start_epoch = int(state["epoch"]) + 1
+            train_losses = list(state.get("train_losses", []))
+            val_losses = list(state.get("val_losses", []))
+            best_val = float(state.get("best_val", math.inf))
+            print(f"Resumed from {best_path} at epoch {start_epoch}")
+
+        batch = min(c.batchsize, dataset.n_train)
+        step = make_train_step(self.model, loss_fn, optimizer, c.train_matmul_precision)
+        loss_log = os.path.join(self.train_path, "train_loss.txt")
+        epochs_no_improve = 0
+        points_per_epoch = (dataset.n_train // batch) * batch
+
+        def state_at(epoch: int) -> Dict[str, Any]:
+            return {
+                "model": self.model.state_dict(),
+                "epoch": epoch,
+                "optimizer": optimizer.state_dict(),
+                "scheduler": None if scheduler is None else scheduler.state_dict(),
+                "train_losses": list(train_losses),
+                "val_losses": list(val_losses),
+                "best_val": best_val,
+            }
+
+        t_start = time.time()
+        final_epoch = start_epoch - 1
+        for epoch in range(start_epoch, c.epochs):
+            final_epoch = epoch
+            losses = [step(X[idx], Y[idx], epoch)
+                      for idx in self._epoch_batches(epoch, dataset.n_train, batch)]
+            if scheduler is not None:
+                scheduler.step()
+            train_loss = torch.stack(losses).mean()
+            val_loss = self._validate(loss_fn, Xv, Yv, batch, epoch)
+            # the epoch's one host read
+            train_loss, val_loss = torch.stack(
+                [train_loss, train_loss if val_loss is None else val_loss]).tolist()
+            train_losses.append(train_loss)
+            val_losses.append(val_loss)
+            with open(loss_log, "a") as f:
+                f.write(f"{epoch} {train_loss} {val_loss}\n")
+            if val_loss < best_val:
+                best_val = val_loss
+                epochs_no_improve = 0
+                ckpt.save_checkpoint(best_path, state_at(epoch))
+            else:
+                epochs_no_improve += 1
+            if (epoch + 1) % c.checkpointing == 0:
+                ckpt.save_checkpoint(
+                    os.path.join(self.model_save_path, f"model_epoch{epoch}.ckpt"),
+                    state_at(epoch),
+                )
+                self._plot_losses(train_losses, val_losses)
+            if epoch >= c.minepochs and epochs_no_improve >= c.patience:
+                print(f"Early stopping at epoch {epoch}")
+                break
+
+        elapsed = time.time() - t_start
+        n_epochs_run = final_epoch - start_epoch + 1
+        throughput = points_per_epoch * n_epochs_run / max(elapsed, 1e-9)
+        print(
+            f"Training done: {n_epochs_run} epochs, {elapsed:.1f}s, "
+            f"{throughput:,.0f} points/sec"
+        )
+        self._plot_losses(train_losses, val_losses)
+        LAST_RUN.update(load_seconds=t_start - t_load, epochs_run=n_epochs_run, seconds=elapsed,
+                        points_per_sec=throughput)
+        return {
+            "train_losses": train_losses,
+            "val_losses": val_losses,
+            "best_val": best_val,
+            "epochs_run": n_epochs_run,
+            "points_per_sec": throughput,
+            "last_epoch": final_epoch,
+        }
+
+    # -- checkpoint loading -------------------------------------------------
 
     def load_model(self, best: bool = True) -> Tuple[Dict[str, torch.Tensor], int]:
         """Load best_model.ckpt (``best``) or the newest model_epoch*.ckpt
@@ -102,17 +382,46 @@ class Trainer:
         self.model.load_state_dict(state["model"])
         return state["model"], epoch
 
+    # -- plots -------------------------------------------------------------
+
+    def _plot_losses(self, train_losses, val_losses) -> None:
+        """loss_curve.png where matplotlib is installed; one line where not."""
+        try:
+            import matplotlib
+        except ImportError:
+            if not self._plot_skip_said:
+                print("loss plot skipped: matplotlib is not installed")
+                self._plot_skip_said = True
+            return
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        fig, ax = plt.subplots()
+        ax.plot(train_losses, label="train")
+        ax.plot(val_losses, label="val")
+        ax.set_xlabel("epoch")
+        ax.set_ylabel("loss")
+        ax.set_yscale("log")
+        ax.legend()
+        fig.savefig(os.path.join(self.plot_save_path, "loss_curve.png"), dpi=100)
+        plt.close(fig)
+
+    # -- mode dispatch (cf. Executor.run, executor.py:481-499) -------------
+
     def run(self):
-        """cf. Executor.run (reference executor.py:481-499)."""
         c = self.config
         if c.samplingonly:
-            raise NotImplementedError("sampling is slice 2 of the port, see ROADMAP.md")
+            return self.sampling()
         if c.ppo:
             if c.reconstruct:
                 from ..evaluations.reconstruct import reconstruct_only
 
                 return reconstruct_only(self, compute_dtype=self.compute_dtype)
+            from ..evaluations.post_process import post_process
+
+            return post_process(self)
+        if c.two_dim:
             raise NotImplementedError(
-                "the accuracy audit (post_process) is slice 2 of the port, see ROADMAP.md"
+                "the 2-D circle mode (two_dim = True) is not ported yet: see ROADMAP.md"
             )
-        raise NotImplementedError("training is slice 2 of the port, see ROADMAP.md")
+        return self.train()

@@ -45,8 +45,12 @@ def test_make_model_builds_the_flagship_architecture():
     assert (model.d_in, model.hidden_dims, model.skip_in, model.beta) == (
         jax_model.d_in, jax_model.hidden_dims, jax_model.skip_in, jax_model.beta)
     assert model.layer_shapes() == list(jax_model.layer_shapes())
-    with pytest.raises(NotImplementedError):
-        cfg.make_loss()
+    loss = cfg.make_loss()
+    assert type(loss).__name__ == "WeightedSmoothL2Loss"
+    assert (loss.weight_factor, loss.delta) == (0.5, 0.1)
+    # the eikonal family waits for its kernels
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Configuration(str(REPO / "configs/pointcloud_igr.ini")).make_loss()
 
 
 def test_unported_model_family_raises(tmp_path):

@@ -1,4 +1,4 @@
-"""The port imports neither JAX (nor flax/optax/pandas/matplotlib) nor any
+"""The port imports neither JAX (nor flax/optax/pandas/sklearn/matplotlib) nor any
 module of the JAX package — checked in a fresh interpreter, since this
 pytest process has already loaded JAX."""
 
@@ -25,12 +25,14 @@ def _port_modules():
 def test_port_modules_load_no_jax_or_jax_package():
     mods = _port_modules()
     assert "sdf_representation_tpu_torch.ops.fused_mlp" in mods
+    assert "sdf_representation_tpu_torch.ops.sdf_streams" in mods
+    assert "sdf_representation_tpu_torch.evaluations.post_process" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'pandas', 'matplotlib') "
+        "('jax', 'jaxlib', 'flax', 'optax', 'pandas', 'sklearn', 'matplotlib') "
         "or k == 'sdf_representation_tpu' or k.startswith('sdf_representation_tpu.')]\n"
         "print(sorted(bad))\n"
     )
@@ -41,7 +43,8 @@ def test_port_modules_load_no_jax_or_jax_package():
 
 
 def test_port_sources_name_no_jax_import():
-    pat = re.compile(r"^\s*(import\s+(jax|flax|optax)\b|from\s+(jax|flax|optax)\b"
+    pat = re.compile(r"^\s*(import\s+(jax|flax|optax|pandas|sklearn)\b"
+                     r"|from\s+(jax|flax|optax|pandas|sklearn)\b"
                      r"|from\s+sdf_representation_tpu(\.|\s)|import\s+sdf_representation_tpu(\.|\s|$))",
                      re.M)
     files = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]

@@ -1,0 +1,142 @@
+"""The port's distance and winding streams (plain path on the CPU) against the
+JAX package's Pallas stream kernels in interpret mode, on the same points,
+tables and step schedule, dense and sparse (as tests/test_pallas_streams.py).
+
+Tolerances, those of tests/test_pallas_streams.py: d^2 rtol 1e-5 / atol 1e-7
+(f32 rounding order of the dots); winners equal except on ties that the f64
+oracle proves equidistant (icospheres are tie-heavy); winding rtol 1e-4 /
+atol 1e-3 (near plane-degenerate pairs atan2 amplifies last-ulp skew to
+~3e-4; the contract is the sign at a 2 pi margin)."""
+
+import numpy as np
+import pytest
+import torch
+
+from sdf_representation_tpu.geometry.primitives import make_icosphere
+from sdf_representation_tpu.ops import pallas_streams
+from sdf_representation_tpu.ops.sdf_culled import _morton_order, _stream_steps
+from sdf_representation_tpu.ops.sdf_exact import _triangle_tables as jax_triangle_tables
+from sdf_representation_tpu_torch.ops import sdf_exact, sdf_streams
+
+torch.set_num_threads(2)
+RADIUS = 0.6
+
+
+def _setup(keep_frac, n_pts=1024, M=256, tri_chunk=256, seed=0):
+    mesh = make_icosphere(subdivisions=3, radius=RADIUS)  # 1280 faces
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-1, 1, (n_pts, 3)).astype(np.float32)
+    pts = pts[_morton_order(pts)]
+    B = n_pts // M
+    P_blocks = pts.reshape(B, M, 3)
+    tables, F = sdf_exact._triangle_tables(mesh.vertices, mesh.faces, tri_chunk)
+    C = tables["a"].shape[0]
+    keep = rng.uniform(size=(B, C)) < keep_frac
+    keep[:, 0] = True  # every block keeps at least one chunk
+    sb, sc, _ = sdf_streams.stream_steps(keep, B)
+    return mesh, P_blocks, sb, sc, tables, tri_chunk, B
+
+
+def test_tables_steps_and_packing_equal_the_jax_package():
+    mesh, P_blocks, sb, sc, tables, tri_chunk, B = _setup(0.6)
+    theirs, F = jax_triangle_tables(mesh.vertices.astype(np.float64), mesh.faces, tri_chunk)
+    assert set(theirs) == set(tables) and F == len(mesh.faces)
+    for key in theirs:
+        np.testing.assert_array_equal(tables[key], theirs[key])
+    np.testing.assert_array_equal(sdf_streams.pack_dist_table(tables, tri_chunk),
+                                  pallas_streams.pack_dist_table(theirs, tri_chunk))
+    np.testing.assert_array_equal(sdf_streams.pack_wind_table(tables, tri_chunk),
+                                  pallas_streams.pack_wind_table(theirs, tri_chunk))
+    keep = np.random.default_rng(5).uniform(size=(7, 5)) < 0.5
+    for got, want in zip(sdf_streams.stream_steps(keep, 7), _stream_steps(keep, 7)):
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("keep_frac", [1.0, 0.6], ids=["dense", "sparse"])
+def test_dist_stream_matches_pallas_kernel(keep_frac):
+    mesh, P_blocks, sb, sc, tables, tri_chunk, B = _setup(keep_frac)
+    ref_d2, ref_best = pallas_streams.dist_stream_pallas(
+        P_blocks, sb, sc, tables, tri_chunk, interpret=True)
+    got_d2, got_best = sdf_streams.dist_stream(torch.from_numpy(P_blocks), sb, sc, tables,
+                                               tri_chunk)
+    assert got_d2.shape == (B + 1, P_blocks.shape[1]) and got_best.dtype == torch.int32
+    np.testing.assert_allclose(got_d2.numpy()[:B], np.asarray(ref_d2)[:B], rtol=1e-5, atol=1e-7)
+    gb = got_best.numpy()[:B].reshape(-1)
+    rb = np.asarray(ref_best)[:B].reshape(-1)
+    diff = np.nonzero(gb != rb)[0]
+    assert len(diff) < 0.08 * len(gb)
+    if len(diff):  # different winners must be equidistant under the f64 oracle
+        pts = P_blocks.reshape(-1, 3)[diff].astype(np.float64)
+        tri = mesh.vertices[mesh.faces]
+        da = np.linalg.norm(pts - sdf_exact.closest_point_on_triangles(pts, tri[gb[diff]]), axis=1)
+        db = np.linalg.norm(pts - sdf_exact.closest_point_on_triangles(pts, tri[rb[diff]]), axis=1)
+        np.testing.assert_allclose(da, db, rtol=1e-5, atol=1e-6)
+    # the sink row is never written by a live step
+    assert torch.isinf(got_d2[B]).all() and (got_best[B] == 0).all()
+
+
+@pytest.mark.parametrize("keep_frac", [1.0, 0.6], ids=["dense", "sparse"])
+def test_wind_stream_matches_pallas_kernel(keep_frac):
+    mesh, P_blocks, sb, sc, tables, tri_chunk, B = _setup(keep_frac, seed=1)
+    ref = pallas_streams.wind_stream_pallas(P_blocks, sb, sc, tables, tri_chunk, interpret=True)
+    got = sdf_streams.wind_stream(torch.from_numpy(P_blocks), sb, sc, tables, tri_chunk)
+    np.testing.assert_allclose(got.numpy()[:B], np.asarray(ref)[:B], rtol=1e-4, atol=1e-3)
+    assert (got[B] == 0).all()
+    if keep_frac == 1.0:  # every chunk visited: 4 pi inside, 0 outside
+        r = np.linalg.norm(P_blocks.reshape(-1, 3), axis=1)
+        w = got.numpy()[:B].reshape(-1) / (4 * np.pi)
+        np.testing.assert_allclose(w[r < RADIUS - 0.02], 1.0, atol=1e-4)
+        np.testing.assert_allclose(w[r > RADIUS + 0.02], 0.0, atol=1e-4)
+
+
+def test_streams_match_the_matmul_sweep_on_a_ragged_tiling():
+    """tri_chunk 200 (a ragged last 128-strip on the card) and 300-point
+    blocks: the streams against the matmul-form all-pairs sweep."""
+    mesh = make_icosphere(subdivisions=2, radius=0.5)  # 320 faces -> 2 chunks of 200
+    rng = np.random.default_rng(2)
+    P = torch.from_numpy(rng.uniform(-1, 1, (2, 300, 3)).astype(np.float32))
+    tables, F = sdf_exact._triangle_tables(mesh.vertices, mesh.faces, 200)
+    sb, sc, S = sdf_streams.stream_steps(np.ones((2, 2), bool), 2)
+    assert S == 4 and sdf_streams.stream_tiling_ok(200, 300)
+    d2, best = sdf_streams.dist_stream(P, sb, sc, tables, 200)
+    w = sdf_streams.wind_stream(P, sb, sc, tables, 200)
+    dev_tables = {k: torch.from_numpy(v) for k, v in tables.items()}
+    for b in range(2):
+        ref_d2, ref_best, ref_w = sdf_exact._sdf_point_block(P[b], dev_tables, 200)
+        np.testing.assert_allclose(d2[b].numpy(), ref_d2.numpy(), rtol=1e-5, atol=1e-7)
+        np.testing.assert_allclose(w[b].numpy(), ref_w.numpy(), rtol=1e-4, atol=1e-3)
+        assert (best[b] < F).all()  # padding triangles never win
+        assert (best[b] != ref_best).float().mean() < 0.08
+
+
+def test_unvisited_blocks_sink_steps_and_step_order():
+    mesh, P_blocks, sb, sc, tables, tri_chunk, B = _setup(1.0)
+    C = tables["a"].shape[0]
+    keep = np.ones((B, C), bool)
+    keep[2] = False  # block 2 is never visited
+    sb, sc, S = sdf_streams.stream_steps(keep, B)
+    assert len(sb) > S and (sb[S:] == B).all()  # padded with sink steps
+    offs, chunks = sdf_streams.block_ranges(sb, sc, B)
+    assert offs.tolist() == [0, C, 2 * C, 2 * C, 3 * C] and len(chunks) == S
+    P = torch.from_numpy(P_blocks)
+    d2, best = sdf_streams.dist_stream(P, sb, sc, tables, tri_chunk)
+    w = sdf_streams.wind_stream(P, sb, sc, tables, tri_chunk)
+    assert torch.isinf(d2[2]).all() and (best[2] == 0).all() and (w[2] == 0).all()
+    assert torch.isfinite(d2[[0, 1, 3]]).all()
+    # steps given in another order reach the same blocks (stable per block)
+    order = np.random.default_rng(0).permutation(len(sb))
+    order = order[np.argsort(sc[order], kind="stable")]  # chunks still ascending per block
+    d2b, bestb = sdf_streams.dist_stream(P, sb[order], sc[order], tables, tri_chunk)
+    assert torch.equal(d2, d2b) and torch.equal(best, bestb)
+
+
+def test_wrappers_refuse_bad_inputs_and_count_no_cpu_launch():
+    mesh, P_blocks, sb, sc, tables, tri_chunk, B = _setup(1.0)
+    sdf_streams.reset_launches()
+    with pytest.raises(ValueError, match="float32"):
+        sdf_streams.dist_stream(torch.from_numpy(P_blocks).double(), sb, sc, tables, tri_chunk)
+    with pytest.raises(ValueError, match=r"\(B, M, 3\)"):
+        sdf_streams.wind_stream(torch.zeros(4, 3), sb, sc, tables, tri_chunk)
+    assert not sdf_streams.stream_tiling_ok(0, 256)
+    sdf_streams.wind_stream(torch.from_numpy(P_blocks[:1]), sb[:1], sc[:1], tables, tri_chunk)
+    assert set(sdf_streams.LAUNCHES.values()) == {0}  # the CPU path launches no kernel
