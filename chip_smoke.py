@@ -6,8 +6,8 @@
 Phases, none of which is allowed to fail quietly:
 
  1. Card name and power limit (nvidia-smi); TF32 off, checked.
- 2. Build csrc/fused_mlp.cu and csrc/sdf_streams.cu with nvcc for sm_90a,
-    both at once.
+ 2. Build csrc/fused_mlp.cu, csrc/sdf_streams.cu and csrc/fused_igr.cu with
+    nvcc for sm_90a, all at once.
  3. Kernels against their plain PyTorch versions on the flagship net
     (configs/mesh_sdf.ini: ImplicitNet 8x512, skip at layer 4, beta 100;
     geometric init, radius 0.5, seeded weights), in f32 and bf16: the points
@@ -25,6 +25,13 @@ Phases, none of which is allowed to fail quietly:
     that margin; signed_distance against the sphere's analytic distance.
     Control: the plain winding with its dots rounded to 10-bit mantissas
     (as TF32 would) must fail the solid-angle limit on the same input.
+    The fused (f, grad_x f) kernel and its params-only backward (igr_fwd,
+    igr_bwd) against their plain versions at 8x512 and 8x256 (skip 4, beta
+    100), N = 16,384 and an odd N, in f32 and bf16: f, grad f, every dW and
+    db. ReLU/tanh twice: on uniform points, where step'(z) may flip at a few,
+    and on points picked to keep every pre-activation clear of zero, where
+    every limit of the softplus cases holds. Controls: the bf16 plain
+    versions with one rounding point left out must fail the bf16 limits.
  4. The main path, `python -m sdf_representation_tpu_torch cfg.ini`
     (reconstruct from a checkpoint), once per route, the launch counts
     zeroed just before each run and read just after: cubesize 256 must
@@ -45,13 +52,32 @@ Phases, none of which is allowed to fail quietly:
     run and read after it: labelling and each audit must launch the
     distance and winding streams (the audit the dense grid kernel too), and
     no plain version may run.
+ 4c. The eikonal path through the same entry point, counts zeroed before
+    each run: (a) labelled training with loss_function = IGRLOSS on 4b's
+    CSVs at 8x512, batch 16384, train_matmul_precision = bfloat16: igr_fwd
+    and igr_bwd launch once per step, the loss falls; (b) the shape of
+    configs/pointcloud_igr.ini (8x256, batch 16384, IGRLOSSPCD, lambda 0.1,
+    distributed = True; paths, epochs, checkpointing changed and
+    train_matmul_precision = bfloat16 added) on a surface.csv of 307,200
+    surface points of the rescaled icosphere: launches per step, the loss
+    falls, then reconstruction from its checkpoint at cubesize 128 (median
+    vertex radius reported against 0.85, not gated); (c) both configs once
+    with the default precision: by the rule that decides when the kernels
+    run (training/trainer.py use_fused_igr) no kernel is launched.
  5. Times with CUDA events at the main path's shapes: kernel, plain version,
     one library layer chain (torch addmm, never called by the port), and
     the bound: the larger of bytes over 3.35 TB/s and operations over the
     card's peak (989 TFLOP/s bf16 tensor cores for bf16, 67 TFLOP/s FP32
     for f32), published figures at a 700 W limit. For the streams the
     operations are counted per point-triangle pair from the kernel's code.
- 6. A `kernels` JSON line, then the contract line
+    For igr_fwd and igr_bwd at (8x512, N 16,384) and (8x256, N 5,461): the
+    operations are 2 N times the multiply-adds of the products each kernel
+    performs (2 and ~6 passes over the layers), the bytes are the inputs, the
+    weights and the outputs (the kernels' stash workspace is reported beside
+    the bound, not counted in it), and the library yardstick is the same
+    (f, grad f) and parameter gradient through cuBLAS and torch autograd's
+    double backward (create_graph=True), timed only.
+ 6. A `kernels` JSON line with seven entries, then the contract line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Details go to build/chip_smoke.json.
@@ -61,6 +87,7 @@ import contextlib
 import json
 import math
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -100,6 +127,43 @@ W_RTOL, W_ATOL = 1e-4, 1e-3
 DIST_OPS_PER_PAIR = 55
 WIND_OPS_PER_PAIR = 112
 EPOCHS = 30
+# igr_fwd / igr_bwd against plain. f32: f and grad f within F32_TOL, every
+# dW and db within IGR_F32_GRAD_TOL of its tensor's largest entry (summation
+# order; the backward adds with atomics, whose order changes run to run).
+# bf16: an f32 sum in another order can round to the neighbouring bf16 value
+# and sigma'(beta z) carries that on, so a sound kernel differs from plain at
+# a few points; leaving out one rounding point moves nearly every point. The
+# mean limits sit between the two (the controls are recomputed in every run
+# and must fail them), the max limits catch gross errors.
+# Under ReLU, step'(z) flips where the two summation orders leave z on either
+# side of zero, and a flipped point moves grad f and its share of dW by a
+# whole term. So the ReLU kernels are held twice. "relu_clear": on the 4,096
+# points, of 262,144 candidates, whose hidden pre-activations all stay
+# farthest from zero (|z| >= 8e-5 on an H100) an f32 step cannot flip, and
+# every limit above applies unchanged, with the bf16 controls (the tanh
+# head's rounding among them); in bf16 a value that rounds to its neighbour
+# moves a later z by ~1e-4 and can still cross that margin at single points,
+# so there the worst tensor is held for gross errors only
+# (IGR_RELU_BF16_GRAD_MAX_TOL; sound 1.5e-2 to 2.5e-2) while the mean
+# separates the sound kernel (7e-4 to 1e-3) from the controls (from 2.9e-3,
+# the head's). PERF.md has the readings. "relu": on uniform
+# points f keeps its limits, grad f may differ by more than the type's max
+# limit at no more than IGR_RELU_FLIPPED of the points (sound: up to 4.3e-4
+# of them in f32, 1.8e-4 in bf16), and the gradients are held for gross errors only
+# (IGR_RELU_GRAD_MEAN_TOL; sound 4e-4 to 7e-4 in f32, 2.1e-3 to 2.3e-3 in bf16).
+IGR_F32_GRAD_TOL = 1e-4
+IGR_BF16_TOL = 1e-2
+IGR_BF16_F_MEAN_TOL = 5e-5
+IGR_BF16_G_MEAN_TOL = 1e-4
+IGR_GRAD_MEAN_TOL = 2e-3       # bf16: sum |diff| / sum |plain| over all gradients
+IGR_BF16_GRAD_MAX_TOL = 1e-2   # bf16: worst tensor's max |diff| / max |plain|
+IGR_RELU_FLIPPED = 2e-3
+IGR_RELU_GRAD_MEAN_TOL = 1e-2
+IGR_RELU_BF16_GRAD_MAX_TOL = 5e-2
+IGR_RELU_CANDIDATES = 1 << 18  # uniform points "relu_clear" picks its points from
+IGR_EPOCHS = 5        # labelled IGRLOSS run, bfloat16
+PCD_EPOCHS = 31       # point-cloud run, bfloat16; model_epoch30.ckpt holds the last weights
+PCD_POINTS = 307200
 
 
 def plain_dropping(net, x, drop):
@@ -294,20 +358,243 @@ def check_streams(device, report):
     return P, schedules["dense"], tables, tri_chunk, errors
 
 
+def gradient_errors(got, want):
+    """(sum |diff| / sum |want| over all tensors, the worst tensor's
+    max |diff| / max |want|) of two lists of gradients."""
+    num = sum((u - v).abs().sum().item() for u, v in zip(got, want))
+    den = sum(v.abs().sum().item() for v in want)
+    worst = max((u - v).abs().max().item() / max(v.abs().max().item(), 1e-30)
+                for u, v in zip(got, want))
+    return num / den, worst
+
+
+def igr_fwd_dropping(net, x, drop):
+    """fused_igr.fused_value_and_grad_plain with the rounding points named
+    in ``drop`` ("x", "stash", "act", "cotangent") left out: what a kernel
+    that skipped them would compute (the control of the bf16 checks). Also
+    returns, per point, the least |z| over all hidden units (padding apart)."""
+    from sdf_representation_tpu_torch.ops import fused_igr as fi
+    from sdf_representation_tpu_torch.ops import fused_mlp as fm
+
+    def rnd(t, point):
+        return t if point in drop else fm._working(t, net.dtype)
+
+    beta, layers = net.beta, fi._head_layers(net)
+    x = rnd(x.float(), "x")
+    h, stash = x, []
+    margin = torch.full(x.shape[:1], math.inf, device=x.device)
+    for layer, (kind, w_h, w_x, b) in enumerate(layers):
+        if kind == "first":
+            z = x @ w_x + b
+        elif kind == "skip":
+            z = (h @ w_h + x @ w_x) * fm.INV_SQRT2 + b
+        else:
+            z = h @ w_h + b
+        if layer < len(layers) - 1:
+            live = (z != 0).any(dim=0)  # padding columns are zero at every point
+            margin = torch.minimum(margin, z[:, live].abs().amin(dim=1))
+            stash.append(rnd(fi._sigma(z, beta), "stash"))
+            h = rnd(fi._act(z, beta), "act")
+    f = z if beta > 0 else torch.tanh(z)
+    dz = torch.ones_like(z) if beta > 0 else 1.0 - f * f
+    dx = torch.zeros_like(x)
+    for layer in range(len(layers) - 1, -1, -1):
+        kind, w_h, w_x, _ = layers[layer]
+        scale = fm.INV_SQRT2 if kind == "skip" else 1.0
+        dz_c = rnd(dz, "cotangent")
+        if w_x is not None:
+            dx = dx + (dz_c @ w_x.T) * scale
+        if layer > 0:
+            dz = (dz_c @ w_h.T) * scale * stash[layer - 1]
+    return f[:, 0], dx, margin
+
+
+def igr_bwd_dropping(net, x, a, c, drop):
+    """fused_igr.fused_param_grads_plain with the rounding points named in
+    ``drop`` ("x", "stash", "cotangent", "head") left out."""
+    from sdf_representation_tpu_torch.ops import fused_igr as fi
+    from sdf_representation_tpu_torch.ops import fused_mlp as fm
+
+    def rnd(t, point):
+        return t if point in drop else fm._working(t, net.dtype)
+
+    beta, layers = net.beta, fi._head_layers(net)
+    n_lin = len(layers)
+    x, c, a = rnd(x.float(), "x"), rnd(c.float(), "x"), a.float()
+    h, tc, stash = x, c, []
+    for layer, (kind, w_h, w_x, b) in enumerate(layers):
+        if kind == "first":
+            z, tcz = x @ w_x, c @ w_x
+        elif kind == "skip":
+            z, tcz = (h @ w_h + x @ w_x) * fm.INV_SQRT2, (tc @ w_h + c @ w_x) * fm.INV_SQRT2
+        else:
+            z, tcz = h @ w_h, tc @ w_h
+        z = z + b
+        if layer < n_lin - 1:
+            h, tc = rnd(fi._act(z, beta), "stash"), rnd(tcz * fi._sigma(z, beta), "stash")
+            stash.append((h, tc))
+    if beta > 0:
+        dz, dtcz = a[:, None], torch.ones_like(z)
+    else:
+        z, tcz = rnd(z, "head"), rnd(tcz, "head")
+        t = torch.tanh(z)
+        fp = 1.0 - t * t
+        dz, dtcz = a[:, None] * fp - 2.0 * t * fp * tcz, fp
+    grads = [None] * n_lin
+    for layer in range(n_lin - 1, -1, -1):
+        kind, w_h, w_x, _ = layers[layer]
+        scale = fm.INV_SQRT2 if kind == "skip" else 1.0
+        h_prev, tc_prev = (x, c) if layer == 0 else stash[layer - 1]
+        dz_c, dtcz_c = rnd(dz, "cotangent"), rnd(dtcz, "cotangent")
+        g_h = None if w_h is None else (h_prev.T @ dz_c + tc_prev.T @ dtcz_c) * scale
+        g_x = None if w_x is None else (x.T @ dz_c + c.T @ dtcz_c) * scale
+        grads[layer] = (g_h, g_x, dz.sum(dim=0))
+        if layer > 0:
+            dh, dtc = (dz_c @ w_h.T) * scale, (dtcz_c @ w_h.T) * scale
+            if beta > 0:
+                sg = 1.0 - torch.exp(-beta * h_prev)
+                dz = dh * sg + (dtc * tc_prev) * (beta * (1.0 - sg))
+            else:
+                sg = (h_prev > 0).float()
+                dz = dh * sg
+            dtcz = dtc * sg
+    return grads
+
+
+def check_igr(device, gen, report):
+    """Phase 3, igr_fwd and igr_bwd against their plain versions: f, grad f,
+    every dW and db, in f32 and bf16, with the bf16 controls. Returns what
+    phase 5 times and the errors at those shapes:
+    ({case: (model, x, a, c)}, {(kernel, case, type): max_abs_err})."""
+    from sdf_representation_tpu_torch.models import ImplicitNet
+    from sdf_representation_tpu_torch.ops import fused_igr as fi
+    from sdf_representation_tpu_torch.ops import fused_mlp as fm
+
+    # case: (width, beta, N, points kept clear of the step's flips)
+    cases = {"8x512/n16384": (512, 100.0, 16384, False), "8x256/n5461": (256, 100.0, 5461, False),
+             "8x256/n16384": (256, 100.0, 16384, False), "8x512/n4999": (512, 100.0, 4999, False),
+             "8x512/n16384/relu": (512, 0.0, 16384, False),
+             "8x512/n4096/relu_clear": (512, 0.0, 4096, True)}
+    timed_cases, errors, controls, readings = {}, {}, {}, {}
+    for case, (width, beta, n, clear) in cases.items():
+        model = ImplicitNet(hidden_dims=(width,) * 8, skip_in=(4,), beta=beta, radius_init=0.5,
+                            generator=gen, device=device)
+        x = (torch.rand(IGR_RELU_CANDIDATES if clear else n, 3, generator=gen) * 2 - 1).to(device)
+        # cotangents of a mean over the batch: a = dL/df, c = dL/d(grad f)
+        a = (torch.randn(n, generator=gen) / n).to(device)
+        c = (torch.randn(n, 3, generator=gen) / n).to(device)
+        shapes = [w.shape for w, _ in model.effective_layers()]
+        flips = beta <= 0 and not clear
+        if case in ("8x512/n16384", "8x256/n5461"):
+            timed_cases[case] = (model, x, a, c)
+        candidates = x
+        for dt in (torch.float32, torch.bfloat16):
+            tag = f"{case}/{str(dt).split('.')[1]}"
+            bf16 = dt == torch.bfloat16
+            net = fm.FusedNet(model, dt)
+            if clear:  # the n candidates whose pre-activations stay farthest from zero
+                margin = torch.cat([igr_fwd_dropping(net, part, ())[2]
+                                    for part in candidates.split(1 << 16)])
+                top = torch.topk(margin, n)
+                x = candidates[top.indices].contiguous()
+                print(f"points igr/{tag}: {n} of {len(candidates)} candidates, every hidden |z| >= "
+                      f"{top.values.min().item():.3e}", flush=True)
+            f, g = fi.fused_value_and_grad(net, x)
+            got = fi.unpack_grads(3, shapes, fi.fused_param_grads(net, x, a, c))
+            torch.cuda.synchronize()
+            pf, pg = fi.fused_value_and_grad_plain(net, x)
+            padded = fi.fused_param_grads_plain(net, x, a, c)
+            want = fi.unpack_grads(3, shapes, padded)
+            if case == "8x512/n16384":  # the atomics' order: one input, two launches
+                again = fi.unpack_grads(3, shapes, fi.fused_param_grads(net, x, a, c))
+                print(f"check igr_bwd/{tag}: two launches differ by at most "
+                      f"{gradient_errors(again, got)[1]:.3e} of a tensor's largest entry", flush=True)
+            if not (f.shape == (n,) and g.shape == (n, 3) and torch.isfinite(f).all()
+                    and torch.isfinite(g).all() and all(torch.isfinite(t).all() for t in got)):
+                raise RuntimeError(f"igr/{tag}: non-finite or misshapen output")
+            df, dg = (f - pf).abs(), (g - pg).abs()
+            g_mean, g_worst = gradient_errors(got, want)
+            max_tol = IGR_BF16_TOL if bf16 else F32_TOL
+            worst_tol = IGR_RELU_BF16_GRAD_MAX_TOL if beta <= 0 else IGR_BF16_GRAD_MAX_TOL
+            flipped = (dg.amax(dim=1) > max_tol).float().mean().item()
+            readings[tag] = {"f_max": df.max().item(), "f_mean": df.mean().item(),
+                             "grad_f_max": dg.max().item(), "grad_f_mean": dg.mean().item(),
+                             "grad_f_over_max_limit": flipped, "grads_mean": g_mean, "grads_worst": g_worst}
+            print(f"check igr_fwd/{tag}: f max {df.max().item():.3e} mean {df.mean().item():.3e}, "
+                  f"grad f max {dg.max().item():.3e} mean {dg.mean().item():.3e}, over the max limit "
+                  f"at {flipped:.5f} of the points", flush=True)
+            print(f"check igr_bwd/{tag}: {len(got)} gradients, sum|diff|/sum|plain| {g_mean:.3e}, "
+                  f"worst max|diff|/max|plain| {g_worst:.3e}", flush=True)
+            ok = df.max().item() <= max_tol and (not bf16 or df.mean().item() <= IGR_BF16_F_MEAN_TOL)
+            ok = ok and dg.mean().item() <= (IGR_BF16_G_MEAN_TOL if bf16 else F32_TOL)
+            if flips:
+                ok = ok and flipped <= IGR_RELU_FLIPPED and g_mean <= IGR_RELU_GRAD_MEAN_TOL
+            elif bf16:
+                ok = ok and dg.max().item() <= max_tol
+                ok = ok and g_mean <= IGR_GRAD_MEAN_TOL and g_worst <= worst_tol
+            else:
+                ok = ok and dg.max().item() <= max_tol and g_worst <= IGR_F32_GRAD_TOL
+            if not ok:
+                raise RuntimeError(f"igr/{tag}: kernel and plain version disagree")
+            errors["igr_fwd", case, dt] = max(df.max().item(), dg.max().item())
+            errors["igr_bwd", case, dt] = max((u - v).abs().max().item() for u, v in zip(got, want))
+            if not bf16 or flips or case not in ("8x512/n16384", "8x256/n5461", "8x512/n4096/relu_clear"):
+                continue
+            # controls: a kernel that left one bf16 rounding point out must fail
+            # the limits. step'(z) is exact in bf16: ReLU has no "stash" control
+            # forward; backward its "stash" is the activation and the tangent.
+            cf, cg, _ = igr_fwd_dropping(net, x, ())
+            same = all(torch.equal(u, v) for pair in zip(igr_bwd_dropping(net, x, a, c, ()), padded)
+                       for u, v in zip(pair[0], pair[1]) if u is not None)
+            if not (torch.equal(cf, pf) and torch.equal(cg, pg) and same):
+                raise RuntimeError(f"control igr/{tag}: the control versions are not the plain ones")
+            for drop in ("x", "act", "cotangent") if beta <= 0 else ("x", "stash", "act", "cotangent"):
+                cf, cg, _ = igr_fwd_dropping(net, x, (drop,))
+                ef, eg = (cf - pf).abs().mean().item(), (cg - pg).abs().mean().item()
+                controls[f"igr_fwd/{tag}/without_{drop}"] = {"f_mean": ef, "grad_f_mean": eg}
+                print(f"control igr_fwd/{tag}/without_{drop}: f mean {ef:.3e}, grad f mean {eg:.3e}",
+                      flush=True)
+                if ef <= IGR_BF16_F_MEAN_TOL and eg <= IGR_BF16_G_MEAN_TOL:
+                    raise RuntimeError(f"control igr_fwd/{tag}/without_{drop}: the limits would pass it")
+            for drop in ("x", "stash", "cotangent") + (("head",) if beta <= 0 else ()):
+                cw = fi.unpack_grads(3, shapes, igr_bwd_dropping(net, x, a, c, (drop,)))
+                c_mean, c_worst = gradient_errors(cw, want)
+                controls[f"igr_bwd/{tag}/without_{drop}"] = {"mean": c_mean, "worst": c_worst}
+                print(f"control igr_bwd/{tag}/without_{drop}: sum|diff|/sum|plain| {c_mean:.3e}, "
+                      f"worst {c_worst:.3e}", flush=True)
+                if c_mean <= IGR_GRAD_MEAN_TOL and c_worst <= worst_tol:
+                    raise RuntimeError(f"control igr_bwd/{tag}/without_{drop}: the limits would pass it")
+    report.update(igr_readings=readings, igr_controls=controls)
+    return timed_cases, errors
+
+
+def with_keys(text, **values):
+    """INI text with the line of each given key replaced by ``key = value``."""
+    for key, value in values.items():
+        text, n = re.subn(rf"^{re.escape(key)} = .*$", f"{key} = {value}", text, flags=re.M)
+        if n != 1:
+            raise RuntimeError(f"the config holds {n} lines for {key!r}")
+    return text
+
+
 def drive_pipeline(device, run_root, report):
-    """Phase 4b: sample -> train (three precisions) -> audit -> reconstruct
-    through the entry point, counts zeroed before each run. Returns the
-    launches per run, {run: {kernel: count}}."""
+    """Phases 4b and 4c: sample -> train (three precisions) -> audit ->
+    reconstruct, then the eikonal runs (labelled IGRLOSS, the point-cloud
+    trainer, both also at the default precision), all through the entry
+    point, counts zeroed before each run. Returns the launches per run,
+    {run: {kernel: count}}."""
     from sdf_representation_tpu_torch import cli
     from sdf_representation_tpu_torch.configgen import Configuration
     from sdf_representation_tpu_torch.data.dataset import frame_from_csv
     from sdf_representation_tpu_torch.evaluations import post_process, reconstruct
     from sdf_representation_tpu_torch.geometry.mesh_io import load_mesh, save_mesh
     from sdf_representation_tpu_torch.geometry.primitives import make_icosphere
+    from sdf_representation_tpu_torch.geometry.rescale import rescale_mesh
+    from sdf_representation_tpu_torch.ops import fused_igr as fi
     from sdf_representation_tpu_torch.ops import fused_mlp as fm
     from sdf_representation_tpu_torch.ops import sdf_streams as ss
     from sdf_representation_tpu_torch.sampling import sampler
-    from sdf_representation_tpu_torch.training import Trainer
+    from sdf_representation_tpu_torch.training import PointCloudTrainer, Trainer
     from sdf_representation_tpu_torch.training import trainer as trainer_module
 
     root = run_root / "pipeline"
@@ -340,13 +627,14 @@ def drive_pipeline(device, run_root, report):
         torch.cuda.synchronize()
         fm.reset_launches()
         ss.reset_launches()
-        with counting_plain_calls((fm, ss)) as plain:
+        fi.reset_launches()
+        with counting_plain_calls((fm, ss, fi)) as plain:
             t0 = time.perf_counter()
             if cli.main([cfg_path]) != 0:
                 raise RuntimeError(f"{tag}: the entry point failed")
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        launches[tag] = {**fm.LAUNCHES, **ss.LAUNCHES}
+        launches[tag] = {**fm.LAUNCHES, **ss.LAUNCHES, **fi.LAUNCHES}
         print(f"main path {tag}: wall s {wall:.3f}, launches {launches[tag]}, plain calls "
               f"{sum(plain.values())}", flush=True)
         if any(plain.values()):
@@ -402,8 +690,8 @@ def drive_pipeline(device, run_root, report):
               + " ".join(f"{v:.3e}" for v in curve[:, 1]), flush=True)
         if stats["epochs_run"] != EPOCHS or len(curve) != EPOCHS:
             raise RuntimeError(f"training ran {stats['epochs_run']} epochs, not {EPOCHS}")
-        if list(launches[f"train/{precision}"].values()) != [0] * 5:
-            raise RuntimeError("training launched an evaluation kernel")
+        if any(launches[f"train/{precision}"].values()):
+            raise RuntimeError("supervised training launched a kernel")
         out["training"][precision] = {"wall_s": wall, **stats,
                                       "train_loss": curve[:, 1].tolist(),
                                       "val_loss": curve[:, 2].tolist()}
@@ -457,6 +745,95 @@ def drive_pipeline(device, run_root, report):
             raise RuntimeError(f"{tag}: the mesh is not a sphere of radius ~0.85")
         out["reconstruct_trained"][cubesize] = {"wall_s": wall, "faces": len(mesh.faces),
                                                 "median_radius": float(np.median(radii))}
+
+    # -- 4c. the eikonal path: labelled IGRLOSS, then the point-cloud trainer ----
+    def only(tag, **expected):
+        want = {name: expected.get(name, 0) for name in launches[tag]}
+        if launches[tag] != want:
+            raise RuntimeError(f"{tag}: launches {launches[tag]}, expected {want}")
+
+    igr_base = with_keys(base.replace("weight_factor = 0.5\n", ""), loss_function="IGRLOSS")
+    n_train = sum(rows.values()) - math.ceil(0.1 * sum(rows.values()))
+    out["igr"] = {}
+    for precision, epochs in (("bfloat16", IGR_EPOCHS), ("default", 2)):
+        tag = f"igr_train/{precision}"
+        shutil.copytree(data_root, root / f"igr_{precision}" / data_root.name,
+                        ignore=shutil.ignore_patterns("ImplicitNet*"))
+        text = with_keys(igr_base, directory=f"{root}/igr_{precision}/", epochs=epochs,
+                         min_epochs=epochs, checkpointing=epochs, train_matmul_precision=precision)
+        path = root / f"igr_{precision}.ini"
+        path.write_text(text)
+        wall = run(tag, str(path))
+        steps = (n_train // 16384) * epochs
+        # the rule (training/trainer.py use_fused_igr): the kernels run under
+        # bfloat16 on a card, once per step each; under the default precision
+        # the fast path is the shared-matmul derivation with torch autograd
+        only(tag, **({"igr_fwd": steps, "igr_bwd": steps} if precision == "bfloat16" else {}))
+        curve = np.loadtxt(pathlib.Path(Trainer(Configuration(str(path))).train_path) / "train_loss.txt")
+        stats = dict(trainer_module.LAST_RUN)
+        print(f"igr_train {precision}: {steps} steps, launches per step "
+              f"{launches[tag]['igr_fwd'] / steps:g} igr_fwd, {launches[tag]['igr_bwd'] / steps:g} "
+              f"igr_bwd, {stats}, train loss " + " ".join(f"{v:.3e}" for v in curve[:, 1])
+              + ", val loss " + " ".join(f"{v:.3e}" for v in curve[:, 2]), flush=True)
+        if not (len(curve) == epochs and np.isfinite(curve).all() and curve[-1, 1] < curve[0, 1]):
+            raise RuntimeError(f"{tag}: the loss did not fall: {curve[:, 1]}")
+        out["igr"][precision] = {"wall_s": wall, **stats, "steps": steps,
+                                 "train_loss": curve[:, 1].tolist(), "val_loss": curve[:, 2].tolist()}
+
+    cloud_dir = root / "pcd_cloud"
+    cloud_dir.mkdir()
+    t0 = time.perf_counter()
+    cloud = sampler.sample_surface_points(rescale_mesh(make_icosphere(5, 0.5)), 1,
+                                          np.random.default_rng(SEED), area_weighted=True,
+                                          total_points=PCD_POINTS)
+    np.savetxt(cloud_dir / "surface.csv", cloud, delimiter=",", header="x,y,z", comments="",
+               fmt="%.9g")
+    print(f"point cloud: {len(cloud)} surface points of the rescaled icosphere, sampled and "
+          f"written in {time.perf_counter() - t0:.2f} s", flush=True)
+    pcd_base = with_keys((REPO / "configs" / "pointcloud_igr.ini").read_text(),
+                         geometry=f"{cloud_dir}/")
+    out["pcd"] = {}
+    for precision, epochs, every in (("bfloat16", PCD_EPOCHS, 10), ("default", 3, 2)):
+        tag = f"pcd_train/{precision}"
+        text = with_keys(pcd_base, directory=f"{root}/pcd_{precision}/", epochs=epochs,
+                         min_epochs=epochs, checkpointing=every)
+        if precision != "default":
+            text += f"\n[TPU]\ntrain_matmul_precision = {precision}\n"
+        path = root / f"pcd_{precision}.ini"
+        path.write_text(text)
+        wall = run(tag, str(path))
+        steps = (PCD_POINTS // 16384) * epochs
+        only(tag, **({"igr_fwd": steps, "igr_bwd": steps} if precision == "bfloat16" else {}))
+        t = PointCloudTrainer(Configuration(str(path)))
+        log = (pathlib.Path(t.train_path) / "train_loss.txt").read_text().splitlines()
+        curve = np.array([float(line.rsplit(" ", 1)[1]) for line in log])
+        stats = dict(trainer_module.LAST_RUN)
+        print(f"pcd_train {precision}: {steps} steps, launches per step "
+              f"{launches[tag]['igr_fwd'] / steps:g} igr_fwd, {launches[tag]['igr_bwd'] / steps:g} "
+              f"igr_bwd, {stats}, train loss " + " ".join(f"{v:.3e}" for v in curve), flush=True)
+        if not (len(curve) == epochs and np.isfinite(curve).all() and curve[-1] < curve[0]):
+            raise RuntimeError(f"{tag}: the loss did not fall: {curve}")
+        out["pcd"][precision] = {"wall_s": wall, **stats, "steps": steps, "train_loss": curve.tolist()}
+        if precision != "bfloat16":
+            continue
+        # reconstruct from the point-cloud checkpoint (the labelled trainer's
+        # modes read it: distributed = False, the same run directory)
+        rec = root / "pcd_reconstruct.ini"
+        rec.write_text(with_keys(text, distributed=False, ppo=True, reconstruct=True, cubesize=128))
+        tag = "pcd_reconstruct/128"
+        wall = run(tag, str(rec))
+        only(tag, fused_grid=1)
+        mesh = load_mesh(str(pathlib.Path(t.postprocess_save_path)
+                             / f"reconstructed_epoch{PCD_EPOCHS - 1}.stl"))
+        radii = np.linalg.norm(mesh.vertices, axis=1)
+        print(f"mesh from the point-cloud field, 128^3: {len(mesh.faces)} faces, vertex radius "
+              f"median {np.median(radii):.4f} (the cloud's sphere: 0.85; reported, not gated: "
+              f"{PCD_EPOCHS} epochs of IGR do not make a clean surface), within 0.02 of it "
+              f"{np.mean(np.abs(radii - 0.85) < 0.02):.3f} of the vertices", flush=True)
+        if len(mesh.faces) < 100 or not np.isfinite(mesh.vertices).all():
+            raise RuntimeError(f"{tag}: no finite mesh came out")
+        out["pcd"]["reconstruct_128"] = {"wall_s": wall, "faces": len(mesh.faces),
+                                         "median_radius": float(np.median(radii))}
     report["pipeline"] = out
     return launches
 
@@ -470,6 +847,7 @@ def main() -> int:
     from sdf_representation_tpu_torch.evaluations import reconstruct
     from sdf_representation_tpu_torch.geometry.mesh_io import load_mesh
     from sdf_representation_tpu_torch.models import ImplicitNet
+    from sdf_representation_tpu_torch.ops import fused_igr as fi
     from sdf_representation_tpu_torch.ops import fused_mlp as fm
     from sdf_representation_tpu_torch.ops import sdf_streams as ss
     from sdf_representation_tpu_torch.ops import sparse_grid as sg
@@ -488,7 +866,7 @@ def main() -> int:
 
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    report["build_s"] = kernels.build_all(["fused_mlp", "sdf_streams"], verbose=True)
+    report["build_s"] = kernels.build_all(["fused_mlp", "sdf_streams", "fused_igr"], verbose=True)
     print(f"build: {report['build_s']} s per source, {time.perf_counter() - t0:.1f} s in all "
           "(one nvcc each, started together)", flush=True)
 
@@ -570,6 +948,7 @@ def main() -> int:
     stream_P, (stream_sb, stream_sc), stream_tables, tri_chunk, stream_errors = check_streams(
         device, report)
     checks.update(stream_errors)
+    igr_cases, igr_errors = check_igr(device, gen, report)
 
     # ---- 4. the main path, once per route -----------------------------------
     run_root = REPO / "build" / "chip_smoke_run"
@@ -599,11 +978,12 @@ def main() -> int:
         torch.cuda.synchronize()
         fm.reset_launches()
         ss.reset_launches()
+        fi.reset_launches()
         t0 = time.perf_counter()
         if cli.main([configs[cubesize]]) != 0:
             raise RuntimeError("the entry point failed")
         wall = time.perf_counter() - t0
-        launches = {**fm.LAUNCHES, **ss.LAUNCHES}
+        launches = {**fm.LAUNCHES, **ss.LAUNCHES, **fi.LAUNCHES}
         stages = dict(reconstruct.LAST_STAGE_SECONDS)
         stages["other (arguments, config, Trainer)"] = wall - sum(stages.values())
         print(f"main path cubesize {cubesize}: launches {launches}, wall s {wall:.3f}, "
@@ -733,6 +1113,84 @@ def main() -> int:
                  "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
                  "pairs": pairs, "ops_per_pair": ops, "pairs_per_s": pairs / ms * 1e3}
         print(f"time {name}: " + json.dumps(entry), flush=True)
+        if entry["launches"] < 1:
+            raise RuntimeError(f"{name} was launched on no run of the main path")
+        kernels_line.append(entry)
+    # igr_fwd and igr_bwd at the eikonal runs' shapes: the labelled step's
+    # 16,384 points at 8x512, the point-cloud step's 16,384 // 3 at 8x256
+    def library_vag(net_model, x, a, c, dt, backward):
+        """The same (f, grad f) — and with ``backward`` the parameter gradients
+        of sum(a f + c . grad f) — through cuBLAS and torch autograd's double
+        backward (the yardstick; the port never calls it)."""
+        params = [(w.detach().to(dt).requires_grad_(backward), b.detach().to(dt).requires_grad_(backward))
+                  for w, b in net_model.effective_layers()]
+        xx = x.to(dt).requires_grad_(True)
+        h = xx
+        for i, (w, b) in enumerate(params):
+            if i in net_model.skip_in:
+                h = torch.cat([h, xx], -1) * (1 / math.sqrt(2))
+            h = torch.addmm(b, h, w.T)
+            if i < len(params) - 1:
+                h = torch.nn.functional.softplus(h, beta=net_model.beta)
+        f = h[:, 0]
+        (g,) = torch.autograd.grad(f.sum(), xx, create_graph=backward)
+        if backward:
+            torch.autograd.grad((a.to(dt) * f).sum() + (c.to(dt) * g).sum(),
+                                [t for pair in params for t in pair])
+
+    for name, replaces in (
+        ("igr_fwd", "sdf_representation_tpu/ops/pallas_igr.py:209 _fused_vag_fwd"),
+        ("igr_bwd", "sdf_representation_tpu/ops/pallas_igr.py:412 _fused_vag_bwd"),
+    ):
+        by_run = {tag: counts[name] for tag, counts in runs.items() if counts[name]}
+        entry = {"name": name, "route": "cuda", "source": "sdf_representation_tpu_torch/csrc/fused_igr.cu",
+                 "replaces": replaces, "launches": sum(by_run.values()), "launches_by_run": by_run}
+        for case, (net_model, x, a, c) in igr_cases.items():
+            n, d = x.shape
+            shapes = net_model.layer_shapes()
+            macs = sum(fi_ * fo for fi_, fo in shapes)
+            mac0 = shapes[0][0] * shapes[0][1]
+            for dt in (torch.bfloat16, torch.float32):
+                net = fm.FusedNet(net_model, dt)
+                hidden = len(net.spec) - 1
+                wbuf, bbuf, _ = net.packed
+                # what the function must move: the weights and biases once in
+                # the working type, the inputs, the outputs. The kernel's own
+                # traffic (its stash workspace, written and read back, and the
+                # transposed weight copies) is reported beside the bound, not in it.
+                w_bytes = wbuf.numel() * wbuf.element_size() + bbuf.numel() * bbuf.element_size()
+                if name == "igr_fwd":
+                    # one pass forward, one transposed pass back (2 per layer)
+                    ops = 2.0 * n * 2 * macs
+                    rows = -(-n // fi.FWD_TILE_P) * fi.TILE_ROWS
+                    bytes_ = n * d * 4 + w_bytes + n * (1 + d) * 4
+                    run = lambda: fi.fused_value_and_grad(net, x)
+                    plain = lambda: fi.fused_value_and_grad_plain(net, x)
+                    lib = lambda: library_vag(net_model, x, a, c, dt, False)
+                else:
+                    # two chains forward, two back (no W^T pass below the first
+                    # layer), two into dW (~6 per layer); out: f32 dW and db
+                    ops = 2.0 * n * (2 * macs + 2 * (macs - mac0) + 2 * macs)
+                    rows = -(-n // fi.BWD_TILE_P) * fi.TILE_ROWS
+                    bytes_ = n * (2 * d + 1) * 4 + w_bytes + (wbuf.numel() + bbuf.numel()) * 4
+                    run = lambda: fi.fused_param_grads(net, x, a, c)
+                    plain = lambda: fi.fused_param_grads_plain(net, x, a, c)
+                    lib = lambda: library_vag(net_model, x, a, c, dt, True)
+                stash_bytes = hidden * rows * net.h_pad * 4
+                t_bytes, t_ops = bytes_ / MEM_BW * 1e3, ops / PEAK[dt] * 1e3
+                ms, plain_ms, lib_ms = timed(run, 5), timed(plain, 2), timed(lib, 3)
+                numbers = {"max_abs_err": igr_errors[name, case, dt], "ms": ms, "plain_ms": plain_ms,
+                           "bound_ms": max(t_bytes, t_ops),
+                           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                           "library_ms": lib_ms, "points": n, "bound_bytes": bytes_,
+                           "stash_bytes": stash_bytes,
+                           "tflops": ops / ms / 1e9, "points_per_s": n / ms * 1e3}
+                tag = str(dt).split(".")[1]
+                print(f"time {name}/{case}/{tag}: " + json.dumps(numbers), flush=True)
+                if case == "8x512/n16384" and dt == torch.bfloat16:
+                    entry.update(numbers, dtype="bfloat16", shape=case)
+                else:
+                    entry[f"{case}/{tag}"] = numbers
         if entry["launches"] < 1:
             raise RuntimeError(f"{name} was launched on no run of the main path")
         kernels_line.append(entry)

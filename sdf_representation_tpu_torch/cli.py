@@ -6,8 +6,9 @@ is given. Modes, as in the JAX package: ``samplingonly = True`` samples and
 labels the training points; ``ppo = True`` reconstructs a mesh
 (``reconstruct = True``) or audits the field's accuracy on the dense grid
 (``reconstruct = False``) from the run's checkpoints; otherwise it samples
-if needed, trains and writes checkpoints. The point-cloud trainer
-(``distributed = True``) is not ported yet.
+if needed, trains and writes checkpoints. ``distributed = True`` selects the
+point-cloud (IGR) trainer, which fits the field to bare surface points
+(``<geometry>/surface.csv``).
 """
 
 from __future__ import annotations
@@ -30,12 +31,9 @@ def main(argv=None) -> int:
     print(f"Running with config file: {args.config}")
 
     from .configgen import Configuration
-    from .training import Trainer
+    from .training import PointCloudTrainer, Trainer
 
     config = Configuration(args.config)
-    if config.distributed:
-        raise NotImplementedError(
-            "the point-cloud (IGR) trainer is slice 3 of the port, see ROADMAP.md"
-        )
-    Trainer(config, device=args.device, compute_dtype=_DTYPES[args.compute_dtype]).run()
+    trainer_cls = PointCloudTrainer if config.distributed else Trainer
+    trainer_cls(config, device=args.device, compute_dtype=_DTYPES[args.compute_dtype]).run()
     return 0

@@ -125,6 +125,6 @@ class Configuration:
         )
 
     def make_loss(self):
-        """The configured loss (raises NotImplementedError for the eikonal
-        family, which is not ported yet)."""
+        """The configured loss, with the [Loss] section's other keys as its
+        fields."""
         return get_loss_class(self.loss_name)(**self.loss_kwargs)

@@ -15,8 +15,9 @@ Kept semantics:
     validation rows are ``perm[:ceil(test_size * n)]`` and the training rows
     the rest, in that order (sklearn's ShuffleSplit).
 
-The ``pcd`` branch (a bare point CSV with no labels) belongs to the
-point-cloud trainer and is not ported yet.
+The ``pcd`` branch (a run whose name holds "pcd"): ``config.geometry`` is one
+CSV of bare points with columns ``x``, ``y``, ``z`` among its header's; there
+are no labels, so the targets have shape (N, 0).
 """
 
 from __future__ import annotations
@@ -72,17 +73,17 @@ def split_indices(n: int, test_size: float, seed: int = RANDOM_SEED_TEST_SPLIT):
 
 
 def load_data(data_path: str, config) -> SDFDataset:
-    if "pcd" in config.name:
-        raise NotImplementedError(
-            "point-cloud (pcd) datasets belong to the IGR slice of the port: see ROADMAP.md"
-        )
-    names = ["uniform.csv", "surface.csv", "narrow.csv"]
-    frames = [frame_from_csv(os.path.join(data_path, name)) for name in names]
-    if config.mismatchuse:
-        mismatch = frame_from_csv(os.path.join(data_path, "mismatch.csv"))
-        if mismatch is None:
-            raise FileNotFoundError(os.path.join(data_path, "mismatch.csv"))
-        frames.append(mismatch)
+    pcd = "pcd" in config.name
+    if pcd:
+        frames = [frame_from_csv(config.geometry)]
+    else:
+        names = ["uniform.csv", "surface.csv", "narrow.csv"]
+        frames = [frame_from_csv(os.path.join(data_path, name)) for name in names]
+        if config.mismatchuse:
+            mismatch = frame_from_csv(os.path.join(data_path, "mismatch.csv"))
+            if mismatch is None:
+                raise FileNotFoundError(os.path.join(data_path, "mismatch.csv"))
+            frames.append(mismatch)
 
     frames = [f for f in frames if f is not None and len(f) > 1]
     if not frames:
@@ -93,8 +94,16 @@ def load_data(data_path: str, config) -> SDFDataset:
     if len(data) < 1000:
         raise ValueError("Very Less Points")
 
-    X = data[:, :-4].astype(np.float32)
-    Y = data[:, -4:].astype(np.float32)
+    if pcd:
+        columns = frames[0].columns
+        missing = [name for name in "xyz" if name not in columns]
+        if missing:
+            raise ValueError(f"{config.geometry} has no column {missing}: a point cloud needs x, y, z")
+        X = data[:, [columns.index(name) for name in "xyz"]].astype(np.float32)
+        Y = np.zeros((len(X), 0), dtype=np.float32)
+    else:
+        X = data[:, :-4].astype(np.float32)
+        Y = data[:, -4:].astype(np.float32)
     train, val = split_indices(len(X), config.train_test_split)
     return SDFDataset(
         np.ascontiguousarray(X[train]),

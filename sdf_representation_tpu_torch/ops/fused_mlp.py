@@ -53,8 +53,10 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def prepare_fused_weights(model, compute_dtype=torch.bfloat16):
+def prepare_fused_weights(model, compute_dtype=torch.bfloat16, layers=None):
     """Pad/split the weights as pallas_mlp.prepare_fused_weights does.
+    ``layers``: per layer (weight (out, in), bias) to take instead of the
+    module's own (copies in another type, as a mixed-precision step makes).
 
     Returns (flat list of tensors, spec, h_pad): per layer an (in, out)
     matrix padded to LANE multiples — split at the concat boundary into
@@ -74,7 +76,7 @@ def prepare_fused_weights(model, compute_dtype=torch.bfloat16):
     out: List[torch.Tensor] = []
     spec: List[str] = []
     with torch.no_grad():
-        for layer, (w, b) in enumerate(model.effective_layers()):
+        for layer, (w, b) in enumerate(model.effective_layers() if layers is None else layers):
             w = w.detach().float().T  # (in, out)
             fan_in = w.shape[0]
             out_pad = h_pad if layer < n_lin - 1 else LANE
@@ -96,10 +98,10 @@ class FusedNet:
     """A net's weights prepared once for the fused kernels and their plain
     versions, on the module's device, in ``compute_dtype``."""
 
-    def __init__(self, model, compute_dtype=torch.bfloat16):
+    def __init__(self, model, compute_dtype=torch.bfloat16, layers=None):
         if compute_dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(f"compute_dtype must be bfloat16 or float32, got {compute_dtype}")
-        self.weights, self.spec, self.h_pad = prepare_fused_weights(model, compute_dtype)
+        self.weights, self.spec, self.h_pad = prepare_fused_weights(model, compute_dtype, layers)
         self.d_in = model.d_in
         self.beta = float(model.beta)
         self.dtype = compute_dtype
@@ -126,27 +128,50 @@ class FusedNet:
         ]
 
     @functools.cached_property
-    def packed(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """(weights flat in compute_dtype, biases flat f32, int64 descriptor
-        (n_lin, 6)) in the layout csrc/fused_mlp.cu reads."""
-        mats, biases, desc = [], [], []
+    def layout(self) -> List[List[int]]:
+        """Per layer the descriptor row the CUDA sources read: [rows of the
+        hidden-input matrix, padded output width, skip flag, bias offset,
+        offset of the hidden-input matrix or -1, offset of the coordinate-
+        input matrix or -1], offsets in elements of the flat buffers."""
+        rows = []
         w_off = b_off = 0
         for kind, w_h, w_x, b in self.layers:
             n = b.numel()
             row = [0 if w_h is None else w_h.shape[0], n, int(kind == "skip"), b_off, -1, -1]
             if w_h is not None:
                 row[4] = w_off
-                mats.append(w_h.reshape(-1))
                 w_off += w_h.numel()
             if w_x is not None:
                 row[5] = w_off
-                mats.append(w_x.reshape(-1))
                 w_off += w_x.numel()
-            biases.append(b)
             b_off += n
-            desc.append(row)
+            rows.append(row)
+        return rows
+
+    @functools.cached_property
+    def packed(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(weights flat in compute_dtype, biases flat f32, int64 descriptor
+        (n_lin, 6)) in the layout csrc/fused_mlp.cu reads (``layout``)."""
+        mats = [w.reshape(-1) for _, w_h, w_x, _ in self.layers for w in (w_h, w_x) if w is not None]
+        biases = [b for *_, b in self.layers]
         return (torch.cat(mats).contiguous(), torch.cat(biases).contiguous(),
-                torch.tensor(desc, dtype=torch.int64, device=self.device))
+                torch.tensor(self.layout, dtype=torch.int64, device=self.device))
+
+    @functools.cached_property
+    def transposed(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(W^T of every hidden-to-hidden matrix, flat in compute_dtype; int64
+        offsets per layer, -1 where a layer has none) for csrc/fused_igr.cu,
+        whose reverse sweeps multiply by W^T and stream rows."""
+        mats, offsets, off = [], [], 0
+        for layer, (_, w_h, _, _) in enumerate(self.layers):
+            if w_h is None or layer == len(self.layers) - 1:
+                offsets.append(-1)
+            else:
+                offsets.append(off)
+                mats.append(w_h.T.contiguous().reshape(-1))
+                off += w_h.numel()
+        flat = torch.cat(mats) if mats else torch.zeros(1, dtype=self.dtype, device=self.device)
+        return flat, torch.tensor(offsets, dtype=torch.int64, device=self.device)
 
 
 # ---------------------------------------------------------------------------

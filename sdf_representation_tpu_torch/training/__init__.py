@@ -1,3 +1,4 @@
+from .pcd_trainer import PointCloudTrainer
 from .trainer import Trainer
 
-__all__ = ["Trainer"]
+__all__ = ["PointCloudTrainer", "Trainer"]

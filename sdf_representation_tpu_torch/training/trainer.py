@@ -16,12 +16,27 @@ training, checkpoints and the mode dispatch of ``run``.
     ``min_epochs`` / ``patience``; model_epoch{E}.ckpt every ``checkpointing``
     epochs; checkpoints carry optimizer and scheduler state through resume.
   * losses stay on the device within an epoch: one host read per epoch.
+  * a loss's learnable scalars (``needs_aux``: GaussBonnetLoss's Euler
+    characteristic, initial value 2.0) are parameters beside the model's:
+    given to Adam, saved in the checkpoints under ``"aux"`` (a key that
+    checkpoints of the other losses do not have).
+  * every step gets a ``torch.Generator`` on the device seeded from
+    (init_seed + 1, epoch, step) for losses that draw points (IGRLOSSPCD);
+    validation seeds it with 0.
 
 Not carried over from the JAX trainer: its jitted multi-epoch block
 (``epochs_per_call``), which exists to amortise dispatch latency there; the
-key is read and ignored. The matrix products of training are library
-matmuls here as they are XLA's there: the supervised step has no
-hand-written kernel in either package.
+key is read and ignored. The matrix products of the supervised step are
+library matmuls here as they are XLA's there: that step has no hand-written
+kernel in either package. The eikonal (IGR) step does: (f, grad_x f) and its
+parameter gradients run through the hand-written kernels of
+ops/fused_igr.py under the JAX package's rule (``use_fused_igr``):
+``train_matmul_precision = bfloat16``, not the Lipschitz variant, and the
+model on a card. There the fast path IS the kernel (a build or launch
+failure raises). In every other configuration it is
+``ops.diffops.implicitnet_value_and_grad`` under torch autograd, which is
+what the JAX package leaves to XLA. Validation always takes the latter, in
+float32, as the JAX package's does.
 
 ``train_matmul_precision``:
   None            float32 everywhere.
@@ -49,6 +64,8 @@ import torch
 
 from ..configgen.config_reader import Configuration
 from ..data.dataset import SDFDataset, load_data
+from ..ops.diffops import implicitnet_value_and_grad
+from ..ops.fused_igr import make_fused_value_and_grad
 from ..utils.device import resolve_device
 from ..utils.files import create_directory
 from . import checkpoint as ckpt
@@ -76,12 +93,38 @@ def _matmul_precision(precision: Optional[str]):
         torch.set_float32_matmul_precision(before)
 
 
-def bind_apply(model, precision: Optional[str]) -> Callable[[torch.Tensor], torch.Tensor]:
-    """The forward a training step differentiates: the module itself, or for
+def use_fused_igr(model, precision: Optional[str]) -> bool:
+    """Whether the eikonal fast path is the fused kernels: mixed precision
+    asked for, not the Lipschitz variant (the kernels' backward yields weight
+    and bias gradients only), and the model on a card (the JAX package's rule,
+    trainer.py:147-153, with "on a card" for "the backend is not the CPU")."""
+    device = next(model.parameters()).device
+    return precision == "bfloat16" and not model.lipschitz and device.type == "cuda"
+
+
+def bind_apply(model, precision: Optional[str] = None,
+               fused_igr: bool = False) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The forward a training step differentiates: the module, or for
     "bfloat16" the module run on bfloat16 copies of its float32 master
-    parameters and of its input, its output widened back to float32."""
+    parameters and of its input, its output widened back to float32.
+
+    The callable advertises the (f, grad_x f) fast path that
+    ``ops.diffops.sdf_and_gradient_fwd`` consumes as ``_implicitnet_fast``:
+    the fused kernels (``fused_igr``) or the shared-matmul derivation; for
+    "bfloat16" it too runs on bfloat16 copies of the parameters and of ``x``
+    and widens its outputs."""
+    if fused_igr:
+        fast = make_fused_value_and_grad(model)
+    else:
+        def fast(x, layers=None):
+            return implicitnet_value_and_grad(model, x, layers)
+
     if precision != "bfloat16":
-        return model
+        def apply(x: torch.Tensor) -> torch.Tensor:
+            return model(x)
+
+        apply._implicitnet_fast = fast
+        return apply
 
     def apply(x: torch.Tensor) -> torch.Tensor:
         params = {k: (v.to(torch.bfloat16) if v.dtype == torch.float32 else v)
@@ -89,22 +132,30 @@ def bind_apply(model, precision: Optional[str]) -> Callable[[torch.Tensor], torc
         out = torch.func.functional_call(model, params, (x.to(torch.bfloat16),))
         return out.to(torch.float32)
 
+    def fast_mixed(x: torch.Tensor):
+        layers = [(w.to(torch.bfloat16), b.to(torch.bfloat16))
+                  for w, b in model.effective_layers()]
+        value, grad = fast(x.to(torch.bfloat16), layers)
+        return value.to(torch.float32), grad.to(torch.float32)
+
+    apply._implicitnet_fast = fast_mixed
     return apply
 
 
 def make_train_step(model, loss_fn, optimizer: torch.optim.Optimizer,
-                    precision: Optional[str] = None) -> Callable:
-    """(x, y, epoch) -> loss (a detached scalar tensor on the device): one
-    optimizer update on the batch."""
+                    precision: Optional[str] = None, aux=None) -> Callable:
+    """(x, y, epoch, generator=None) -> loss (a detached scalar tensor on the
+    device): one optimizer update on the batch. ``aux``: the loss's learnable
+    scalars (the optimizer must hold them too)."""
     if precision not in PRECISIONS:
         raise ValueError(f"train_matmul_precision must be one of {PRECISIONS}, got {precision!r}")
-    apply = bind_apply(model, precision)
+    apply = bind_apply(model, precision, use_fused_igr(model, precision))
     lipschitz = model.lipschitz and model.lipschitz_weight > 0
 
-    def step(xb: torch.Tensor, yb: torch.Tensor, epoch: int) -> torch.Tensor:
+    def step(xb: torch.Tensor, yb: torch.Tensor, epoch: int, generator=None) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
         with _matmul_precision(precision):
-            value = loss_fn(apply, xb, yb, epoch)
+            value = loss_fn(apply, xb, yb, epoch, generator=generator, aux=aux)
             if lipschitz:
                 # arXiv:2202.08345 eq. 7: alpha * prod softplus(c_i)
                 value = value + model.lipschitz_weight * model.lipschitz_bound()
@@ -183,6 +234,8 @@ class Trainer:
             generator=torch.Generator().manual_seed(init_seed), device=self.device
         )
         self._plot_skip_said = False
+        # the loss's learnable scalars (``needs_aux``), made by ``train``
+        self.aux: Dict[str, torch.nn.Parameter] = {}
 
     # -- sampling ----------------------------------------------------------
 
@@ -231,7 +284,7 @@ class Trainer:
         (``lr_gamma``) the rate every ``lr_step`` epochs; None without
         ``lr_step``."""
         c = self.config
-        optimizer = torch.optim.Adam(self.model.parameters(), lr=c.lr,
+        optimizer = torch.optim.Adam([*self.model.parameters(), *self.aux.values()], lr=c.lr,
                                      betas=(0.9, 0.999), eps=1e-8)
         scheduler = None
         if c.lr_step and c.lr_step > 0:
@@ -248,6 +301,10 @@ class Trainer:
         perm = torch.randperm(n_train, generator=gen, device=self.device)
         return perm[: n_batches * batch].reshape(n_batches, batch)
 
+    def _step_seed(self, epoch: int, step: int) -> int:
+        """Seed of one step's generator: (init_seed + 1, epoch, step)."""
+        return ((self.init_seed + 1) << 44) + ((epoch + 1) << 20) + step
+
     def _validate(self, loss_fn, Xv, Yv, batch: int, epoch: int) -> Optional[torch.Tensor]:
         """Mean float32 loss over min(batch, n_val)-sized validation batches
         (the remainder dropped); None without validation data."""
@@ -256,9 +313,14 @@ class Trainer:
             return None
         vb = min(batch, n_val)
         n_vbatches = max(1, n_val // vb)
+        apply = bind_apply(self.model)
+        gen = torch.Generator(device=self.device)
+        losses = []
         with torch.no_grad():
-            losses = [loss_fn(self.model, Xv[i * vb:(i + 1) * vb], Yv[i * vb:(i + 1) * vb], epoch)
-                      for i in range(n_vbatches)]
+            for i in range(n_vbatches):
+                gen.manual_seed(0)
+                losses.append(loss_fn(apply, Xv[i * vb:(i + 1) * vb], Yv[i * vb:(i + 1) * vb],
+                                      epoch, generator=gen, aux=self.aux))
         return torch.stack(losses).mean()
 
     def train(self, dataset: Optional[SDFDataset] = None) -> Dict[str, Any]:
@@ -275,6 +337,8 @@ class Trainer:
         Xv = torch.from_numpy(dataset.val_x).to(dev)
         Yv = torch.from_numpy(dataset.val_y).to(dev)
 
+        self.aux = {name: torch.nn.Parameter(torch.tensor(2.0, device=dev))
+                    for name in getattr(loss_fn, "needs_aux", ())}
         optimizer, scheduler = self._make_optimizer()
         start_epoch = 0
         train_losses: list = []
@@ -285,6 +349,9 @@ class Trainer:
         if c.contd and os.path.exists(best_path):
             state = ckpt.load_checkpoint(best_path)
             self.model.load_state_dict(state["model"])
+            with torch.no_grad():
+                for name, value in state.get("aux", {}).items():
+                    self.aux[name].copy_(value)
             if "optimizer" in state:  # optimizer state resumes
                 optimizer.load_state_dict(state["optimizer"])
                 if scheduler is not None and state.get("scheduler") is not None:
@@ -296,14 +363,18 @@ class Trainer:
             print(f"Resumed from {best_path} at epoch {start_epoch}")
 
         batch = min(c.batchsize, dataset.n_train)
-        step = make_train_step(self.model, loss_fn, optimizer, c.train_matmul_precision)
+        step = make_train_step(self.model, loss_fn, optimizer, c.train_matmul_precision,
+                               aux=self.aux)
+        step_gen = torch.Generator(device=dev)
         loss_log = os.path.join(self.train_path, "train_loss.txt")
         epochs_no_improve = 0
         points_per_epoch = (dataset.n_train // batch) * batch
 
         def state_at(epoch: int) -> Dict[str, Any]:
+            aux = {name: p.detach().clone() for name, p in self.aux.items()}
             return {
                 "model": self.model.state_dict(),
+                **({"aux": aux} if aux else {}),
                 "epoch": epoch,
                 "optimizer": optimizer.state_dict(),
                 "scheduler": None if scheduler is None else scheduler.state_dict(),
@@ -316,8 +387,10 @@ class Trainer:
         final_epoch = start_epoch - 1
         for epoch in range(start_epoch, c.epochs):
             final_epoch = epoch
-            losses = [step(X[idx], Y[idx], epoch)
-                      for idx in self._epoch_batches(epoch, dataset.n_train, batch)]
+            losses = []
+            for i, idx in enumerate(self._epoch_batches(epoch, dataset.n_train, batch)):
+                step_gen.manual_seed(self._step_seed(epoch, i))
+                losses.append(step(X[idx], Y[idx], epoch, step_gen))
             if scheduler is not None:
                 scheduler.step()
             train_loss = torch.stack(losses).mean()

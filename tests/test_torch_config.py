@@ -48,9 +48,14 @@ def test_make_model_builds_the_flagship_architecture():
     loss = cfg.make_loss()
     assert type(loss).__name__ == "WeightedSmoothL2Loss"
     assert (loss.weight_factor, loss.delta) == (0.5, 0.1)
-    # the eikonal family waits for its kernels
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Configuration(str(REPO / "configs/pointcloud_igr.ini")).make_loss()
+    # the point-cloud config: the eikonal family, 8x256, the point-cloud trainer
+    pcd = Configuration(str(REPO / "configs/pointcloud_igr.ini"))
+    jax_pcd = JaxConfiguration(str(REPO / "configs/pointcloud_igr.ini"))
+    loss, jax_loss = pcd.make_loss(), jax_pcd.make_loss()
+    assert type(loss).__name__ == type(jax_loss).__name__ == "IGRLOSSPCD"
+    assert (loss.delta, loss.lambda_g, loss.local_sigma, loss.global_sigma) == (
+        jax_loss.delta, jax_loss.lambda_g, jax_loss.local_sigma, jax_loss.global_sigma)
+    assert pcd.distributed and pcd.make_model().hidden_dims == (256,) * 8
 
 
 def test_unported_model_family_raises(tmp_path):

@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain versions at shapes the flagship does
 not reach: the fused forward at one to four 128-column output groups, skip
 and no skip, ReLU, a ragged last grid tile, 2-d points; the exact-SDF streams
-at ragged tilings, sparse schedules and unvisited blocks. Needs an NVIDIA card:
+at ragged tilings, sparse schedules and unvisited blocks; the fused
+(f, grad_x f) kernels and their backward at those widths, at point counts
+below a tile and off a tile multiple, and through autograd. Needs an NVIDIA card:
 a CUDA kernel has no CPU mode, so elsewhere these skip. On the card:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda_kernels.py -q
@@ -15,6 +17,7 @@ import torch
 
 from sdf_representation_tpu_torch.models import ImplicitNet
 from sdf_representation_tpu_torch.geometry.primitives import make_box, make_icosphere
+from sdf_representation_tpu_torch.ops import fused_igr as fi
 from sdf_representation_tpu_torch.ops import fused_mlp as fm
 from sdf_representation_tpu_torch.ops import sdf_exact as se
 from sdf_representation_tpu_torch.ops import sdf_streams as ss
@@ -145,3 +148,104 @@ def test_streams_refuse_what_the_kernels_do_not_take(device):
         ss.dist_stream(P.expand(2, 8, 3)[:, ::2], sb, sc, tables, 16)
     with pytest.raises(ValueError, match="outside the table"):
         ss.wind_stream(P, sb, sc + 7, tables, 16)
+
+
+# ---- the fused (f, grad_x f) kernels and their backward ----------------------
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hidden,layers,skip,beta,n", [
+    (64, 4, (2,), 100.0, 200), (200, 2, (), 100.0, 17), (384, 3, (1,), 100.0, 1000),
+    (509, 5, (4,), 100.0, 3001), (256, 1, (), 100.0, 64),
+])
+def test_igr_kernels_match_plain(device, hidden, layers, skip, beta, n, dt):
+    """f, grad f, and every dW and db against the plain versions. Limits:
+    f32 1e-4 of each tensor's largest entry (summation order, carried on
+    by sigma' with a factor of up to beta / 4; the atomics' order); bf16 max
+    1e-2 of it and mean 1e-3 (a sum in another order can round to the
+    neighbouring bf16 value)."""
+    gen = torch.Generator().manual_seed(hidden + n)
+    model = ImplicitNet(hidden_dims=(hidden,) * layers, skip_in=skip, beta=beta, radius_init=0.5,
+                        generator=gen, device=device)
+    net = fm.FusedNet(model, dt)
+    x = (torch.rand(n, 3, generator=gen) * 2 - 1).to(device)
+    a = (torch.randn(n, generator=gen) / n).to(device)
+    c = (torch.randn(n, 3, generator=gen) / n).to(device)
+    max_tol, mean_tol = (1e-4, 1e-5) if dt == torch.float32 else (1e-2, 1e-3)
+
+    def close(got, want, what):
+        scale = max(float(want.abs().max()), 1e-6)
+        diff = (got - want).abs() / scale
+        assert torch.isfinite(got).all(), what
+        assert float(diff.max()) <= max_tol and float(diff.mean()) <= mean_tol, what
+
+    before = dict(fi.LAUNCHES)
+    f, g = fi.fused_value_and_grad(net, x)
+    grads = fi.fused_param_grads(net, x, a, c)
+    torch.cuda.synchronize()
+    assert fi.LAUNCHES == {"igr_fwd": before["igr_fwd"] + 1, "igr_bwd": before["igr_bwd"] + 1}
+    pf, pg = fi.fused_value_and_grad_plain(net, x)
+    close(f, pf, "f")
+    close(g, pg, "grad f")
+    shapes = [w.shape for w, _ in model.effective_layers()]
+    got = fi.unpack_grads(3, shapes, grads)
+    want = fi.unpack_grads(3, shapes, fi.fused_param_grads_plain(net, x, a, c))
+    for i, (u, v) in enumerate(zip(got, want)):
+        close(u, v, f"gradient {i}")
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_igr_relu_tanh_head(device, dt):
+    """ReLU + tanh head: step'(z) flips where z changes sign under another
+    summation order, which moves grad f at single points by a whole term, so
+    grad f and the gradients are held by their mean."""
+    gen = torch.Generator().manual_seed(5)
+    model = ImplicitNet(hidden_dims=(256,) * 4, skip_in=(2,), beta=0.0, radius_init=0.5,
+                        generator=gen, device=device)
+    net = fm.FusedNet(model, dt)
+    x = (torch.rand(2000, 3, generator=gen) * 2 - 1).to(device)
+    a = (torch.randn(2000, generator=gen) / 2000).to(device)
+    c = (torch.randn(2000, 3, generator=gen) / 2000).to(device)
+    f, g = fi.fused_value_and_grad(net, x)
+    pf, pg = fi.fused_value_and_grad_plain(net, x)
+    assert float((f - pf).abs().max()) <= (2e-5 if dt == torch.float32 else 3e-3)
+    assert float((g - pg).abs().mean()) <= 1e-4
+    shapes = [w.shape for w, _ in model.effective_layers()]
+    got = fi.unpack_grads(3, shapes, fi.fused_param_grads(net, x, a, c))
+    want = fi.unpack_grads(3, shapes, fi.fused_param_grads_plain(net, x, a, c))
+    for u, v in zip(got, want):
+        assert float((u - v).abs().mean()) <= 1e-2 * max(float(v.abs().mean()), 1e-6)
+
+
+def test_igr_autograd_on_the_card(device):
+    """The autograd.Function on the card: parameter gradients agree with
+    autograd through the shared-matmul derivation; x gets none."""
+    from sdf_representation_tpu_torch.ops.diffops import implicitnet_value_and_grad
+
+    gen = torch.Generator().manual_seed(9)
+    model = ImplicitNet(hidden_dims=(128,) * 3, skip_in=(2,), beta=100.0, radius_init=0.5,
+                        generator=gen, device=device)
+    x = (torch.rand(777, 3, generator=gen) * 2 - 1).to(device).requires_grad_(True)
+
+    def loss(f, g):
+        return torch.mean(torch.sin(3.0 * f)) + torch.mean((torch.sum(g * g, -1) - 1.0) ** 2)
+
+    loss(*fi.make_fused_value_and_grad(model, torch.float32)(x)).backward()
+    got = {n: p.grad.clone() for n, p in model.named_parameters()}
+    assert x.grad is None
+    model.zero_grad()
+    loss(*implicitnet_value_and_grad(model, x.detach())).backward()
+    for name, p in model.named_parameters():
+        scale = float(p.grad.abs().max())
+        assert float((got[name] - p.grad).abs().max()) <= 1e-4 * scale, name
+
+
+def test_igr_refusals(device):
+    model = ImplicitNet(hidden_dims=(640,) * 2, skip_in=(), beta=100.0, device=device)
+    x = torch.zeros(8, 3, device=device)
+    with pytest.raises(ValueError, match="exceeds"):
+        fi.fused_value_and_grad(fm.FusedNet(model, torch.float32), x)
+    small = ImplicitNet(hidden_dims=(64,) * 2, skip_in=(), beta=100.0, device=device)
+    with pytest.raises(ValueError, match="float32"):
+        fi.fused_value_and_grad(fm.FusedNet(small, torch.float32), x.double())
+    with pytest.raises(ValueError, match="weights are on"):
+        fi.fused_value_and_grad(fm.FusedNet(small.cpu(), torch.float32), x)

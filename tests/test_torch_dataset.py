@@ -95,7 +95,20 @@ def test_short_frames_dropped_and_too_few_points_refused(tmp_path):
     (tmp_path / "uniform.csv").unlink()
     with pytest.raises(ValueError, match="Very Less Points"):
         dataset.load_data(str(tmp_path), _config())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dataset.load_data(str(tmp_path), _config(name="bunny_pcd"))
+    # a run name holding "pcd": ``geometry`` is one CSV of bare points, no labels
+    rng = np.random.default_rng(5)
+    cloud = rng.uniform(-1, 1, (1500, 3))
+    cloud_csv = tmp_path / "cloud.csv"
+    np.savetxt(cloud_csv, np.column_stack([np.arange(1500), cloud[:, 2], cloud[:, 0], cloud[:, 1]]),
+               delimiter=",", header=",z,x,y", comments="", fmt=["%d"] + ["%.17g"] * 3)
+    pcd_cfg = _config(name="bunny_pcd", geometry=str(cloud_csv))
+    ours = dataset.load_data(str(tmp_path), pcd_cfg)
+    _assert_same(ours, jax_dataset.load_data(str(tmp_path), pcd_cfg))
+    assert ours.train_y.shape == (1350, 0) and ours.val_x.shape == (150, 3)
+    np.testing.assert_array_equal(np.sort(np.concatenate([ours.train_x, ours.val_x]), axis=0),
+                                  np.sort(cloud.astype(np.float32), axis=0))
+    np.savetxt(cloud_csv, cloud[:, :2], delimiter=",", header="x,y", comments="")
+    with pytest.raises(ValueError, match="needs x, y, z"):
+        dataset.load_data(str(tmp_path), pcd_cfg)
     with pytest.raises(FileNotFoundError):
         dataset.load_data(str(tmp_path), _config(mismatchuse=True))

@@ -27,6 +27,9 @@ def test_port_modules_load_no_jax_or_jax_package():
     assert "sdf_representation_tpu_torch.ops.fused_mlp" in mods
     assert "sdf_representation_tpu_torch.ops.sdf_streams" in mods
     assert "sdf_representation_tpu_torch.evaluations.post_process" in mods
+    assert "sdf_representation_tpu_torch.ops.fused_igr" in mods
+    assert "sdf_representation_tpu_torch.ops.diffops" in mods
+    assert "sdf_representation_tpu_torch.training.pcd_trainer" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -4,6 +4,8 @@ value and its gradient with respect to every parameter, rtol 1e-5 (f32
 summation order; the atol of 1e-6 of the largest gradient entry covers
 entries that are sums of cancelling terms)."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -78,12 +80,13 @@ def test_predictions_are_flat_not_broadcast():
 
 
 def test_registry_and_unported_family():
-    assert set(losses.LOSS_REGISTRY) == {"MSELoss", "CustomSDFLoss", "WeightedSmoothL2Loss",
-                                         "CombinedLoss"}
+    assert set(losses.LOSS_REGISTRY) == set(jax_losses.LOSS_REGISTRY)
     for name in ("IGRLOSS", "IGRLOSSPCD", "RegularizedCustomSDFLoss", "GaussBonnetLoss"):
-        assert name in jax_losses.LOSS_REGISTRY
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            losses.get_loss_class(name)
+        # the eikonal family: the JAX package's fields and defaults
+        ours, theirs = losses.get_loss_class(name)(), jax_losses.get_loss_class(name)()
+        assert type(ours).__name__ == name
+        assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+        assert getattr(ours, "needs_aux", ()) == getattr(theirs, "needs_aux", ())
     with pytest.raises(ValueError, match="Unsupported loss"):
         losses.get_loss_class("NoSuchLoss")
 

@@ -94,11 +94,13 @@ def test_cli_reconstruction_matches_jax(tmp_path, monkeypatch, cubesize, sparse)
 
 def test_unported_modes_and_missing_card_raise(tmp_path):
     cfg = Configuration(_config(tmp_path, 32, ppo=False, rec=False))
-    # what ROADMAP.md still queues raises: the eikonal losses, the 2-D mode
+    # the eikonal losses are ported: the configured loss is built
     cfg.loss_name = "IGRLOSS"
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        Trainer(cfg, device="cpu").run()
+    cfg.loss_kwargs = {"delta": 0.1}
+    assert type(cfg.make_loss()).__name__ == "IGRLOSS"
     cfg.loss_name = "WeightedSmoothL2Loss"
+    cfg.loss_kwargs = {"weight_factor": 0.5, "delta": 0.1}
+    # what ROADMAP.md still queues raises: the 2-D mode
     cfg.two_dim = True
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(cfg, device="cpu").run()
