@@ -25,6 +25,12 @@ Phases, none of which is allowed to fail quietly:
     that margin; signed_distance against the sphere's analytic distance.
     Control: the plain winding with its dots rounded to 10-bit mantissas
     (as TF32 would) must fail the solid-angle limit on the same input.
+    The sharded streams (kernels 6 and 7) on the same points with the
+    schedule the culled method makes for them (Morton blocks of 2,048, the
+    cull against chunks of 512 faces), the card listed 2 and 4 times: d^2,
+    winners and solid angles bit-equal to one launch over all blocks, and
+    within the stream limits of the plain sharded walk; the points' Morton
+    order on the card equals the host's.
     The fused (f, grad_x f) kernel and its params-only backward (igr_fwd,
     igr_bwd) against their plain versions at 8x512 and 8x256 (skip 4, beta
     100), N = 16,384 and an odd N, in f32 and bf16: f, grad f, every dW and
@@ -51,7 +57,10 @@ Phases, none of which is allowed to fail quietly:
     trained checkpoint at 256 and 128. Launch counts are zeroed before each
     run and read after it: labelling and each audit must launch the
     distance and winding streams (the audit the dense grid kernel too), and
-    no plain version may run.
+    no plain version may run. The 256^3 audit takes the culled method (by
+    "auto": 1.7e7 points x 20,480 faces), the 64^3 one the dense sweep; the
+    culled stages, sum_kd, sum_kw and their share of the dense pairs are
+    printed, and the sign accuracy at 256 must be >= 0.999.
  4c. The eikonal path through the same entry point, counts zeroed before
     each run: (a) labelled training with loss_function = IGRLOSS on 4b's
     CSVs at 8x512, batch 16384, train_matmul_precision = bfloat16: igr_fwd
@@ -64,6 +73,14 @@ Phases, none of which is allowed to fail quietly:
     vertex radius reported against 0.85, not gated); (c) both configs once
     with the default precision: by the rule that decides when the kernels
     run (training/trainer.py use_fused_igr) no kernel is launched.
+ 4d. The culled exact signed distance through its entry point,
+    signed_distance(method="culled"), on the 256^3 grid, counts zeroed
+    before each run: against the rescaled icosphere(5) (20,480 faces) on
+    the card, then sharded over the card listed 4 times (only the sharded
+    kernels launch; the result is bit-equal); with the coarse bound (on by
+    N F >= 1e12) against the rescaled icosphere(6) (81,920 faces) and the
+    impeller (444,508 faces, non-convex). Each against method="dense":
+    distances within 1e-6, sign disagreements counted and listed with |d|.
  5. Times with CUDA events at the main path's shapes: kernel, plain version,
     one library layer chain (torch addmm, never called by the port), and
     the bound: the larger of bytes over 3.35 TB/s and operations over the
@@ -77,7 +94,10 @@ Phases, none of which is allowed to fail quietly:
     the bound, not counted in it), and the library yardstick is the same
     (f, grad f) and parameter gradient through cuBLAS and torch autograd's
     double backward (create_graph=True), timed only.
- 6. A `kernels` JSON line with seven entries, then the contract line
+    The sharded streams on phase 3's culled schedule, the card listed 4
+    (and 2) times, against the plain sharded walk; the bound counts the
+    schedule's pairs; the single-device streams are also timed on it.
+ 6. A `kernels` JSON line with nine entries, then the contract line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Details go to build/chip_smoke.json.
@@ -311,19 +331,12 @@ def check_streams(device, report):
         finite = torch.isfinite(pd2)
         over_d, err_d = exceeds(d2[finite], pd2[finite], D2_RTOL, D2_ATOL)
         over_w, err_w = exceeds(w, pw, W_RTOL, W_ATOL)
-        differ = torch.nonzero((best != pbest).flatten()).flatten().cpu().numpy()
-        if len(differ):  # other winners only on ties: equidistant under the f64 oracle
-            q = pts[differ].astype(np.float64)
-            da = np.linalg.norm(q - se.closest_point_on_triangles(
-                q, tri[best.flatten().cpu().numpy()[differ]]), axis=1)
-            db = np.linalg.norm(q - se.closest_point_on_triangles(
-                q, tri[pbest.flatten().cpu().numpy()[differ]]), axis=1)
-            if not np.allclose(da, db, rtol=1e-5, atol=1e-6):
-                raise RuntimeError(f"streams/{tag}: {len(differ)} winners differ and are no ties")
+        n_differ = check_tie_winners(pts, tri, best[:n_blocks].flatten().cpu().numpy(),
+                                     pbest[:n_blocks].flatten().cpu().numpy(), f"streams/{tag}")
         decided = (pw - 2 * math.pi).abs() > margin
         flips = ((w > 2 * math.pi) != (pw > 2 * math.pi))[decided].sum().item()
         print(f"check dist_stream/{tag}: {steps} steps, max |d2 diff| {err_d:.3e} (rtol {D2_RTOL:g}, "
-              f"atol {D2_ATOL:g}), winners differing {len(differ)} (all ties)", flush=True)
+              f"atol {D2_ATOL:g}), winners differing {n_differ} (all ties)", flush=True)
         print(f"check wind_stream/{tag}: max |omega diff| {err_w:.3e} (rtol {W_RTOL:g}, atol "
               f"{W_ATOL:g}), sign flips outside the margin {flips} of {int(decided.sum())}", flush=True)
         if over_d > 0 or over_w > 0 or flips:
@@ -355,7 +368,164 @@ def check_streams(device, report):
     if not (sag < 5e-4 and unit < 1e-4 and radial > 0.99 and np.isfinite(sdf).all()):
         raise RuntimeError("signed_distance disagrees with the analytic sphere")
     report["signed_distance_max_abs_err_vs_analytic"] = sag
-    return P, schedules["dense"], tables, tri_chunk, errors
+    return P, schedules["dense"], tables, tri_chunk, errors, mesh, pts
+
+
+def check_tie_winners(pts, tri, got, want, what):
+    """Winners that differ must be ties: equidistant under the f64 oracle."""
+    from sdf_representation_tpu_torch.ops import sdf_exact as se
+
+    differ = np.nonzero(got != want)[0]
+    if len(differ):
+        q = pts[differ].astype(np.float64)
+        da = np.linalg.norm(q - se.closest_point_on_triangles(q, tri[got[differ]]), axis=1)
+        db = np.linalg.norm(q - se.closest_point_on_triangles(q, tri[want[differ]]), axis=1)
+        if not np.allclose(da, db, rtol=1e-5, atol=1e-6):
+            raise RuntimeError(f"{what}: {len(differ)} winners differ and are no ties")
+    return len(differ)
+
+
+def check_sharded(device, mesh, pts, report):
+    """Phase 3, kernels 6 and 7: the sharded streams on phase 3's points
+    with the schedule the culled method makes for them (Morton blocks of
+    2,048 points, chunks of 512 faces, as "auto" picks for 20,480 faces),
+    the card listed 2 and 4 times: bit-equal to one launch over all blocks,
+    and within the stream limits of the plain sharded walk. Returns what
+    phase 5 times: (points, dist schedule, wind schedule, tables, tri_chunk,
+    errors)."""
+    from sdf_representation_tpu_torch.ops import sdf_culled as sc
+    from sdf_representation_tpu_torch.ops import sdf_exact as se
+    from sdf_representation_tpu_torch.ops import sdf_streams as ss
+
+    tri_chunk, m = 512, 2048
+    faces = mesh.faces[sc._morton_order(mesh.vertices[mesh.faces].mean(axis=1))]
+    order, P = sc._sorted_blocks(pts, m, device)
+    if not np.array_equal(order.cpu().numpy(), sc._morton_order(pts)):
+        raise RuntimeError("the Morton order on the card differs from the host's")
+    n_blocks = P.shape[0]
+    pad = P.reshape(-1, 3).cpu().numpy()
+    tables, _ = se._triangle_tables(mesh.vertices, faces, tri_chunk)
+    centers, radii, _, cbar = sc._chunk_geometry(mesh.vertices, faces, tri_chunk)
+    scale = float(max(np.abs(mesh.vertices).max(), np.abs(pts).max(), 1.0))
+    kd, kw = sc._cull(P, np.full((n_blocks, m), np.inf, np.float32), centers, radii, 2.0,
+                      cbar=cbar, slack=sc._CULL_SLACK * scale)
+    (db, dc, sd), (wb, wc, sw) = ss.stream_steps(kd, n_blocks), ss.stream_steps(kw, n_blocks)
+    print(f"sharded: culled schedule on {len(pts)} points in {n_blocks} blocks of {m}, "
+          f"{kd.shape[1]} chunks of {tri_chunk}: {sd} distance steps ({sd / kd.size:.3f} of "
+          f"dense), {sw} winding steps ({sw / kw.size:.3f})", flush=True)
+    d2, best = ss.dist_stream(P, db, dc, tables, tri_chunk)
+    w = ss.wind_stream(P, wb, wc, tables, tri_chunk)
+    d2, best, w = (t[:n_blocks].cpu().numpy() for t in (d2, best, w))
+    for n_dev in (2, 4):
+        mesh_devices = (device,) * n_dev
+        sd2, sbest = ss.dist_stream_sharded(P, db, dc, tables, tri_chunk, mesh_devices)
+        sw_ = ss.wind_stream_sharded(P, wb, wc, tables, tri_chunk, mesh_devices)
+        same = (np.array_equal(sd2, d2) and np.array_equal(sbest, best)
+                and np.array_equal(sw_, w))
+        print(f"check sharded x{n_dev}: d2, winners and solid angles bit-equal to one launch: "
+              f"{same}", flush=True)
+        if not same:
+            raise RuntimeError(f"sharded x{n_dev}: differs from the single-device launch")
+    pd2, pbest = ss.dist_stream_sharded_plain(P, db, dc, tables, tri_chunk, mesh_devices)
+    pw = ss.wind_stream_sharded_plain(P, wb, wc, tables, tri_chunk, mesh_devices)
+    finite = np.isfinite(pd2)
+    over_d, err_d = exceeds(torch.from_numpy(sd2[finite]), torch.from_numpy(pd2[finite]),
+                            D2_RTOL, D2_ATOL)
+    over_w, err_w = exceeds(torch.from_numpy(sw_), torch.from_numpy(pw), W_RTOL, W_ATOL)
+    ties = check_tie_winners(pad, mesh.vertices[faces], sbest.reshape(-1), pbest.reshape(-1),
+                             "dist_stream_sharded")
+    print(f"check dist_stream_sharded x4: max |d2 diff| {err_d:.3e}, winners differing {ties} "
+          f"(all ties); wind_stream_sharded x4: max |omega diff| {err_w:.3e}", flush=True)
+    if over_d > 0 or over_w > 0 or not np.array_equal(np.isfinite(sd2), finite):
+        raise RuntimeError("sharded streams: kernel and plain version disagree")
+    report["sharded"] = {"blocks": n_blocks, "chunks": kd.shape[1], "dist_steps": sd,
+                         "wind_steps": sw}
+    errors = {"dist_stream_sharded": err_d, "wind_stream_sharded": err_w}
+    return P, (db, dc), (wb, wc), tables, tri_chunk, errors
+
+
+def drive_culled(device, report):
+    """Phase 4d: signed_distance(method="culled") on the 256^3 grid, counts
+    zeroed before each run and read after it, against method="dense": the
+    rescaled icosphere(5) (20,480 faces) on one card and sharded over the
+    card listed 4 times (bit-equal to one card); with the coarse bound (on
+    by N F >= 1e12) the rescaled icosphere(6) (81,920 faces) and the
+    impeller (a non-convex part). Distances within 1e-6 of the dense ones;
+    sign disagreements counted and listed with their |d| (the dipole's far
+    field is approximate: one further than 1e-2 from the surface fails).
+    Returns the launches per run."""
+    from sdf_representation_tpu_torch.geometry.primitives import make_icosphere, make_impeller
+    from sdf_representation_tpu_torch.geometry.rescale import rescale_mesh
+    from sdf_representation_tpu_torch.ops import fused_igr as fi
+    from sdf_representation_tpu_torch.ops import fused_mlp as fm
+    from sdf_representation_tpu_torch.ops import sdf_culled as sc
+    from sdf_representation_tpu_torch.ops import sdf_exact as se
+    from sdf_representation_tpu_torch.ops import sdf_streams as ss
+    from sdf_representation_tpu_torch.ops.grid_eval import grid_coords
+
+    grid = grid_coords(256)
+    launches, out = {}, {}
+
+    def run(tag, **kw):
+        torch.cuda.synchronize()
+        for counters in (fm, ss, fi):
+            counters.reset_launches()
+        with counting_plain_calls((ss,)) as plain:
+            t0 = time.perf_counter()
+            sdf, _ = se.signed_distance(grid, mesh, return_normals=False, **kw)
+            wall = time.perf_counter() - t0
+        launches[tag] = {**fm.LAUNCHES, **ss.LAUNCHES, **fi.LAUNCHES}
+        if any(plain.values()) or any({**fm.LAUNCHES, **fi.LAUNCHES}.values()):
+            raise RuntimeError(f"{tag}: a plain version or another kernel ran: {plain}, "
+                               f"{launches[tag]}")
+        if not (sdf.shape == (len(grid),) and np.isfinite(sdf).all()):
+            raise RuntimeError(f"{tag}: the distances are not finite")
+        return sdf, wall
+
+    for name, mesh in (("icosphere5", rescale_mesh(make_icosphere(5, 0.5))),
+                       ("icosphere6", rescale_mesh(make_icosphere(6, 0.5))),
+                       ("impeller", make_impeller())):
+        sdf, wall = run(f"culled/{name}", method="culled")
+        stages, counts = dict(sc.LAST_STAGE_SECONDS), dict(sc.LAST_COUNTS)
+        lc = launches[f"culled/{name}"]
+        # the coarse bound's node sweep is one more distance launch
+        if not (lc["dist_stream"] == 1 + counts["coarse_bound"] and lc["wind_stream"] == 1
+                and counts["points"] == len(grid) and counts["shards"] == 1):
+            raise RuntimeError(f"culled/{name}: launches {lc}, counts {counts}")
+        if name != "icosphere5" and not counts["coarse_bound"]:
+            raise RuntimeError(f"culled/{name}: the coarse bound did not run")
+        row = {"faces": len(mesh.faces), "wall_s": wall, "stages_s": stages, "counts": counts,
+               "kd_share": counts["sum_kd"] / (counts["blocks"] * counts["dist_chunks"]),
+               "kw_share": counts["sum_kw"] / (counts["blocks"] * counts["chunks"])}
+        if name == "icosphere5":
+            sharded, row["sharded_wall_s"] = run("culled/icosphere5/sharded_x4", method="culled",
+                                                 devices=(device,) * 4)
+            ls = launches["culled/icosphere5/sharded_x4"]
+            if not (ls["dist_stream_sharded"] == 4 and ls["wind_stream_sharded"] == 4
+                    and ls["dist_stream"] == ls["wind_stream"] == 0):
+                raise RuntimeError(f"culled sharded x4: launches {ls}")
+            if not np.array_equal(sharded, sdf):
+                raise RuntimeError("culled sharded x4: differs from the one-card result")
+            row["sharded_stages_s"] = dict(sc.LAST_STAGE_SECONDS)
+        dense, row["dense_wall_s"] = run(f"dense/{name}", method="dense")
+        dist_err = float(np.abs(np.abs(sdf) - np.abs(dense)).max())
+        flips = np.nonzero(np.sign(sdf) != np.sign(dense))[0]
+        row.update(max_abs_dist_err=dist_err, sign_disagreements=len(flips),
+                   sign_disagreement_abs_d=sorted(np.abs(dense[flips]).tolist())[-20:])
+        print(f"culled {name} ({len(mesh.faces)} faces) at 256^3: wall {wall:.3f} s (dense "
+              f"{row['dense_wall_s']:.3f} s{', sharded x4 %.3f s' % row['sharded_wall_s'] if 'sharded_wall_s' in row else ''}), "
+              f"stages (s) {stages}, sum_kd {counts['sum_kd']} ({row['kd_share']:.4f} of the dense "
+              f"pairs), sum_kw {counts['sum_kw']} ({row['kw_share']:.4f}), coarse bound "
+              f"{counts['coarse_bound']}; max | |d| - |d dense| | {dist_err:.3e} (tolerance 1e-6); "
+              f"sign disagreements {len(flips)}, their |d| {row['sign_disagreement_abs_d']}",
+              flush=True)
+        if dist_err > 1e-6:
+            raise RuntimeError(f"culled/{name}: distances differ from the dense method's")
+        if len(flips) and np.abs(dense[flips]).max() > 1e-2:
+            raise RuntimeError(f"culled/{name}: a sign differs at a point far from the surface")
+        out[name] = row
+    report["culled"] = out
+    return launches
 
 
 def gradient_errors(got, want):
@@ -592,6 +762,7 @@ def drive_pipeline(device, run_root, report):
     from sdf_representation_tpu_torch.geometry.rescale import rescale_mesh
     from sdf_representation_tpu_torch.ops import fused_igr as fi
     from sdf_representation_tpu_torch.ops import fused_mlp as fm
+    from sdf_representation_tpu_torch.ops import sdf_culled
     from sdf_representation_tpu_torch.ops import sdf_streams as ss
     from sdf_representation_tpu_torch.sampling import sampler
     from sdf_representation_tpu_torch.training import PointCloudTrainer, Trainer
@@ -706,8 +877,21 @@ def drive_pipeline(device, run_root, report):
     out["audit"] = {}
     for cubesize in (256, 64):
         tag = f"audit/{cubesize}"
+        sdf_culled.LAST_COUNTS.clear()
         wall = run(tag, config(f"audit_{cubesize}", ppo=True, cubesize=cubesize))
         need(tag, "dist_stream", "wind_stream", "fused_grid")
+        # 256^3 x 20,480 faces goes to the culled method by "auto", 64^3 stays dense
+        culled = dict(sdf_culled.LAST_COUNTS)
+        if bool(culled) != (cubesize == 256) or (culled and culled["points"] != cubesize ** 3):
+            raise RuntimeError(f"{tag}: the culled method ran where it should not, or not: {culled}")
+        if culled:
+            culled.update(stages_s=dict(sdf_culled.LAST_STAGE_SECONDS),
+                          kd_share=culled["sum_kd"] / (culled["blocks"] * culled["dist_chunks"]),
+                          kw_share=culled["sum_kw"] / (culled["blocks"] * culled["chunks"]))
+            print(f"audit {cubesize}^3 exact distances by the culled method: stages (s) "
+                  f"{culled['stages_s']}, sum_kd {culled['sum_kd']} ({culled['kd_share']:.4f} of "
+                  f"the dense pairs), sum_kw {culled['sum_kw']} ({culled['kw_share']:.4f})",
+                  flush=True)
         ax = np.linspace(-1, 1, cubesize)
         r2 = ax[:, None, None] ** 2 + ax[None, :, None] ** 2 + ax[None, None, :] ** 2
         baseline = float(np.mean(r2 > 0.85 ** 2))  # calling every point outside
@@ -720,11 +904,13 @@ def drive_pipeline(device, run_root, report):
         if not (result["Resolution"] == cubesize and result["Accuracy"] > baseline
                 and len(row) == 2 + (cubesize == 64) and np.isfinite(last).all()):
             raise RuntimeError(f"audit {cubesize}: no better than calling every point outside")
+        if cubesize == 256 and result["Accuracy"] < 0.999:
+            raise RuntimeError(f"audit 256: sign accuracy {result['Accuracy']} under 0.999")
         for name in ("mismatching_co-ordinates1.csv", "classification_report2.csv"):
             if not (post / name).exists():
                 raise RuntimeError(f"audit {cubesize}: {name} is missing")
         out["audit"][cubesize] = {"wall_s": wall, "stages_s": stages, "result": result,
-                                  "baseline": baseline}
+                                  "baseline": baseline, "culled": culled}
     out["reconstruct_trained"] = {}
     for cubesize in (256, 128):
         tag = f"reconstruct_trained/{cubesize}"
@@ -945,9 +1131,12 @@ def main() -> int:
             # under ReLU, rounding the accumulator and the activation is one rounding
             control("fused_points/relu", relu_net, pts, want, (("coords",), ("acc", "act")))
     del want, blocks, dense
-    stream_P, (stream_sb, stream_sc), stream_tables, tri_chunk, stream_errors = check_streams(
-        device, report)
+    (stream_P, (stream_sb, stream_sc), stream_tables, tri_chunk, stream_errors, stream_mesh,
+     stream_pts) = check_streams(device, report)
     checks.update(stream_errors)
+    shard_P, shard_dist, shard_wind, shard_tables, shard_tc, shard_errors = check_sharded(
+        device, stream_mesh, stream_pts, report)
+    checks.update(shard_errors)
     igr_cases, igr_errors = check_igr(device, gen, report)
 
     # ---- 4. the main path, once per route -----------------------------------
@@ -1015,6 +1204,7 @@ def main() -> int:
     # ---- 4b. sample -> train -> audit -> reconstruct ---------------------------
     runs = {f"reconstruct/{n}": run["launches"] for n, run in main_path.items()}
     runs.update(drive_pipeline(device, run_root, report))
+    runs.update(drive_culled(device, report))
 
     # ---- 5. times -----------------------------------------------------------
     mac = sum(fi * fo for fi, fo in model.layer_shapes())
@@ -1112,6 +1302,47 @@ def main() -> int:
                  "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
                  "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
                  "pairs": pairs, "ops_per_pair": ops, "pairs_per_s": pairs / ms * 1e3}
+        # the same kernel on phase 3's culled schedule (what the culled method runs)
+        sched = shard_dist if name == "dist_stream" else shard_wind
+        c_pairs = int(np.sum(sched[0] < shard_P.shape[0])) * shard_P.shape[1] * shard_tc
+        c_ms = timed(lambda: (ss.dist_stream if name == "dist_stream" else ss.wind_stream)(
+            shard_P, *sched, shard_tables, shard_tc))
+        entry["culled_schedule"] = {"ms": c_ms, "pairs": c_pairs,
+                                    "bound_ms": c_pairs * ops / PEAK[torch.float32] * 1e3}
+        print(f"time {name}: " + json.dumps(entry), flush=True)
+        if entry["launches"] < 1:
+            raise RuntimeError(f"{name} was launched on no run of the main path")
+        kernels_line.append(entry)
+    # kernels 6 and 7: the sharded streams on phase 3's culled schedule, the
+    # card listed 4 (and 2) times; the bound counts the schedule's pairs
+    n_blocks, m_pts, _ = shard_P.shape
+    n_chunks = shard_tables["a"].shape[0]
+    for name, replaces, ops, rows, out_bytes, sched, sharded, plain in (
+        ("dist_stream_sharded",
+         "sdf_representation_tpu/ops/pallas_streams.py:564 dist_stream_pallas_sharded",
+         DIST_OPS_PER_PAIR, 16, 8, shard_dist, ss.dist_stream_sharded, ss.dist_stream_sharded_plain),
+        ("wind_stream_sharded",
+         "sdf_representation_tpu/ops/pallas_streams.py:646 wind_stream_pallas_sharded",
+         WIND_OPS_PER_PAIR, 24, 4, shard_wind, ss.wind_stream_sharded, ss.wind_stream_sharded_plain),
+    ):
+        steps = int(np.sum(sched[0] < n_blocks))
+        pairs = steps * m_pts * shard_tc
+        bytes_ = (shard_P.numel() * 4 + n_chunks * shard_tc * rows * 4 + 4 * (n_blocks + 1 + steps)
+                  + n_blocks * m_pts * out_bytes)
+        t_bytes, t_ops = bytes_ / MEM_BW * 1e3, pairs * ops / PEAK[torch.float32] * 1e3
+        args = (shard_P, *sched, shard_tables, shard_tc)
+        ms = timed(lambda: sharded(*args, (device,) * 4))
+        ms2 = timed(lambda: sharded(*args, (device,) * 2))
+        plain_ms = timed(lambda: plain(*args, (device,) * 4), 1)
+        by_run = {tag: counts[name] for tag, counts in runs.items() if counts[name]}
+        entry = {"name": name, "route": "cuda",
+                 "source": "sdf_representation_tpu_torch/csrc/sdf_streams.cu", "replaces": replaces,
+                 "launches": sum(by_run.values()), "launches_by_run": by_run, "dtype": "float32",
+                 "max_abs_err": checks[name], "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": max(t_bytes, t_ops),
+                 "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
+                 "shards": 4, "ms_2_shards": ms2, "pairs": pairs, "ops_per_pair": ops,
+                 "pairs_per_s": pairs / ms * 1e3}
         print(f"time {name}: " + json.dumps(entry), flush=True)
         if entry["launches"] < 1:
             raise RuntimeError(f"{name} was launched on no run of the main path")

@@ -12,7 +12,8 @@ point plus per-triangle constants,
 so the constants are tabulated once on the host (``_triangle_tables``, in
 float64, stored float32) and an all-pairs sweep needs only the points and
 the tables. On a card the sweep runs through the hand-written CUDA streams
-(``ops/sdf_streams.py``); on the CPU through their plain versions.
+(``ops/sdf_streams.py``); on the CPU through their plain versions. Large
+work goes to the culled method (``ops/sdf_culled.py``).
 
 Sign is the generalized winding number: the summed solid angle of all
 triangles, > 2 pi => inside. The tile pass picks the winning triangle; a
@@ -287,6 +288,7 @@ def signed_distance(
     return_device: bool = False,
     method: str = "auto",
     device=None,
+    devices=None,
 ):
     """Signed distance (negative inside) and SDF-gradient normals of (N, 3)
     points (numpy or tensor) against a Mesh or (vertices, faces).
@@ -296,30 +298,34 @@ def signed_distance(
     fallback from one to the other.
 
     method: "dense" = all-pairs O(N*F), exact distance and exact winding
-    sign. "culled" (chunk culling with a dipole far field,
-    ops/sdf_culled.py in the JAX package) is not ported and raises. "auto"
-    runs the dense sweep; where the JAX package's rule would pick the culled
-    method it says so in one line with the pair count.
+    sign; "culled" = ops/sdf_culled.signed_distance_culled (chunk culling,
+    exact distances, dipole far-field sign); "auto" picks culled for big
+    work, by the JAX package's rule: at least 1e10 point-triangle pairs and
+    at least 32 chunks, the chunk shrunk towards 128 triangles to get them.
+    ``devices`` (a mesh, parallel/mesh.get_mesh) shards the culled method's
+    streams; ``point_chunk`` reaches it only when given.
 
     return_device=True returns tensors on the device (float32) instead of
     float64 numpy arrays.
     """
     vertices, faces = _mesh_arrays(mesh_or_vertices, faces)
-    if method == "culled":
-        raise NotImplementedError(
-            "method='culled' (ops/sdf_culled.py) is not ported yet: see ROADMAP.md; "
-            "method='dense' gives the same distances"
-        )
-    if method not in ("auto", "dense"):
+    if method not in ("auto", "dense", "culled"):
         raise ValueError(f"unknown method {method!r}")
     n_pts, n_faces = len(points), len(faces)
+    culled_tc = tri_chunk
     if method == "auto":
-        culled_tc = tri_chunk
+        # shrink the chunk so culling has >= 32 chunks of granularity
         while culled_tc > 128 and n_faces < 32 * culled_tc:
             culled_tc //= 2
-        if n_faces >= 32 * culled_tc and n_pts * n_faces >= 1e10:
-            print(f"[sdf_exact] method='auto': {n_pts * n_faces:.3g} point-triangle pairs run "
-                  "as the dense all-pairs sweep (the culled method is not ported)", flush=True)
+        method = "culled" if n_faces >= 32 * culled_tc and n_pts * n_faces >= 1e10 else "dense"
+    if method == "culled":
+        from .sdf_culled import signed_distance_culled
+
+        culled_kwargs = {} if point_chunk is None else {"point_chunk": point_chunk}
+        return signed_distance_culled(
+            points, vertices, faces, return_normals=return_normals, tri_chunk=culled_tc,
+            on_surface_eps=on_surface_eps, return_device=return_device, device=device,
+            devices=devices, **culled_kwargs)
     device = resolve_device(device)
     if n_pts == 0:
         if return_device:

@@ -14,17 +14,25 @@ pair; a culled caller passes fewer steps. Steps that name block ``B`` (the
 sink) are padding. Results are (B + 1, M) with row B the sink; rows no step
 visits read +inf / face 0 / angle 0.
 
+The sharded streams ``dist_stream_sharded`` and ``wind_stream_sharded``
+(<- the pallas_calls in dist_stream_pallas_sharded / wind_stream_pallas_sharded)
+split the point blocks over a mesh (``parallel/mesh.py``: a tuple of
+devices) in contiguous ranges, one per entry (``per_device_steps``), and
+launch the same kernels once per shard on its device with a copy of the
+packed table; the results are gathered to the host.
+
 Each wrapper takes its kernel's plain PyTorch version (``*_plain``) when the
 points lie on the CPU, and launches the CUDA kernel (``csrc/sdf_streams.cu``)
 or raises when they lie on a card: there is no fallback. ``LAUNCHES`` counts
-kernel launches. All arithmetic is float32: no TF32, no bf16.
+kernel launches, a sharded stream one per shard. All arithmetic is float32:
+no TF32, no bf16.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Iterator, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,7 +52,7 @@ _W_N00, _W_N11, _W_N22, _W_N01, _W_N12, _W_N20, _W_D0, _W_VALID = 12, 13, 14, 15
 _W_ROWS = 24
 
 # kernel launches per wrapper; chip_smoke.py zeroes them around the main path
-LAUNCHES = {"dist_stream": 0, "wind_stream": 0}
+LAUNCHES = {"dist_stream": 0, "wind_stream": 0, "dist_stream_sharded": 0, "wind_stream_sharded": 0}
 
 
 def reset_launches() -> None:
@@ -132,9 +140,10 @@ def _check_points(P_blocks: torch.Tensor) -> Tuple[int, int]:
 # ---------------------------------------------------------------------------
 
 def _dots(P: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
-    """(M, 3) points . (T, 3) vectors -> (M, T), as three float32 products
-    summed left to right (no matmul: nothing may round the operands)."""
-    return (P[:, 0:1] * V[:, 0] + P[:, 1:2] * V[:, 1]) + P[:, 2:3] * V[:, 2]
+    """(..., M, 3) points . (T, 3) vectors -> (..., M, T), as three float32
+    products summed left to right (no matmul: nothing may round the
+    operands, whatever the global matmul precision)."""
+    return (P[..., 0:1] * V[:, 0] + P[..., 1:2] * V[:, 1]) + P[..., 2:3] * V[:, 2]
 
 
 def _dist_tile(P: torch.Tensor, tt: torch.Tensor):
@@ -245,17 +254,12 @@ def _cuda_schedule(P_blocks, step_block, step_chunk, table: np.ndarray):
             torch.from_numpy(chunks).to(dev))
 
 
-def dist_stream(P_blocks: torch.Tensor, step_block, step_chunk, tables, tri_chunk: int):
-    """Distance stream over (B, M, 3) f32 points. Returns (d2 (B + 1, M) f32,
-    best (B + 1, M) i32): per point the minimum squared distance to the
-    triangles of its block's chunks and the winning face (chunk * tri_chunk
-    + index in the chunk; the first minimal index wins)."""
-    B, M = _check_points(P_blocks)
-    if P_blocks.device.type == "cpu":
-        return dist_stream_plain(P_blocks, step_block, step_chunk, tables, tri_chunk)
-    _check_tiling(tri_chunk, M)
-    tab, offs, chunks = _cuda_schedule(P_blocks, step_block, step_chunk,
-                                       pack_dist_table(tables, tri_chunk))
+def _dist_launch(P_blocks: torch.Tensor, step_block, step_chunk, table: np.ndarray,
+                 tri_chunk: int):
+    """One dist_kernel launch over (B, M, 3) points on their card with the
+    packed distance table; returns (d2, best), both (B + 1, M)."""
+    B, M = P_blocks.shape[:2]
+    tab, offs, chunks = _cuda_schedule(P_blocks, step_block, step_chunk, table)
     dev = P_blocks.device
     out_d2 = torch.empty((B + 1, M), dtype=torch.float32, device=dev)
     out_best = torch.empty((B + 1, M), dtype=torch.int32, device=dev)
@@ -268,8 +272,40 @@ def dist_stream(P_blocks: torch.Tensor, step_block, step_chunk, tables, tri_chun
                 tri_chunk, out_d2.data_ptr(), out_best.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
         _check_launch(rc, "dist_stream")
-        LAUNCHES["dist_stream"] += 1
     return out_d2, out_best
+
+
+def _wind_launch(P_blocks: torch.Tensor, step_block, step_chunk, table: np.ndarray,
+                 tri_chunk: int) -> torch.Tensor:
+    """One wind_kernel launch (see _dist_launch); returns (B + 1, M) angles."""
+    B, M = P_blocks.shape[:2]
+    tab, offs, chunks = _cuda_schedule(P_blocks, step_block, step_chunk, table)
+    dev = P_blocks.device
+    out_w = torch.empty((B + 1, M), dtype=torch.float32, device=dev)
+    out_w[B] = 0.0
+    if B:
+        with torch.cuda.device(dev):
+            rc = _lib().sdf_wind_stream(
+                P_blocks.data_ptr(), tab.data_ptr(), offs.data_ptr(), chunks.data_ptr(), B, M,
+                tri_chunk, out_w.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        _check_launch(rc, "wind_stream")
+    return out_w
+
+
+def dist_stream(P_blocks: torch.Tensor, step_block, step_chunk, tables, tri_chunk: int):
+    """Distance stream over (B, M, 3) f32 points. Returns (d2 (B + 1, M) f32,
+    best (B + 1, M) i32): per point the minimum squared distance to the
+    triangles of its block's chunks and the winning face (chunk * tri_chunk
+    + index in the chunk; the first minimal index wins)."""
+    B, M = _check_points(P_blocks)
+    if P_blocks.device.type == "cpu":
+        return dist_stream_plain(P_blocks, step_block, step_chunk, tables, tri_chunk)
+    _check_tiling(tri_chunk, M)
+    out = _dist_launch(P_blocks, step_block, step_chunk, pack_dist_table(tables, tri_chunk),
+                       tri_chunk)
+    if B:
+        LAUNCHES["dist_stream"] += 1
+    return out
 
 
 def wind_stream(P_blocks: torch.Tensor, step_block, step_chunk, tables,
@@ -281,16 +317,122 @@ def wind_stream(P_blocks: torch.Tensor, step_block, step_chunk, tables,
     if P_blocks.device.type == "cpu":
         return wind_stream_plain(P_blocks, step_block, step_chunk, tables, tri_chunk)
     _check_tiling(tri_chunk, M)
-    tab, offs, chunks = _cuda_schedule(P_blocks, step_block, step_chunk,
-                                       pack_wind_table(tables, tri_chunk))
-    dev = P_blocks.device
-    out_w = torch.empty((B + 1, M), dtype=torch.float32, device=dev)
-    out_w[B] = 0.0
+    out = _wind_launch(P_blocks, step_block, step_chunk, pack_wind_table(tables, tri_chunk),
+                       tri_chunk)
     if B:
-        with torch.cuda.device(dev):
-            rc = _lib().sdf_wind_stream(
-                P_blocks.data_ptr(), tab.data_ptr(), offs.data_ptr(), chunks.data_ptr(), B, M,
-                tri_chunk, out_w.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-        _check_launch(rc, "wind_stream")
         LAUNCHES["wind_stream"] += 1
-    return out_w
+    return out
+
+
+# ---------------------------------------------------------------------------
+# sharded over a mesh of devices (kernels 6 and 7)
+# ---------------------------------------------------------------------------
+
+def per_device_steps(step_block, step_chunk, B: int, n_dev: int):
+    """Split block-major steps into per-device local schedules
+    (pallas_streams._per_device_steps). Device d owns the contiguous blocks
+    [d B/n_dev, (d + 1) B/n_dev) (Morton-coherent blocks keep similar chunk
+    counts, so contiguous ranges balance). Returns (sb (D, S_max + 1), sc
+    (D, S_max + 1)) int32 with LOCAL block ids, each row led by the -1
+    sentinel and padded with local-sink (B / n_dev) steps to a power-of-two
+    common length."""
+    step_block, step_chunk = np.asarray(step_block), np.asarray(step_chunk)
+    B_local = B // n_dev
+    sbs, scs = [], []
+    s_max = 1
+    for d in range(n_dev):
+        lo, hi = d * B_local, (d + 1) * B_local
+        sel = (step_block >= lo) & (step_block < hi)
+        sbs.append(step_block[sel] - lo)
+        scs.append(step_chunk[sel])
+        s_max = max(s_max, len(sbs[-1]))
+    s_max = 1 << max(0, (s_max - 1).bit_length())
+    sb = np.full((n_dev, s_max + 1), B_local, np.int32)
+    sc = np.zeros((n_dev, s_max + 1), np.int32)
+    sb[:, 0] = -1
+    for d in range(n_dev):
+        n = len(sbs[d])
+        sb[d, 1:n + 1] = sbs[d]
+        sc[d, 1:n + 1] = scs[d]
+    return sb, sc
+
+
+def _shards(P_blocks, step_block, step_chunk, tri_chunk: int, devices: Sequence) -> Iterator:
+    """Per mesh entry: (its points, on its device; local step_block; local
+    step_chunk). The points may be a numpy array or a tensor anywhere."""
+    P_blocks = torch.as_tensor(P_blocks)
+    B, M = _check_points(P_blocks)
+    _check_tiling(tri_chunk, M)
+    n_dev = len(devices)
+    if n_dev < 1 or B % n_dev:
+        raise ValueError(f"{B} point blocks do not split evenly over {n_dev} devices")
+    B_local = B // n_dev
+    sb, sc = per_device_steps(step_block, step_chunk, B, n_dev)
+    for d, dev in enumerate(devices):
+        yield P_blocks[d * B_local:(d + 1) * B_local].to(dev), sb[d, 1:], sc[d, 1:]
+
+
+def _mesh_kind(devices: Sequence) -> str:
+    kinds = {torch.device(d).type for d in devices}
+    if len(kinds) != 1 or not kinds <= {"cpu", "cuda"}:
+        raise ValueError(f"a mesh is all cards or all CPU, got {sorted(kinds)}")
+    return kinds.pop()
+
+
+def _gather(parts) -> np.ndarray:
+    """Shard outputs (B_local + 1, M) each -> host (B, M), sink rows dropped."""
+    return torch.cat([p[:-1].cpu() for p in parts]).numpy()
+
+
+def dist_stream_sharded_plain(P_blocks, step_block, step_chunk, tables, tri_chunk: int,
+                              devices: Sequence):
+    """``dist_stream_sharded`` as the plain tile walk of each shard's local
+    schedule on its device."""
+    devices = [torch.device(d) for d in devices]
+    outs = [dist_stream_plain(P, sb, sc, tables, tri_chunk)
+            for P, sb, sc in _shards(P_blocks, step_block, step_chunk, tri_chunk, devices)]
+    return _gather([o[0] for o in outs]), _gather([o[1] for o in outs])
+
+
+def wind_stream_sharded_plain(P_blocks, step_block, step_chunk, tables, tri_chunk: int,
+                              devices: Sequence) -> np.ndarray:
+    """``wind_stream_sharded`` as the plain tile walk (see above)."""
+    devices = [torch.device(d) for d in devices]
+    return _gather([wind_stream_plain(P, sb, sc, tables, tri_chunk)
+                    for P, sb, sc in _shards(P_blocks, step_block, step_chunk, tri_chunk, devices)])
+
+
+def dist_stream_sharded(P_blocks, step_block, step_chunk, tables, tri_chunk: int,
+                        devices: Sequence):
+    """dist_stream over a mesh: entry d streams the d-th contiguous range of
+    the (B, M, 3) point blocks on its device, with its own copy of the
+    packed table, through one dist_kernel launch. Returns host (B, M) numpy
+    arrays (d2, best) without the sink row (dist_stream_pallas_sharded's
+    contract), bit-equal to rows :B of one dist_stream launch: every point
+    sees the same chunks in the same order on the same kernel."""
+    devices = [torch.device(d) for d in devices]
+    if _mesh_kind(devices) == "cpu":
+        return dist_stream_sharded_plain(P_blocks, step_block, step_chunk, tables, tri_chunk,
+                                         devices)
+    table = pack_dist_table(tables, tri_chunk)
+    outs = []
+    for P, sb, sc in _shards(P_blocks, step_block, step_chunk, tri_chunk, devices):
+        outs.append(_dist_launch(P.contiguous(), sb, sc, table, tri_chunk))
+        LAUNCHES["dist_stream_sharded"] += 1
+    return _gather([o[0] for o in outs]), _gather([o[1] for o in outs])
+
+
+def wind_stream_sharded(P_blocks, step_block, step_chunk, tables, tri_chunk: int,
+                        devices: Sequence) -> np.ndarray:
+    """wind_stream over a mesh (see dist_stream_sharded). Returns host (B, M)
+    summed solid angles without the sink row."""
+    devices = [torch.device(d) for d in devices]
+    if _mesh_kind(devices) == "cpu":
+        return wind_stream_sharded_plain(P_blocks, step_block, step_chunk, tables, tri_chunk,
+                                         devices)
+    table = pack_wind_table(tables, tri_chunk)
+    outs = []
+    for P, sb, sc in _shards(P_blocks, step_block, step_chunk, tri_chunk, devices):
+        outs.append(_wind_launch(P.contiguous(), sb, sc, table, tri_chunk))
+        LAUNCHES["wind_stream_sharded"] += 1
+    return _gather(outs)

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain versions at shapes the flagship does
 not reach: the fused forward at one to four 128-column output groups, skip
 and no skip, ReLU, a ragged last grid tile, 2-d points; the exact-SDF streams
-at ragged tilings, sparse schedules and unvisited blocks; the fused
+at ragged tilings, sparse schedules and unvisited blocks, and sharded over
+the card listed several times; the culled signed distance; the fused
 (f, grad_x f) kernels and their backward at those widths, at point counts
 below a tile and off a tile multiple, and through autograd. Needs an NVIDIA card:
 a CUDA kernel has no CPU mode, so elsewhere these skip. On the card:
@@ -105,7 +106,8 @@ def test_streams_match_plain(device, tri_chunk, m, keep_frac):
     d2, best = ss.dist_stream(P, sb, sc, tables, tri_chunk)
     w = ss.wind_stream(P, sb, sc, tables, tri_chunk)
     torch.cuda.synchronize()
-    assert ss.LAUNCHES == {"dist_stream": 1, "wind_stream": 1}
+    assert ss.LAUNCHES == {"dist_stream": 1, "wind_stream": 1, "dist_stream_sharded": 0,
+                           "wind_stream_sharded": 0}
     pd2, pbest = ss.dist_stream_plain(P, sb, sc, tables, tri_chunk)
     pw = ss.wind_stream_plain(P, sb, sc, tables, tri_chunk)
     assert torch.isinf(d2[3]).all() and (best[3] == 0).all() and (w[3] == 0).all()
@@ -130,11 +132,65 @@ def test_signed_distance_on_the_card_matches_the_cpu_path(device):
     pts = np.random.default_rng(0).uniform(-1, 1, (5000, 3))
     ss.reset_launches()
     got, got_n = se.signed_distance(pts, mesh, tri_chunk=256)
-    assert ss.LAUNCHES == {"dist_stream": 1, "wind_stream": 1}
+    assert ss.LAUNCHES == {"dist_stream": 1, "wind_stream": 1, "dist_stream_sharded": 0,
+                           "wind_stream_sharded": 0}
     want, _ = se.signed_distance(pts, mesh, tri_chunk=256, device="cpu")
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
     assert np.all(np.sign(got) == np.sign(want))
     np.testing.assert_allclose(np.linalg.norm(got_n, axis=1), 1.0, atol=1e-5)
+
+
+@pytest.mark.parametrize("n_dev", [2, 4])
+def test_sharded_streams_on_the_card(device, n_dev):
+    """Kernels 6 and 7: the card listed n_dev times holds n_dev shards; the
+    results equal one launch over all blocks bit for bit, and the plain
+    sharded walk within the stream limits."""
+    import numpy as np
+
+    mesh = make_icosphere(3, 0.6)
+    rng = np.random.default_rng(n_dev)
+    pts = rng.uniform(-1, 1, (8, 512, 3)).astype(np.float32)
+    tables, _ = se._triangle_tables(mesh.vertices, mesh.faces, 256)
+    keep = rng.uniform(size=(8, tables["a"].shape[0])) < 0.6
+    keep[5] = False
+    sb, sc, _ = ss.stream_steps(keep, 8)
+    P = torch.from_numpy(pts).to(device)
+    mesh_devices = (device,) * n_dev
+    ss.reset_launches()
+    d2, best = ss.dist_stream_sharded(P, sb, sc, tables, 256, mesh_devices)
+    w = ss.wind_stream_sharded(P, sb, sc, tables, 256, mesh_devices)
+    assert ss.LAUNCHES == {"dist_stream": 0, "wind_stream": 0, "dist_stream_sharded": n_dev,
+                           "wind_stream_sharded": n_dev}
+    one_d2, one_best = ss.dist_stream(P, sb, sc, tables, 256)
+    one_w = ss.wind_stream(P, sb, sc, tables, 256)
+    np.testing.assert_array_equal(d2, one_d2[:8].cpu().numpy())
+    np.testing.assert_array_equal(best, one_best[:8].cpu().numpy())
+    np.testing.assert_array_equal(w, one_w[:8].cpu().numpy())
+    pd2, _ = ss.dist_stream_sharded_plain(P, sb, sc, tables, 256, mesh_devices)
+    pw = ss.wind_stream_sharded_plain(P, sb, sc, tables, 256, mesh_devices)
+    finite = np.isfinite(pd2)
+    np.testing.assert_allclose(d2[finite], pd2[finite], rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(w, pw, rtol=1e-4, atol=1e-3)
+
+
+def test_culled_on_the_card_matches_the_cpu_path(device):
+    import numpy as np
+
+    from sdf_representation_tpu_torch.ops import sdf_culled
+
+    mesh = make_icosphere(4, 0.6)
+    pts = np.random.default_rng(1).uniform(-1, 1, (20000, 3))
+    ss.reset_launches()
+    got, _ = sdf_culled.signed_distance_culled(pts, mesh, point_chunk=1024, tri_chunk=128)
+    assert ss.LAUNCHES["dist_stream"] == 1 and ss.LAUNCHES["wind_stream"] == 1
+    sharded, _ = sdf_culled.signed_distance_culled(pts, mesh, point_chunk=1024, tri_chunk=128,
+                                                   devices=(device,) * 4)
+    assert ss.LAUNCHES["dist_stream_sharded"] == 4 and ss.LAUNCHES["wind_stream_sharded"] == 4
+    np.testing.assert_array_equal(sharded, got)
+    want, _ = sdf_culled.signed_distance_culled(pts, mesh, point_chunk=1024, tri_chunk=128,
+                                                device="cpu")
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    assert np.all(np.sign(got) == np.sign(want))
 
 
 def test_streams_refuse_what_the_kernels_do_not_take(device):

@@ -166,8 +166,10 @@ def test_empty_inputs_device_results_and_methods(capsys):
     # tensors are taken as points too
     np.testing.assert_array_equal(_sd(torch.from_numpy(pts), box, tri_chunk=16)[0], host_sdf)
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _sd(pts, box, method="culled")
+    # the culled method runs (tests/test_torch_sdf_culled.py holds it to the JAX package)
+    culled, culled_n = _sd(pts, box, method="culled", tri_chunk=16)
+    np.testing.assert_allclose(culled, host_sdf, atol=1e-6)
+    assert culled_n.shape == (300, 3)
     with pytest.raises(ValueError):
         _sd(pts, box, method="fastest")
     capsys.readouterr()

@@ -140,3 +140,102 @@ def test_wrappers_refuse_bad_inputs_and_count_no_cpu_launch():
     assert not sdf_streams.stream_tiling_ok(0, 256)
     sdf_streams.wind_stream(torch.from_numpy(P_blocks[:1]), sb[:1], sc[:1], tables, tri_chunk)
     assert set(sdf_streams.LAUNCHES.values()) == {0}  # the CPU path launches no kernel
+
+
+# ---------------------------------------------------------------------------
+# sharded streams (kernels 6 and 7): contiguous block ranges over a mesh
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n_dev", [2, 4, 8])
+def test_sharded_streams_bit_equal_the_single_device_streams(n_dev):
+    """Every point sees the same chunks in the same order: d2, winners and
+    solid angles equal one launch over all blocks bit for bit."""
+    mesh, P_blocks, sb, sc, tables, tri_chunk, B = _setup(0.6, n_pts=2048)
+    P = torch.from_numpy(P_blocks)
+    d2, best = sdf_streams.dist_stream(P, sb, sc, tables, tri_chunk)
+    w = sdf_streams.wind_stream(P, sb, sc, tables, tri_chunk)
+    mesh_devices = ("cpu",) * n_dev
+    sd2, sbest = sdf_streams.dist_stream_sharded(P_blocks, sb, sc, tables, tri_chunk, mesh_devices)
+    sw = sdf_streams.wind_stream_sharded(P, sb, sc, tables, tri_chunk, mesh_devices)
+    assert sd2.shape == sbest.shape == sw.shape == (B, P_blocks.shape[1])
+    assert isinstance(sd2, np.ndarray) and sbest.dtype == np.int32
+    np.testing.assert_array_equal(sd2, d2[:B].numpy())
+    np.testing.assert_array_equal(sbest, best[:B].numpy())
+    np.testing.assert_array_equal(sw, w[:B].numpy())
+
+
+def test_per_device_steps_equal_the_jax_package():
+    keep = np.random.default_rng(9).uniform(size=(16, 7)) < 0.4
+    keep[5] = False  # a block with no step
+    sb, sc, _ = sdf_streams.stream_steps(keep, 16)
+    for n_dev in (1, 2, 4, 8, 16):
+        ours = sdf_streams.per_device_steps(sb, sc, 16, n_dev)
+        theirs = pallas_streams._per_device_steps(sb, sc, 16, n_dev)
+        for got, want in zip(ours, theirs):
+            assert got.dtype == want.dtype
+            np.testing.assert_array_equal(got, want)
+
+
+def test_sharded_streams_match_the_sharded_pallas_kernels():
+    """The port's sharded streams against dist_stream_pallas_sharded and
+    wind_stream_pallas_sharded in interpret mode on the eight virtual CPU
+    devices, one schedule. The Pallas kernels round their dots in another
+    order than the port's plain tiles (the single-device parity above), so
+    the limits are those of the single-device tests: d2 rtol 1e-5 / atol
+    1e-7, winners equal but for ties the f64 oracle proves, solid angles
+    rtol 1e-4 / atol 1e-3; on the inputs of those tests (seed 0 for the
+    distance, 1 for the winding)."""
+    from sdf_representation_tpu.parallel.mesh import get_mesh
+
+    mesh, P_blocks, sb, sc, tables, tri_chunk, B = _setup(0.6, n_pts=2048, seed=1)
+    ref_w = pallas_streams.wind_stream_pallas_sharded(
+        P_blocks, sb, sc, tables, tri_chunk, get_mesh(), interpret=True)
+    w = sdf_streams.wind_stream_sharded(P_blocks, sb, sc, tables, tri_chunk, ("cpu",) * 8)
+    np.testing.assert_allclose(w, ref_w, rtol=1e-4, atol=1e-3)
+    mesh, P_blocks, sb, sc, tables, tri_chunk, B = _setup(0.6, n_pts=2048)
+    ref_d2, ref_best = pallas_streams.dist_stream_pallas_sharded(
+        P_blocks, sb, sc, tables, tri_chunk, get_mesh(), interpret=True)
+    d2, best = sdf_streams.dist_stream_sharded(P_blocks, sb, sc, tables, tri_chunk, ("cpu",) * 8)
+    np.testing.assert_allclose(d2, ref_d2, rtol=1e-5, atol=1e-7)
+    gb, rb = best.reshape(-1), ref_best.reshape(-1)
+    diff = np.nonzero(gb != rb)[0]
+    assert len(diff) < 0.08 * len(gb)
+    pts = P_blocks.reshape(-1, 3)[diff].astype(np.float64)
+    tri = mesh.vertices[mesh.faces]
+    da = np.linalg.norm(pts - sdf_exact.closest_point_on_triangles(pts, tri[gb[diff]]), axis=1)
+    db = np.linalg.norm(pts - sdf_exact.closest_point_on_triangles(pts, tri[rb[diff]]), axis=1)
+    np.testing.assert_allclose(da, db, rtol=1e-5, atol=1e-6)
+
+
+def test_culled_sharded_matches_the_jax_sharded_culled_method():
+    """signed_distance_culled over the eight virtual CPU devices with the
+    Pallas kernels (use_pallas=True: without it the JAX package takes its
+    XLA streams on the CPU and never the sharded branch) against the port's
+    over ("cpu",) * 8: rtol 1e-5 / atol 1e-6, identical signs."""
+    from sdf_representation_tpu.ops.sdf_culled import signed_distance_culled
+    from sdf_representation_tpu.parallel.mesh import get_mesh
+    from sdf_representation_tpu_torch.ops import sdf_culled
+    from sdf_representation_tpu_torch.parallel.mesh import get_mesh as port_mesh
+
+    m = make_icosphere(subdivisions=4, radius=0.6)
+    pts = np.random.default_rng(11).uniform(-1, 1, (4096, 3))
+    ref, _ = signed_distance_culled(pts, m, point_chunk=512, tri_chunk=256, use_pallas=True,
+                                    device_mesh=get_mesh())
+    got, _ = sdf_culled.signed_distance_culled(pts, m, point_chunk=512, tri_chunk=256,
+                                               device="cpu", devices=port_mesh(devices=["cpu"] * 8))
+    assert sdf_culled.LAST_COUNTS["shards"] == 8
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+    assert np.all(np.sign(got) == np.sign(ref))
+
+
+def test_sharded_streams_refuse_bad_meshes_and_count_no_cpu_launch():
+    mesh, P_blocks, sb, sc, tables, tri_chunk, B = _setup(1.0)  # 4 blocks
+    sdf_streams.reset_launches()
+    with pytest.raises(ValueError, match="split evenly"):
+        sdf_streams.dist_stream_sharded(P_blocks, sb, sc, tables, tri_chunk, ("cpu",) * 3)
+    with pytest.raises(ValueError, match="all cards or all CPU"):
+        sdf_streams.wind_stream_sharded(P_blocks, sb, sc, tables, tri_chunk, ("cpu", "meta"))
+    w = sdf_streams.wind_stream_sharded(P_blocks[:2], sb[:1], sc[:1], tables, tri_chunk,
+                                        ("cpu",) * 2)
+    assert w.shape == (2, P_blocks.shape[1])
+    assert set(sdf_streams.LAUNCHES.values()) == {0}
