@@ -81,6 +81,28 @@ Phases, none of which is allowed to fail quietly:
     N F >= 1e12) against the rescaled icosphere(6) (81,920 faces) and the
     impeller (444,508 faces, non-convex). Each against method="dense":
     distances within 1e-6, sign disagreements counted and listed with |d|.
+ 4e. The sharded evaluators and data-parallel training, the card listed
+    several times, counts zeroed before each run and read after it:
+    sharded_grid_eval (kernel 10: the grid entry once per shard from its
+    base tile) at 256^3 in bf16 and f32 over the card listed 1, 2 and 4
+    times, bit-equal to one fused_grid launch, and at 255^3 (the padded
+    tail) against its plain version within the kernel-1 limits;
+    sparse_sharded_grid_eval (kernel 11: the blocks entry once per shard
+    over its slice of the active list) at 256^3 on the seeded and the
+    trained 8x512 nets, x2 and x4: the count equals the single-device
+    sparse evaluator's, every active block equals the dense grid kernel bit
+    for bit; the voxels that differ from single-device sparse, the centres
+    whose coarse value differs and the active blocks per shard are
+    printed; k_max_frac 0.01 overflows the budget once and settles; each
+    shard's launch against its plain version. Data-parallel training
+    through the trainers the command line builds: labelled IGRLOSS at
+    8x512, bfloat16, Trainer(mesh=card x 2), 2 epochs, and the point-cloud
+    trainer at 8x256, bfloat16, mesh=card x 4, phase 4c's epochs: igr_fwd
+    and igr_bwd launch once per shard and step, the loss falls, the
+    point-cloud field's mesh at 128^3 sits on the cloud (median vertex
+    radius within 1% of 0.85). One f32 IGRLOSS gradient through
+    make_fused_value_and_grad_sharded (x2, x4) against the single-device op:
+    rtol 2e-4 / atol 2e-5 (tests/test_sharding.py).
  5. Times with CUDA events at the main path's shapes: kernel, plain version,
     one library layer chain (torch addmm, never called by the port), and
     the bound: the larger of bytes over 3.35 TB/s and operations over the
@@ -97,7 +119,13 @@ Phases, none of which is allowed to fail quietly:
     The sharded streams on phase 3's culled schedule, the card listed 4
     (and 2) times, against the plain sharded walk; the bound counts the
     schedule's pairs; the single-device streams are also timed on it.
- 6. A `kernels` JSON line with nine entries, then the contract line
+    Kernels 10 and 11 at 256^3 and on the seeded net's active list, the
+    card listed 1, 2 and 4 times, with kernel 1's and kernel 3's bounds and
+    library chain for the same points; the whole sharded evaluators, the
+    labelled IGRLOSS step (8x512, 16,384 points) and the point-cloud step
+    (8x256, 16,384 + 5,461 points) in bfloat16 at x1, x2, x4, each beside
+    kernels 8 and 9 launched once per shard on its rows.
+ 6. A `kernels` JSON line with eleven entries, then the contract line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Details go to build/chip_smoke.json.
@@ -526,6 +554,229 @@ def drive_culled(device, report):
         out[name] = row
     report["culled"] = out
     return launches
+
+
+def drive_sharded(device, run_root, model, report):
+    """Phase 4e: the sharded evaluators and data-parallel training, the card
+    listed several times, counts zeroed before each run and read after it.
+    Returns (launches per run, what phase 5 times)."""
+    from sdf_representation_tpu_torch import cli
+    from sdf_representation_tpu_torch.configgen import Configuration
+    from sdf_representation_tpu_torch.geometry.mesh_io import load_mesh
+    from sdf_representation_tpu_torch.losses.losses import IGRLOSS
+    from sdf_representation_tpu_torch.ops import fused_igr as fi
+    from sdf_representation_tpu_torch.ops import fused_mlp as fm
+    from sdf_representation_tpu_torch.ops import sdf_streams as ss
+    from sdf_representation_tpu_torch.ops import sharded_eval as se
+    from sdf_representation_tpu_torch.ops import sparse_grid as sg
+    from sdf_representation_tpu_torch.parallel.mesh import gather
+    from sdf_representation_tpu_torch.training import PointCloudTrainer, Trainer
+    from sdf_representation_tpu_torch.training import trainer as trainer_module
+
+    launches, out = {}, {}
+    root = run_root / "pipeline"
+
+    @contextlib.contextmanager
+    def window(tag):
+        torch.cuda.synchronize()
+        for counters in (fm, ss, fi):
+            counters.reset_launches()
+        with counting_plain_calls((fm, ss, fi)) as plain:
+            yield
+            torch.cuda.synchronize()
+        launches[tag] = {**fm.LAUNCHES, **ss.LAUNCHES, **fi.LAUNCHES}
+        if any(plain.values()):
+            raise RuntimeError(f"{tag}: a plain version ran on the card's path: {plain}")
+
+    def only(tag, **expected):
+        want = {name: expected.get(name, 0) for name in launches[tag]}
+        if launches[tag] != want:
+            raise RuntimeError(f"{tag}: launches {launches[tag]}, expected {want}")
+
+    trained = Trainer(Configuration(str(root / "train_float32.ini")))
+    trained.load_model()
+    nets = {"seeded": model, "trained": trained.model}
+
+    # -- kernel 10: the dense grid, a slab of tiles per shard -----------------
+    out["sharded_grid"] = {}
+    for dt in (torch.bfloat16, torch.float32):
+        tag = str(dt).split(".")[1]
+        one = fm.fused_grid_eval(model, 256, compute_dtype=dt)
+        for k in (1, 2, 4):
+            with window(f"sharded_grid/{tag}/x{k}"):
+                vol = se.sharded_grid_eval(model, 256, (device,) * k, compute_dtype=dt)
+            only(f"sharded_grid/{tag}/x{k}", sharded_grid=k)
+            same = torch.equal(vol, one)
+            print(f"check sharded_grid/{tag}/x{k} n256: bit-equal to one fused_grid launch: {same}",
+                  flush=True)
+            if not same:
+                raise RuntimeError(f"sharded_grid/{tag}/x{k}: differs from one fused_grid launch")
+        # n = 255: 255^3 is no multiple of 4 x 1024, the padded tail is dropped
+        vol = se.sharded_grid_eval(model, 255, (device,) * 4, compute_dtype=dt)
+        want = se.sharded_grid_eval_plain(model, 255, (device,) * 4, compute_dtype=dt)
+        torch.cuda.synchronize()
+        diff = (vol - want).abs()
+        err, mean = diff.max().item(), diff.mean().item()
+        limit, mean_limit = (F32_TOL, math.inf) if dt == torch.float32 else (BF16_TOL, BF16_MEAN_TOL)
+        print(f"check sharded_grid/{tag}/x4 n255 against plain: max_abs_err {err:.3e} (tolerance "
+              f"{limit:g}), mean_abs_err {mean:.3e} (tolerance {mean_limit:g})", flush=True)
+        if not (torch.isfinite(vol).all() and vol.shape == (255,) * 3 and err <= limit
+                and mean <= mean_limit):
+            raise RuntimeError(f"sharded_grid/{tag}/n255: kernel and plain version disagree")
+        out["sharded_grid"][tag] = {"n255_max_abs_err": err, "n255_mean_abs_err": mean}
+    del one, vol, want, diff
+
+    # -- kernel 11: the sparse evaluator, a slice of the active list per shard --
+    out["sparse_sharded"] = {}
+    for name, net_model in nets.items():
+        single, count1 = sg.sparse_grid_eval(net_model, 256, return_count=True)
+        dense = fm.fused_grid_eval(net_model, 256).reshape(32, 8, 32, 8, 32, 8).permute(0, 2, 4, 1, 3, 5)
+        for k in (2, 4):
+            tag = f"sparse_sharded/{name}/x{k}"
+            with window(tag):
+                vol, count = se.sparse_sharded_grid_eval(net_model, 256, (device,) * k,
+                                                         return_count=True)
+            coarse = gather(se.coarse_slices(net_model, 256, 8, (device,) * k), device)
+            mask = coarse.abs() <= sg.adaptive_threshold(coarse, 256, 8, 1.5, 0.01)
+            coarse1, mask1, _ = sg.coarse_and_certificate(net_model, 256, 8, 1.5, 0.01)
+            k_max = se._KMAX_CACHE_SHARDED[(net_model.arch, 256, 8, 2, 1.5, 0.01,
+                                            str(torch.bfloat16), k)]
+            k_loc = k_max // k
+            per_shard = [min(max(count - d * k_loc, 0), k_loc) for d in range(k)]
+            got = vol.reshape(32, 8, 32, 8, 32, 8).permute(0, 2, 4, 1, 3, 5)
+            active = mask.reshape(32, 32, 32)
+            bit_equal = torch.equal(got[active], dense[active])
+            row = {"count": count, "single_device_count": count1, "k_max": k_max,
+                   "active_per_shard": per_shard,
+                   "voxels_differing_from_single_device": int((vol != single).sum()),
+                   "coarse_centres_differing": int((coarse != coarse1).sum()),
+                   "blocks_flipped": int((mask != mask1).sum()),
+                   "launches": launches[tag]["sparse_sharded_blocks"]}
+            print(f"check {tag} n256: {row}, active blocks bit-equal to the dense grid kernel: "
+                  f"{bit_equal}", flush=True)
+            # one launch per shard and pass (a pass is repeated when the budget overflows)
+            passes = launches[tag]["sparse_sharded_blocks"] // k
+            only(tag, sparse_sharded_blocks=k * max(passes, 1))
+            if not (bit_equal and count == count1 == int(mask.sum())):
+                raise RuntimeError(f"{tag}: count or active blocks differ")
+            out["sparse_sharded"][f"{name}/x{k}"] = row
+        del dense, single
+    # the budget overflows at k_max_frac 0.01 and the pass is retried
+    se._KMAX_CACHE_SHARDED.clear()
+    tag = "sparse_sharded/seeded/x4/retry"
+    with window(tag):
+        vol, count = se.sparse_sharded_grid_eval(model, 256, (device,) * 4, k_max_frac=0.01,
+                                                 return_count=True)
+    first = -(-max(8, int(32 ** 3 * 0.01)) // 8) * 8
+    (settled,) = se._KMAX_CACHE_SHARDED.values()
+    print(f"check {tag}: first budget {first} blocks, count {count}, settled budget {settled}, "
+          f"launches {launches[tag]['sparse_sharded_blocks']} (4 per pass)", flush=True)
+    if not (first < count <= settled and launches[tag]["sparse_sharded_blocks"] == 8):
+        raise RuntimeError(f"{tag}: the budget did not overflow once and settle")
+    out["sparse_sharded"]["retry"] = {"first_k_max": first, "count": count, "settled_k_max": settled}
+    # the kernel against its plain version, shard by shard, at the path's ids
+    se._KMAX_CACHE_SHARDED.clear()
+    se.sparse_sharded_grid_eval(model, 256, (device,) * 4)
+    coarse = gather(se.coarse_slices(model, 256, 8, (device,) * 4), device)
+    mask = coarse.abs() <= sg.adaptive_threshold(coarse, 256, 8, 1.5, 0.01)
+    (k_max,) = se._KMAX_CACHE_SHARDED.values()
+    ids, count = sg.first_active(mask, k_max)
+    shards = [se.active_slice(ids, count, d, 4) for d in range(4)]
+    out["sparse_sharded"]["seeded/x4/k_max"] = k_max
+    errors = {}
+    for dt in (torch.bfloat16, torch.float32):
+        net = fm.FusedNet(model, dt)
+        got = torch.cat([fm.fused_blocks(net, i, c, 256, 8, counter="sparse_sharded_blocks")
+                         for i, c in shards])[: int(count)]
+        want = torch.cat([fm.fused_blocks_plain(net, i, c, 256, 8) for i, c in shards])[: int(count)]
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        err, mean = diff.max().item(), diff.mean().item()
+        limit, mean_limit = (F32_TOL, math.inf) if dt == torch.float32 else (BF16_TOL, BF16_MEAN_TOL)
+        tag = str(dt).split(".")[1]
+        print(f"check sparse_sharded_blocks/{tag}/x4 n256 against plain: max_abs_err {err:.3e} "
+              f"(tolerance {limit:g}), mean_abs_err {mean:.3e} (tolerance {mean_limit:g})", flush=True)
+        if not (torch.isfinite(got).all() and err <= limit and mean <= mean_limit):
+            raise RuntimeError(f"sparse_sharded_blocks/{tag}: kernel and plain version disagree")
+        errors[dt] = err
+
+    # -- data-parallel training through the trainers the CLI builds -------------
+    data_root = root / "float32" / "r_sphere"
+    n_rows = sum(report["pipeline"]["sampling"]["rows"].values())
+    n_train = n_rows - math.ceil(0.1 * n_rows)
+    out["data_parallel"] = {}
+    for tag, cfg_name, cls, k, epochs in (
+            ("dp_igr_train/bfloat16/x2", "igr_bfloat16.ini", Trainer, 2, 2),
+            ("dp_pcd_train/bfloat16/x4", "pcd_bfloat16.ini", PointCloudTrainer, 4, PCD_EPOCHS)):
+        work = root / tag.split("/")[0]
+        shutil.rmtree(work, ignore_errors=True)
+        if cls is Trainer:
+            shutil.copytree(data_root, work / data_root.name,
+                            ignore=shutil.ignore_patterns("ImplicitNet*"))
+        text = with_keys((root / cfg_name).read_text(), directory=f"{work}/", epochs=epochs,
+                         min_epochs=epochs)
+        path = root / f"{tag.split('/')[0]}.ini"
+        path.write_text(text)
+        trainer = cls(Configuration(str(path)), mesh=(device,) * k)
+        with window(tag):
+            result = trainer.train()
+        steps = ((n_train if cls is Trainer else PCD_POINTS) // 16384) * epochs
+        only(tag, igr_fwd=k * steps, igr_bwd=k * steps)
+        curve = result["train_losses"] if cls is Trainer else result["losses"]
+        stats = dict(trainer_module.LAST_RUN)
+        print(f"{tag}: {steps} steps, launches per step {launches[tag]['igr_fwd'] / steps:g} igr_fwd, "
+              f"{launches[tag]['igr_bwd'] / steps:g} igr_bwd, {stats}, train loss "
+              + " ".join(f"{v:.3e}" for v in curve), flush=True)
+        if not (len(curve) == epochs and np.isfinite(curve).all() and curve[-1] < curve[0]):
+            raise RuntimeError(f"{tag}: the loss did not fall: {curve}")
+        out["data_parallel"][tag] = {**stats, "steps": steps, "train_loss": list(curve)}
+    # mesh the data-parallel point-cloud field through the entry point
+    rec = root / "dp_pcd_reconstruct.ini"
+    rec.write_text(with_keys(text, distributed=False, ppo=True, reconstruct=True, cubesize=128))
+    with window("dp_pcd_reconstruct/128"):
+        if cli.main([str(rec)]) != 0:
+            raise RuntimeError("dp_pcd_reconstruct: the entry point failed")
+    only("dp_pcd_reconstruct/128", fused_grid=1)
+    mesh = load_mesh(str(pathlib.Path(trainer.postprocess_save_path)
+                         / f"reconstructed_epoch{PCD_EPOCHS - 1}.stl"))
+    radius = float(np.median(np.linalg.norm(mesh.vertices, axis=1)))
+    print(f"mesh from the data-parallel point-cloud field, 128^3: {len(mesh.faces)} faces, median "
+          f"vertex radius {radius:.4f} (the cloud's sphere: 0.85, tolerance 1%)", flush=True)
+    if len(mesh.faces) < 100 or abs(radius - 0.85) > 0.0085:
+        raise RuntimeError("dp_pcd_reconstruct: the mesh does not sit on the cloud")
+    out["data_parallel"]["pcd_reconstruct_128"] = {"faces": len(mesh.faces), "median_radius": radius}
+
+    # one f32 step of the sharded fused op against the single-device one
+    gen = torch.Generator().manual_seed(SEED)
+    x = (torch.rand(16384, 3, generator=gen) * 2 - 1).to(device)
+    r = x.norm(dim=1, keepdim=True)
+    y = torch.cat([r - 0.85, x / r], dim=1)
+    loss = IGRLOSS()
+
+    def grads_with(vag):
+        model.zero_grad(set_to_none=True)
+        fn = lambda z: model(z)  # noqa: E731
+        fn._implicitnet_fast = vag
+        value = loss(fn, x, y, 0)
+        value.backward()
+        grads = [p.grad.clone() for p in model.parameters()]
+        model.zero_grad(set_to_none=True)
+        return value.item(), grads
+
+    l1, g1 = grads_with(fi.make_fused_value_and_grad(model, torch.float32))
+    for k in (2, 4):
+        fi.reset_launches()
+        lk, gk = grads_with(fi.make_fused_value_and_grad_sharded(model, (device,) * k, torch.float32))
+        over = max((u - v).abs().sub(2e-5 + 2e-4 * v.abs()).max().item() for u, v in zip(gk, g1))
+        worst = max((u - v).abs().max().item() for u, v in zip(gk, g1))
+        print(f"check sharded igr grads f32 x{k}: loss {lk:.7e} vs {l1:.7e}, max |diff| {worst:.3e}, "
+              f"worst excess over rtol 2e-4 / atol 2e-5 {over:.3e}, launches {fi.LAUNCHES}", flush=True)
+        if over > 0 or abs(lk - l1) > 1e-5 * abs(l1) or fi.LAUNCHES != {"igr_fwd": k, "igr_bwd": k}:
+            raise RuntimeError(f"sharded igr x{k}: gradients differ from the single-device op")
+        out.setdefault("sharded_igr_f32", {})[f"x{k}"] = {"max_abs_grad_diff": worst,
+                                                          "loss": lk, "single_loss": l1}
+    report["sharded_eval"] = out
+    return launches, {"ids": ids, "count": count, "errors": errors, "xy": (x, y)}
 
 
 def gradient_errors(got, want):
@@ -1037,7 +1288,7 @@ def main() -> int:
     from sdf_representation_tpu_torch.ops import fused_mlp as fm
     from sdf_representation_tpu_torch.ops import sdf_streams as ss
     from sdf_representation_tpu_torch.ops import sparse_grid as sg
-    from sdf_representation_tpu_torch.training import Trainer
+    from sdf_representation_tpu_torch.training import PointCloudTrainer, Trainer
     from sdf_representation_tpu_torch.training.checkpoint import save_checkpoint
     from sdf_representation_tpu_torch.utils.device import resolve_device
 
@@ -1205,6 +1456,8 @@ def main() -> int:
     runs = {f"reconstruct/{n}": run["launches"] for n, run in main_path.items()}
     runs.update(drive_pipeline(device, run_root, report))
     runs.update(drive_culled(device, report))
+    sharded_runs, shard_eval = drive_sharded(device, run_root, model, report)
+    runs.update(sharded_runs)
 
     # ---- 5. times -----------------------------------------------------------
     mac = sum(fi * fo for fi, fo in model.layer_shapes())
@@ -1425,6 +1678,111 @@ def main() -> int:
         if entry["launches"] < 1:
             raise RuntimeError(f"{name} was launched on no run of the main path")
         kernels_line.append(entry)
+    # kernels 10 and 11: the grid and blocks entries once per shard at the
+    # main path's shapes (256^3; the seeded net's active list at 256), the
+    # card listed 1, 2 and 4 times ("ms" is x4); bound, plain and library as
+    # for kernels 1 and 3 over the same points
+    from sdf_representation_tpu_torch.ops import sharded_eval as se
+
+    ids, count = shard_eval["ids"], shard_eval["count"]
+    live = int(count)
+    for name, replaces in (
+        ("sharded_grid", "sdf_representation_tpu/ops/sharded_eval.py:34 _local_sweep_pallas"),
+        ("sparse_sharded_blocks", "sdf_representation_tpu/ops/sharded_eval.py:201 _sparse_sharded_device"),
+    ):
+        by_run = {tag: counts[name] for tag, counts in runs.items() if counts[name]}
+        entry = {"name": name, "route": "cuda", "source": "sdf_representation_tpu_torch/csrc/fused_mlp.cu",
+                 "replaces": replaces, "launches": sum(by_run.values()), "launches_by_run": by_run}
+        for dt in (torch.bfloat16, torch.float32):
+            net = nets[dt]
+            tag = str(dt).split(".")[1]
+            if name == "sharded_grid":
+                npts, x, in_bytes = 256 ** 3, grid_pts[256], 0
+                err = report["sharded_eval"]["sharded_grid"][tag]["n255_max_abs_err"]
+
+                def shards_run(k, net=net):
+                    local = se.slab_tiles(256, k, 1024)
+                    return lambda: [fm.fused_grid_tiles(net, 256, d * local, local) for d in range(k)]
+
+                local4 = se.slab_tiles(256, 4, 1024)
+                plain = lambda: [fm.fused_grid_tiles_plain(net, 256, d * local4, local4) for d in range(4)]
+            else:
+                npts, x, in_bytes = live * 512, fm.block_points(ids[:live], 256, 8), ids.numel() * 4 + 4
+                err = shard_eval["errors"][dt]
+
+                def shards_run(k, net=net):
+                    parts = [se.active_slice(ids, count, d, k) for d in range(k)]
+                    return lambda: [fm.fused_blocks(net, i, c, 256, 8, counter="sparse_sharded_blocks")
+                                    for i, c in parts]
+
+                parts4 = [se.active_slice(ids, count, d, 4) for d in range(4)]
+                plain = lambda: [fm.fused_blocks_plain(net, i, c, 256, 8) for i, c in parts4]
+            w_bytes = sum(w.numel() * w.element_size() for w in net.weights)
+            bytes_ = w_bytes + in_bytes + npts * 4
+            flops = 2.0 * mac * npts
+            t_bytes, t_ops = bytes_ / MEM_BW * 1e3, flops / PEAK[dt] * 1e3
+            # a 256^3 sweep takes seconds: one timed launch per shard is enough
+            reps = 1 if name == "sharded_grid" else 3
+            ms_by = {k: timed(shards_run(k), reps) for k in (1, 2, 4)}
+            plain_ms, lib_ms = timed(plain, 1), timed(lambda: library_chain(x, dt), 1)
+            numbers = {"max_abs_err": err, "ms": ms_by[4], "plain_ms": plain_ms,
+                       "bound_ms": max(t_bytes, t_ops),
+                       "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                       "library_ms": lib_ms, "points": npts, "shards": 4,
+                       "ms_by_shards": ms_by, "tflops": flops / ms_by[4] / 1e9}
+            print(f"time {name}/{tag}: " + json.dumps(numbers), flush=True)
+            if dt == torch.bfloat16:
+                entry.update(numbers, dtype="bfloat16")
+            else:
+                entry["float32"] = numbers
+        if entry["launches"] < 1:
+            raise RuntimeError(f"{name} was launched on no run of the main path")
+        kernels_line.append(entry)
+    # the whole evaluators and the data-parallel eikonal step, x1 / x2 / x4
+    from sdf_representation_tpu_torch.losses.losses import IGRLOSS
+    from sdf_representation_tpu_torch.training.trainer import make_train_step
+
+    eval_ms = {}
+    for k in (1, 2, 4):
+        mesh_k = (device,) * k
+        eval_ms[f"sharded_grid_eval/x{k}"] = timed(lambda: se.sharded_grid_eval(model, 256, mesh_k), 1)
+        if k > 1:
+            eval_ms[f"sparse_sharded_grid_eval/x{k}"] = timed(
+                lambda: se.sparse_sharded_grid_eval(model, 256, mesh_k))
+    x, y = shard_eval["xy"]
+    step_ms = {}
+    for k in (1, 2, 4):
+        step_model = ImplicitNet(hidden_dims=(512,) * 8, skip_in=(4,), beta=100.0, radius_init=0.5,
+                                 generator=torch.Generator().manual_seed(SEED), device=device)
+        opt = torch.optim.Adam(step_model.parameters(), lr=1e-4)
+        step = make_train_step(step_model, IGRLOSS(), opt, "bfloat16",
+                               mesh=None if k == 1 else (device,) * k)
+        step_ms[f"igr_step_8x512_n16384_bfloat16/x{k}"] = timed(lambda: step(x, y, 0), 10)
+    # the point-cloud step as PointCloudTrainer makes it (8x256, 16,384 cloud
+    # points, 5,461 eikonal points), and the kernels' share of each step:
+    # kernels 8 and 9 once per shard on its rows (bf16), no host work around
+    cloud = torch.randn(PCD_POINTS, 3, generator=torch.Generator().manual_seed(SEED))
+    cloud = (0.85 * cloud / cloud.norm(dim=1, keepdim=True))[:16384].to(device)
+    pcd_cfg = Configuration(str(run_root / "pipeline" / "pcd_bfloat16.ini"))
+    for k in (1, 2, 4):
+        pcd = PointCloudTrainer(pcd_cfg, mesh=None if k == 1 else (device,) * k)
+        pcd_step = pcd._make_step(torch.optim.Adam(pcd.model.parameters(), lr=1e-4), 16384)
+        step_gen = torch.Generator(device=device).manual_seed(SEED)
+        step_ms[f"pcd_step_8x256_n16384_bfloat16/x{k}"] = timed(lambda: pcd_step(cloud, step_gen), 10)
+    for case, (net_model, xc, ac, cc) in igr_cases.items():
+        net = fm.FusedNet(net_model, torch.bfloat16)
+        for k in (1, 2, 4):
+            parts = list(zip(*(torch.tensor_split(t, k) for t in (xc, ac, cc))))
+
+            def kernels_per_shard(net=net, parts=parts):
+                for xs, as_, cs in parts:
+                    fi.fused_value_and_grad(net, xs)
+                    fi.fused_param_grads(net, xs, as_, cs)
+
+            step_ms[f"igr_kernels_per_shard_{case}_bfloat16/x{k}"] = timed(kernels_per_shard, 5)
+    print(f"time (ms) sharded evaluators at 256^3 (bf16), the labelled IGRLOSS and point-cloud "
+          f"steps, kernels 8-9 per shard: {json.dumps({**eval_ms, **step_ms})}", flush=True)
+    report["sharded_times_ms"] = {**eval_ms, **step_ms}
     sparse_ms = {str(dt).split(".")[1]: timed(lambda: sg.sparse_grid_eval(model, 256, compute_dtype=dt))
                  for dt in (torch.bfloat16, torch.float32)}
     print(f"time sparse_grid_eval n=256 (coarse sweep + refine + assembly, ms): {sparse_ms}",

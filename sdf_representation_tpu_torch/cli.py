@@ -8,7 +8,9 @@ labels the training points; ``ppo = True`` reconstructs a mesh
 (``reconstruct = False``) from the run's checkpoints; otherwise it samples
 if needed, trains and writes checkpoints. ``distributed = True`` selects the
 point-cloud (IGR) trainer, which fits the field to bare surface points
-(``<geometry>/surface.csv``).
+(``<geometry>/surface.csv``). ``[TPU] mesh_devices = N > 1`` trains
+data-parallel over the first N cards (one on a one-card machine), or over
+the CPU listed N times with ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -31,9 +33,16 @@ def main(argv=None) -> int:
     print(f"Running with config file: {args.config}")
 
     from .configgen import Configuration
+    from .parallel.mesh import get_mesh
     from .training import PointCloudTrainer, Trainer
 
     config = Configuration(args.config)
+    mesh = None
+    if config.mesh_devices and config.mesh_devices > 1:
+        # JAX cli.py:24-30; with --device cpu the CPU listed mesh_devices times
+        cpu = args.device is not None and torch.device(args.device).type == "cpu"
+        mesh = get_mesh(config.mesh_devices, devices=("cpu",) * config.mesh_devices if cpu else None)
     trainer_cls = PointCloudTrainer if config.distributed else Trainer
-    trainer_cls(config, device=args.device, compute_dtype=_DTYPES[args.compute_dtype]).run()
+    trainer_cls(config, device=args.device, mesh=mesh,
+                compute_dtype=_DTYPES[args.compute_dtype]).run()
     return 0

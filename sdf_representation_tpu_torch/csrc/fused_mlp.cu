@@ -6,6 +6,11 @@
 //   * points mode     ops/pallas_mlp.py _make_kernel, pallas_call in _fused_apply_padded
 //   * dense grid mode ops/pallas_mlp.py _make_kernel, pallas_call in _fused_grid_slab
 //   * sparse blocks   ops/sparse_grid.py _make_block_kernel, pallas_call in refine_blocks
+// and the two per-device kernels of ops/sharded_eval.py built from the same
+// bodies: _local_sweep_pallas (the grid entry from a shard's base tile) and
+// the pallas_call of _sparse_sharded_device (the blocks entry over a shard's
+// slice of the active list), launched once per shard by the port's
+// ops/sharded_eval.py.
 // Here too one __device__ routine (tile_forward) runs the whole network over
 // a tile of 64 points, and three __global__ entries differ only in where the
 // tile's coordinates come from and where its 64 results go.
@@ -267,8 +272,11 @@ points_kernel(const float* __restrict__ x, long long n_pts, int d_in,
   if (threadIdx.x < kTileP && p < n_pts) out[p] = res[threadIdx.x];
 }
 
-// dense n^3 grid over linspace(-1, 1, n), flat = x*n^2 + y*n + z; tile t
-// covers flat indices [64 t, 64 t + 64); out holds the whole volume
+// dense n^3 grid over linspace(-1, 1, n), flat = x*n^2 + y*n + z; block b
+// is tile t = base_tile + b, the flat indices [64 t, 64 t + 64). out holds
+// the launch's own tiles from base_tile on (a shard's slab: the TPU kernel
+// 10, sharded_eval.py _local_sweep_pallas, takes its base from SMEM), so a
+// whole-volume launch has base_tile 0. Points past n^3 are not written.
 template <typename WT>
 __global__ void __launch_bounds__(kThreads, 1)
 grid_kernel(long long base_tile, int n, float step,
@@ -294,7 +302,7 @@ grid_kernel(long long base_tile, int n, float step,
   __syncthreads();
   tile_forward<WT>(desc, n_lin, 3, beta, W, B, smem);
   const long long flat = p0 + threadIdx.x;
-  if (threadIdx.x < kTileP && flat < total) out[flat] = res[threadIdx.x];
+  if (threadIdx.x < kTileP && flat < total) out[flat - base_tile * kTileP] = res[threadIdx.x];
 }
 
 // the block^3 points of each active block: block b = blockIdx.x / tiles is

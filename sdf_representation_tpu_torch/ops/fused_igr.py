@@ -12,10 +12,12 @@ kernels:
                rematerialised, one reverse sweep, dW and db summed over the
                points                                   <- _fused_vag_bwd
 
-``FusedValueAndGrad`` ties them into autograd. The backward is
-**params-only**: ``x`` is data and gets no gradient (differentiating this op
-w.r.t. ``x`` yields None), as in the JAX package, whose custom VJP returns a
-zero cotangent for ``x``.
+``FusedValueAndGrad`` ties them into autograd; ``make_fused_value_and_grad``
+binds it to a module, and ``make_fused_value_and_grad_sharded`` runs it once
+per shard of a mesh for data-parallel training (pallas_igr.py:495-531). The
+backward is **params-only**: ``x`` is data and gets no gradient
+(differentiating this op w.r.t. ``x`` yields None), as in the JAX package,
+whose custom VJP returns a zero cotangent for ``x``.
 
 Each wrapper takes its kernel's plain PyTorch version when the tensors lie
 on the CPU, and launches the kernel or raises when they lie on a card: there
@@ -42,6 +44,7 @@ import torch
 
 from .. import kernels
 from ..models.implicit_net import softplus_beta
+from ..parallel.mesh import gather, get_mesh, replicate, shard_batch
 from .fused_mlp import INV_SQRT2, MAX_D_IN, MAX_WIDTH, FusedNet, _working
 
 FWD_TILE_P = 64  # points per CUDA block, forward (kRows in csrc/fused_igr.cu)
@@ -306,17 +309,16 @@ def unpack_grads(d_in: int, shapes: Sequence[torch.Size], padded: PaddedGrads) -
 
 
 class FusedValueAndGrad(torch.autograd.Function):
-    """(f, grad_x f) = FusedValueAndGrad.apply(x, model, compute_dtype,
-    w_0, b_0, w_1, b_1, ...) with the module's (out, in) weights as flat
-    arguments, so each gets its gradient. ``x`` gets none: it is data."""
+    """(f, grad_x f) = FusedValueAndGrad.apply(x, net, w_0, b_0, w_1, b_1, ...)
+    with ``net`` the ``FusedNet`` packed from the module's (out, in) weights,
+    which come as flat arguments so that each gets its gradient. ``x`` gets
+    none: it is data."""
 
     @staticmethod
-    def forward(ctx, x, model, compute_dtype, *params):
-        layers = list(zip(params[0::2], params[1::2]))
-        net = FusedNet(model, compute_dtype, layers=layers)
+    def forward(ctx, x, net, *params):
         x = x.detach().float().contiguous()
         ctx.net, ctx.x = net, x
-        ctx.meta = [(w.shape, w.dtype) for w, _ in layers]
+        ctx.meta = [(w.shape, w.dtype) for w in params[0::2]]
         return fused_value_and_grad(net, x)
 
     @staticmethod
@@ -324,7 +326,11 @@ class FusedValueAndGrad(torch.autograd.Function):
         padded = fused_param_grads(ctx.net, ctx.x, a.float().contiguous(), c.float().contiguous())
         flat = unpack_grads(ctx.net.d_in, [shape for shape, _ in ctx.meta], padded)
         dtypes = [dtype for _, dtype in ctx.meta for _ in range(2)]
-        return (None, None, None, *[g.to(dt) for g, dt in zip(flat, dtypes)])
+        return (None, None, *[g.to(dt) for g, dt in zip(flat, dtypes)])
+
+
+def _flat(model, layers) -> List[torch.Tensor]:
+    return [t for pair in (model.effective_layers() if layers is None else layers) for t in pair]
 
 
 def make_fused_value_and_grad(model, compute_dtype: torch.dtype = torch.bfloat16):
@@ -337,10 +343,33 @@ def make_fused_value_and_grad(model, compute_dtype: torch.dtype = torch.bfloat16
     losses; the trainer installs it as the ``_implicitnet_fast`` hook."""
 
     def vag(x: torch.Tensor, layers=None):
-        if layers is None:
-            layers = model.effective_layers()
-        flat = [t for pair in layers for t in pair]
-        return FusedValueAndGrad.apply(x, model, compute_dtype, *flat)
+        flat = _flat(model, layers)
+        net = FusedNet(model, compute_dtype, layers=list(zip(flat[0::2], flat[1::2])))
+        return FusedValueAndGrad.apply(x, net, *flat)
 
     return vag
 
+
+def make_fused_value_and_grad_sharded(model, mesh, compute_dtype: torch.dtype = torch.bfloat16):
+    """``make_fused_value_and_grad`` over a mesh (pallas_igr.py:495-531):
+    ``x`` is cut into ``len(mesh)`` contiguous pieces (``shard_batch``),
+    shard d runs the fused op on ``mesh[d]`` with the layers replicated
+    there, and (f, grad f) are gathered on ``mesh[0]``. On a card that is
+    one ``igr_fwd`` launch per shard and, in backward, one ``igr_bwd``
+    launch per shard; autograd sums the shards' parameter gradients (the
+    psum of the JAX ``shard_map`` transpose). Each distinct device's weights
+    are packed once per call, not once per shard."""
+    mesh = get_mesh(devices=mesh)
+
+    def vag(x: torch.Tensor, layers=None):
+        flat = _flat(model, layers)
+        nets, f, g = {}, [], []
+        for xs, dev, ps in zip(shard_batch(x, mesh), mesh, replicate(flat, mesh)):
+            if dev not in nets:
+                nets[dev] = FusedNet(model, compute_dtype, layers=list(zip(ps[0::2], ps[1::2])))
+            fs, gs = FusedValueAndGrad.apply(xs, nets[dev], *ps)
+            f.append(fs)
+            g.append(gs)
+        return gather(f, mesh[0]), gather(g, mesh[0])
+
+    return vag

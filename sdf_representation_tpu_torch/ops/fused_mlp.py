@@ -10,6 +10,12 @@ coordinates from the tile index. Three entries share the kernel body:
   ``fused_grid``    the dense n^3 grid      <- _fused_grid_slab's pallas_call
   ``fused_blocks``  active 8^3 blocks       <- ops/sparse_grid.py refine_blocks
 
+``fused_grid_tiles`` is the grid entry over one shard's slab of tiles, and
+``fused_blocks`` with ``counter="sparse_sharded_blocks"`` the blocks entry
+over one shard's slice of the active list: the per-device kernels of
+ops/sharded_eval.py (``_local_sweep_pallas``, ``_sparse_sharded_device``),
+which the port's ops/sharded_eval.py launches once per shard.
+
 Each wrapper takes its kernel's plain PyTorch version (``*_plain``) when the
 tensors lie on the CPU, and launches the kernel or raises when they lie on
 a card: there is no fallback. ``LAUNCHES`` counts kernel launches.
@@ -41,7 +47,8 @@ PLAIN_CHUNK = 65536  # points per plain-path matmul chain
 INV_SQRT2 = 1.0 / math.sqrt(2.0)
 
 # kernel launches per wrapper; chip_smoke.py zeroes them around the main path
-LAUNCHES = {"fused_points": 0, "fused_grid": 0, "sparse_blocks": 0}
+LAUNCHES = {"fused_points": 0, "fused_grid": 0, "sparse_blocks": 0, "sharded_grid": 0,
+            "sparse_sharded_blocks": 0}
 
 
 def reset_launches() -> None:
@@ -266,6 +273,19 @@ def fused_grid_plain(net: FusedNet, n: int) -> torch.Tensor:
     return _plain_chunked(net, lambda a, b: grid_points(n, a, b, net.device), n ** 3)
 
 
+def fused_grid_tiles_plain(net: FusedNet, n: int, base_tile: int, n_tiles: int) -> torch.Tensor:
+    """(n_tiles * TILE_P,) values of the flat grid indices from base_tile *
+    TILE_P on; points past n^3 are left as zeros (the kernel leaves them
+    unwritten; callers drop them)."""
+    start = base_tile * TILE_P
+    out = torch.zeros(n_tiles * TILE_P, dtype=torch.float32, device=net.device)
+    live = max(0, min(n ** 3, start + out.numel()) - start)
+    if live:
+        out[:live] = _plain_chunked(net, lambda a, b: grid_points(n, start + a, start + b, net.device),
+                                    live)
+    return out
+
+
 def fused_blocks_plain(net: FusedNet, ids: torch.Tensor, count: torch.Tensor,
                        n: int, block: int) -> torch.Tensor:
     """(k_max, block^3); rows at or past ``count`` are left as garbage-free
@@ -344,6 +364,18 @@ def fused_points(net: FusedNet, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _grid_launch(net: FusedNet, n: int, base_tile: int, n_tiles: int, out: torch.Tensor,
+                 what: str) -> None:
+    """One grid-entry launch over tiles [base_tile, base_tile + n_tiles),
+    written to ``out`` from its start (points past n^3 are not written)."""
+    w, b, desc, n_lin, bf16, stream = _cuda_args(net, out)
+    with torch.cuda.device(net.device):
+        rc = _lib().sdf_mlp_grid(base_tile, n_tiles, n, 2.0 / (n - 1), desc, n_lin,
+                                 net.beta, bf16, w, b, out.data_ptr(), stream)
+    _check_launch(rc, what)
+    LAUNCHES[what] += 1
+
+
 def fused_grid(net: FusedNet, n: int) -> torch.Tensor:
     """The field on the dense n^3 grid over linspace(-1, 1, n), flat
     x*n^2 + y*n + z, as an (n^3,) f32 tensor on the net's device."""
@@ -351,23 +383,35 @@ def fused_grid(net: FusedNet, n: int) -> torch.Tensor:
         raise ValueError("grid evaluation needs a 3-d input")
     if net.device.type == "cpu":
         return fused_grid_plain(net, n)
-    w, b, desc, n_lin, bf16, stream = _cuda_args(net)
     total = n ** 3
     out = torch.empty(total, dtype=torch.float32, device=net.device)
-    with torch.cuda.device(net.device):
-        rc = _lib().sdf_mlp_grid(0, -(-total // TILE_P), n, 2.0 / (n - 1), desc, n_lin,
-                                 net.beta, bf16, w, b, out.data_ptr(), stream)
-    _check_launch(rc, "fused_grid")
-    LAUNCHES["fused_grid"] += 1
+    _grid_launch(net, n, 0, -(-total // TILE_P), out, "fused_grid")
+    return out
+
+
+def fused_grid_tiles(net: FusedNet, n: int, base_tile: int, n_tiles: int) -> torch.Tensor:
+    """The grid entry over one shard's slab: tiles [base_tile, base_tile +
+    n_tiles) of TILE_P flat grid indices -> (n_tiles * TILE_P,) f32, value
+    i at flat index base_tile * TILE_P + i. Points past n^3 are not written.
+    Counted under ``sharded_grid`` (TPU kernel 10)."""
+    if net.d_in != 3:
+        raise ValueError("grid evaluation needs a 3-d input")
+    if base_tile < 0 or n_tiles < 0:
+        raise ValueError(f"base_tile {base_tile} and n_tiles {n_tiles} must not be negative")
+    if net.device.type == "cpu":
+        return fused_grid_tiles_plain(net, n, base_tile, n_tiles)
+    out = torch.empty(n_tiles * TILE_P, dtype=torch.float32, device=net.device)
+    _grid_launch(net, n, base_tile, n_tiles, out, "sharded_grid")
     return out
 
 
 def fused_blocks(net: FusedNet, ids: torch.Tensor, count: torch.Tensor,
-                 n: int, block: int) -> torch.Tensor:
+                 n: int, block: int, counter: str = "sparse_blocks") -> torch.Tensor:
     """The block^3 points of blocks ``ids[:count]`` (flat over the
     (n/block)^3 blocks) -> (len(ids), block^3) f32. ``count`` is a 1-element
     int32 tensor read on the device (no host sync); rows past it are not
-    written."""
+    written. ``counter``: the ``LAUNCHES`` key the launch counts under
+    ("sparse_sharded_blocks" for a shard of ops/sharded_eval.py)."""
     if net.d_in != 3:
         raise ValueError("grid evaluation needs a 3-d input")
     if ids.device.type == "cpu":
@@ -382,8 +426,8 @@ def fused_blocks(net: FusedNet, ids: torch.Tensor, count: torch.Tensor,
         rc = _lib().sdf_mlp_blocks(ids.data_ptr(), count.data_ptr(), ids.shape[0], n // block,
                                    block, 2.0 / (n - 1), desc, n_lin, net.beta, bf16, w, b,
                                    out.data_ptr(), stream)
-    _check_launch(rc, "sparse_blocks")
-    LAUNCHES["sparse_blocks"] += 1
+    _check_launch(rc, counter)
+    LAUNCHES[counter] += 1
     return out
 
 

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..parallel.mesh import mesh_kind
 from .sdf_exact import _eberly_st
 
 # distance-table columns (15 used, padded to 16): the tile pass needs P.E0 and
@@ -372,13 +373,6 @@ def _shards(P_blocks, step_block, step_chunk, tri_chunk: int, devices: Sequence)
         yield P_blocks[d * B_local:(d + 1) * B_local].to(dev), sb[d, 1:], sc[d, 1:]
 
 
-def _mesh_kind(devices: Sequence) -> str:
-    kinds = {torch.device(d).type for d in devices}
-    if len(kinds) != 1 or not kinds <= {"cpu", "cuda"}:
-        raise ValueError(f"a mesh is all cards or all CPU, got {sorted(kinds)}")
-    return kinds.pop()
-
-
 def _gather(parts) -> np.ndarray:
     """Shard outputs (B_local + 1, M) each -> host (B, M), sink rows dropped."""
     return torch.cat([p[:-1].cpu() for p in parts]).numpy()
@@ -411,7 +405,7 @@ def dist_stream_sharded(P_blocks, step_block, step_chunk, tables, tri_chunk: int
     contract), bit-equal to rows :B of one dist_stream launch: every point
     sees the same chunks in the same order on the same kernel."""
     devices = [torch.device(d) for d in devices]
-    if _mesh_kind(devices) == "cpu":
+    if mesh_kind(devices) == "cpu":
         return dist_stream_sharded_plain(P_blocks, step_block, step_chunk, tables, tri_chunk,
                                          devices)
     table = pack_dist_table(tables, tri_chunk)
@@ -427,7 +421,7 @@ def wind_stream_sharded(P_blocks, step_block, step_chunk, tables, tri_chunk: int
     """wind_stream over a mesh (see dist_stream_sharded). Returns host (B, M)
     summed solid angles without the sink row."""
     devices = [torch.device(d) for d in devices]
-    if _mesh_kind(devices) == "cpu":
+    if mesh_kind(devices) == "cpu":
         return wind_stream_sharded_plain(P_blocks, step_block, step_chunk, tables, tri_chunk,
                                          devices)
     table = pack_wind_table(tables, tri_chunk)

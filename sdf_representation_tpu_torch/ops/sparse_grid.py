@@ -88,18 +88,25 @@ def certificate_violations(coarse: torch.Tensor, mask: torch.Tensor, nb: int,
     return viol
 
 
+def block_centers(n: int, block: int, start: int, stop: int, device) -> torch.Tensor:
+    """(stop - start, 3) centres of the flat block ids [start, stop) of the
+    (n/block)^3 blocks. Raises where TF32 matmuls are on for a card: the
+    coarse sweep over them must run in full f32."""
+    if torch.device(device).type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("TF32 matmuls are on: the coarse sweep must run in full f32")
+    nb = n // block
+    s = 2.0 / (n - 1)
+    flat = torch.arange(start, stop, dtype=torch.int64, device=device)
+    half = (block - 1) / 2.0
+    idx = torch.stack([flat // (nb * nb), (flat // nb) % nb, flat % nb], dim=-1)
+    return -1.0 + s * (idx.float() * block + half)
+
+
 def coarse_and_certificate(model, n: int, block: int, safety: float, eps: float,
                            level: float = 0.0):
     """Coarse centre sweep, activity mask and certificate count."""
     nb = n // block
-    device = next(model.parameters()).device
-    if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError("TF32 matmuls are on: the coarse sweep must run in full f32")
-    s = 2.0 / (n - 1)
-    flat = torch.arange(nb ** 3, dtype=torch.int64, device=device)
-    half = (block - 1) / 2.0
-    idx = torch.stack([flat // (nb * nb), (flat // nb) % nb, flat % nb], dim=-1)
-    centers = -1.0 + s * (idx.float() * block + half)
+    centers = block_centers(n, block, 0, nb ** 3, next(model.parameters()).device)
     with torch.no_grad():
         coarse = model(centers).float()
     tau = adaptive_threshold(coarse, n, block, safety, eps)
@@ -107,17 +114,23 @@ def coarse_and_certificate(model, n: int, block: int, safety: float, eps: float,
     return coarse, mask, certificate_violations(coarse, mask, nb, level)
 
 
+def first_active(mask: torch.Tensor, k_max: int):
+    """(ids (k_max,) int32, count (1,) int32): the first k_max active block
+    ids in order (zeros after them) and the number of active blocks, both on
+    the mask's device, without a host sync."""
+    count = mask.sum(dtype=torch.int32).reshape(1)
+    pos = torch.cumsum(mask, 0, dtype=torch.int64) - 1
+    slot = torch.where(mask & (pos < k_max), pos, k_max)
+    ids = torch.zeros(k_max + 1, dtype=torch.int32, device=mask.device)
+    ids.scatter_(0, slot, torch.arange(mask.numel(), dtype=torch.int32, device=mask.device))
+    return ids[:k_max], count
+
+
 def _sparse_pass(model, net, n, block, k_max, safety, eps, level):
     nb = n // block
     nb3 = nb ** 3
     coarse, mask, viol = coarse_and_certificate(model, n, block, safety, eps, level)
-    # the first k_max active ids, in order, without a host sync
-    count = mask.sum(dtype=torch.int32).reshape(1)
-    pos = torch.cumsum(mask, 0, dtype=torch.int64) - 1
-    slot = torch.where(mask & (pos < k_max), pos, k_max)
-    ids = torch.zeros(k_max + 1, dtype=torch.int32, device=coarse.device)
-    ids.scatter_(0, slot, torch.arange(nb3, dtype=torch.int32, device=coarse.device))
-    ids = ids[:k_max]
+    ids, count = first_active(mask, k_max)
     # the refinement (the JAX package's refine_blocks)
     vals = fused_blocks(net, ids, count, n, block)
     # coarse fill + scatter of the refined rows; rows past the live count go

@@ -15,6 +15,10 @@ it is not data-parallel training but the IGR point-cloud trainer that
     every ``checkpointing`` epochs (:95-107), and a final save so short runs
     leave a checkpoint
 
+Under ``mesh`` the forward and the eikonal term's fast path run sharded
+(``bind_apply``; JAX pcd_trainer.py:53-98) while the subsample ``idx`` and
+the noise stay whole-batch draws on ``mesh[0]``.
+
 An eager loop like ``Trainer.train``: the cloud lives on the device, every
 epoch draws a permutation from a generator seeded from (init_seed + 1,
 epoch), every step reseeds it from (init_seed + 1, epoch, step); losses stay
@@ -64,9 +68,10 @@ def pcd_loss(apply, model, xb: torch.Tensor, idx: torch.Tensor, noise: torch.Ten
 
 
 class PointCloudTrainer(Trainer):
-    def __init__(self, config, device=None, init_seed: int = 0,
+    def __init__(self, config, device=None, mesh=None, init_seed: int = 0,
                  compute_dtype: torch.dtype = torch.bfloat16):
-        super().__init__(config, device=device, init_seed=init_seed, compute_dtype=compute_dtype)
+        super().__init__(config, device=device, mesh=mesh, init_seed=init_seed,
+                         compute_dtype=compute_dtype)
         self.local_sigma = 1e-4
         self.grad_lambda = float(getattr(config.make_loss(), "lambda_g", 0.1))
 
@@ -91,7 +96,7 @@ class PointCloudTrainer(Trainer):
         model = self.model
         n_sub = max(1, batch // 3)
         apply = bind_apply(model, None,
-                           use_fused_igr(model, self.config.train_matmul_precision))
+                           use_fused_igr(model, self.config.train_matmul_precision), self.mesh)
 
         def step(xb: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
             kw = dict(generator=generator, device=xb.device)

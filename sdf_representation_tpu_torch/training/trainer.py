@@ -65,7 +65,8 @@ import torch
 from ..configgen.config_reader import Configuration
 from ..data.dataset import SDFDataset, load_data
 from ..ops.diffops import implicitnet_value_and_grad
-from ..ops.fused_igr import make_fused_value_and_grad
+from ..ops.fused_igr import make_fused_value_and_grad, make_fused_value_and_grad_sharded
+from ..parallel.mesh import gather, get_mesh, replicate, shard_batch
 from ..utils.device import resolve_device
 from ..utils.files import create_directory
 from . import checkpoint as ckpt
@@ -102,8 +103,8 @@ def use_fused_igr(model, precision: Optional[str]) -> bool:
     return precision == "bfloat16" and not model.lipschitz and device.type == "cuda"
 
 
-def bind_apply(model, precision: Optional[str] = None,
-               fused_igr: bool = False) -> Callable[[torch.Tensor], torch.Tensor]:
+def bind_apply(model, precision: Optional[str] = None, fused_igr: bool = False,
+               mesh=None) -> Callable[[torch.Tensor], torch.Tensor]:
     """The forward a training step differentiates: the module, or for
     "bfloat16" the module run on bfloat16 copies of its float32 master
     parameters and of its input, its output widened back to float32.
@@ -112,25 +113,61 @@ def bind_apply(model, precision: Optional[str] = None,
     ``ops.diffops.sdf_and_gradient_fwd`` consumes as ``_implicitnet_fast``:
     the fused kernels (``fused_igr``) or the shared-matmul derivation; for
     "bfloat16" it too runs on bfloat16 copies of the parameters and of ``x``
-    and widens its outputs."""
+    and widens its outputs.
+
+    Under a ``mesh`` of more than one entry (JAX trainer.py:51-94) the batch
+    is cut over the mesh (``parallel.mesh.shard_batch``): each shard runs the
+    module through ``torch.func.functional_call`` on the parameters
+    replicated to its device, and the fast path per shard (the sharded fused
+    op, or the derivation on the replicated layers); the outputs gather on
+    ``mesh[0]``, and autograd sums the shards' parameter gradients there. A
+    batch smaller than the mesh (a per-point transform's single row) runs
+    whole on ``mesh[0]``."""
+    mixed = precision == "bfloat16"
+    sharded = mesh is not None and len(mesh) > 1
+
+    def cast(t: torch.Tensor) -> torch.Tensor:
+        return t.to(torch.bfloat16) if mixed and t.dtype == torch.float32 else t
+
     if fused_igr:
-        fast = make_fused_value_and_grad(model)
+        fast = (make_fused_value_and_grad_sharded(model, mesh) if sharded
+                else make_fused_value_and_grad(model))
+    elif sharded:
+        def fast(x, layers=None):
+            flat = [t for pair in (model.effective_layers() if layers is None else layers)
+                    for t in pair]
+            parts = [implicitnet_value_and_grad(model, xs, list(zip(ps[0::2], ps[1::2])))
+                     for xs, ps in zip(shard_batch(x, mesh), replicate(flat, mesh))]
+            return gather([v for v, _ in parts], mesh[0]), gather([g for _, g in parts], mesh[0])
     else:
         def fast(x, layers=None):
             return implicitnet_value_and_grad(model, x, layers)
 
-    if precision != "bfloat16":
-        def apply(x: torch.Tensor) -> torch.Tensor:
+    def whole(x: torch.Tensor) -> torch.Tensor:
+        if not mixed:
             return model(x)
+        return torch.func.functional_call(
+            model, {k: cast(v) for k, v in model.named_parameters()}, (x,))
+
+    forward = whole
+    if sharded:
+        def forward(x: torch.Tensor) -> torch.Tensor:
+            if x.shape[0] < len(mesh):
+                return whole(x)
+            names = [name for name, _ in model.named_parameters()]
+            reps = replicate([cast(v) for _, v in model.named_parameters()], mesh)
+            return gather([torch.func.functional_call(model, dict(zip(names, ps)), (xs,))
+                           for xs, ps in zip(shard_batch(x, mesh), reps)], mesh[0])
+
+    if not mixed:
+        def apply(x: torch.Tensor) -> torch.Tensor:
+            return forward(x)
 
         apply._implicitnet_fast = fast
         return apply
 
     def apply(x: torch.Tensor) -> torch.Tensor:
-        params = {k: (v.to(torch.bfloat16) if v.dtype == torch.float32 else v)
-                  for k, v in model.named_parameters()}
-        out = torch.func.functional_call(model, params, (x.to(torch.bfloat16),))
-        return out.to(torch.float32)
+        return forward(x.to(torch.bfloat16)).to(torch.float32)
 
     def fast_mixed(x: torch.Tensor):
         layers = [(w.to(torch.bfloat16), b.to(torch.bfloat16))
@@ -143,13 +180,17 @@ def bind_apply(model, precision: Optional[str] = None,
 
 
 def make_train_step(model, loss_fn, optimizer: torch.optim.Optimizer,
-                    precision: Optional[str] = None, aux=None) -> Callable:
+                    precision: Optional[str] = None, aux=None, mesh=None) -> Callable:
     """(x, y, epoch, generator=None) -> loss (a detached scalar tensor on the
     device): one optimizer update on the batch. ``aux``: the loss's learnable
-    scalars (the optimizer must hold them too)."""
+    scalars (the optimizer must hold them too). ``mesh``: the forward runs
+    sharded (``bind_apply``) while the loss is taken on ``mesh[0]`` over the
+    whole gathered batch, with the step's one generator: a sharded step's
+    loss, and any points the loss draws, are the single-device step's, as
+    XLA's global-batch semantics make them in the JAX package."""
     if precision not in PRECISIONS:
         raise ValueError(f"train_matmul_precision must be one of {PRECISIONS}, got {precision!r}")
-    apply = bind_apply(model, precision, use_fused_igr(model, precision))
+    apply = bind_apply(model, precision, use_fused_igr(model, precision), mesh)
     lipschitz = model.lipschitz and model.lipschitz_weight > 0
 
     def step(xb: torch.Tensor, yb: torch.Tensor, epoch: int, generator=None) -> torch.Tensor:
@@ -171,14 +212,25 @@ class Trainer:
     checkpoints' consumers (reconstruction, the accuracy audit).
 
     ``device``: None runs on the card (and raises without one); "cpu" runs
-    the plain PyTorch path. ``compute_dtype`` is the working type of the
-    fused evaluation kernels (bfloat16, as in the JAX package's TPU path, or
-    float32); training precision is the config's ``train_matmul_precision``.
+    the plain PyTorch path. ``mesh``: a tuple of devices
+    (``parallel.mesh.get_mesh``) over which training and validation shard
+    their batches (data-parallel, one process; JAX trainer.py:391-393); the
+    master parameters, the optimizer state and the data live on ``mesh[0]``,
+    which ``device``, if given, must be. ``compute_dtype`` is the working
+    type of the fused evaluation kernels (bfloat16, as in the JAX package's
+    TPU path, or float32); training precision is the config's
+    ``train_matmul_precision``.
     """
 
-    def __init__(self, config: Configuration, device=None, init_seed: int = 0,
+    def __init__(self, config: Configuration, device=None, mesh=None, init_seed: int = 0,
                  compute_dtype: torch.dtype = torch.bfloat16):
         self.config = config
+        if mesh is not None:
+            mesh = get_mesh(devices=mesh)
+            if device is not None and get_mesh(devices=[device])[0] != mesh[0]:
+                raise ValueError(f"device {device} is not the mesh's first device {mesh[0]}")
+            device = mesh[0]
+        self.mesh = mesh
         self.device = resolve_device(device)
         if self.device.type == "cuda" and not config.use_pallas:
             raise ValueError(
@@ -313,7 +365,7 @@ class Trainer:
             return None
         vb = min(batch, n_val)
         n_vbatches = max(1, n_val // vb)
-        apply = bind_apply(self.model)
+        apply = bind_apply(self.model, mesh=self.mesh)
         gen = torch.Generator(device=self.device)
         losses = []
         with torch.no_grad():
@@ -364,7 +416,7 @@ class Trainer:
 
         batch = min(c.batchsize, dataset.n_train)
         step = make_train_step(self.model, loss_fn, optimizer, c.train_matmul_precision,
-                               aux=self.aux)
+                               aux=self.aux, mesh=self.mesh)
         step_gen = torch.Generator(device=dev)
         loss_log = os.path.join(self.train_path, "train_loss.txt")
         epochs_no_improve = 0

@@ -305,3 +305,57 @@ def test_igr_refusals(device):
         fi.fused_value_and_grad(fm.FusedNet(small, torch.float32), x.double())
     with pytest.raises(ValueError, match="weights are on"):
         fi.fused_value_and_grad(fm.FusedNet(small.cpu(), torch.float32), x)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_dev", [2, 4])
+def test_sharded_grid_on_the_card(device, n_dev, dt):
+    """Kernel 10: the card listed n_dev times, one fused_grid_tiles launch
+    per shard, bit-equal to one fused_grid launch (n = 23: the tiles do not
+    divide the shards evenly, the padded tail is dropped); kernel 11: one
+    fused_blocks launch per shard, bit-equal to the dense kernel on every
+    active block, the count that of the single-device sparse evaluator."""
+    from sdf_representation_tpu_torch.ops import sharded_eval
+
+    model = ImplicitNet(hidden_dims=(128,) * 4, skip_in=(2,), radius_init=0.5,
+                        generator=torch.Generator().manual_seed(7), device=device)
+    mesh = (device,) * n_dev
+    fm.reset_launches()
+    vol = sharded_eval.sharded_grid_eval(model, 23, mesh, tile_p=128, compute_dtype=dt)
+    assert fm.LAUNCHES["sharded_grid"] == n_dev and fm.LAUNCHES["fused_grid"] == 0
+    dense = fm.fused_grid_eval(model, 23, compute_dtype=dt)
+    assert torch.equal(vol, dense)
+    n, block = 64, 8
+    fm.reset_launches()
+    sparse, count = sharded_eval.sparse_sharded_grid_eval(model, n, mesh, compute_dtype=dt,
+                                                          return_count=True)
+    assert fm.LAUNCHES["sparse_sharded_blocks"] == n_dev and fm.LAUNCHES["sparse_blocks"] == 0
+    _, single = sg.sparse_grid_eval(model, n, compute_dtype=dt, return_count=True)
+    assert count == single
+    _, mask, _ = sg.coarse_and_certificate(model, n, block, 1.5, 0.01)
+    nb = n // block
+    dense = fm.fused_grid_eval(model, n, compute_dtype=dt).reshape(nb, block, nb, block, nb, block)
+    got = sparse.reshape(nb, block, nb, block, nb, block)
+    active = mask.reshape(nb, nb, nb)
+    assert torch.equal(got.permute(0, 2, 4, 1, 3, 5)[active], dense.permute(0, 2, 4, 1, 3, 5)[active])
+
+
+def test_sharded_igr_on_the_card(device):
+    """make_fused_value_and_grad_sharded over the card listed 4 times: one
+    igr_fwd and one igr_bwd launch per shard; f32 parameter gradients within
+    rtol 2e-4 / atol 2e-5 of the single-device op (tests/test_sharding.py)."""
+    model = ImplicitNet(hidden_dims=(256,) * 4, skip_in=(2,), radius_init=0.5,
+                        generator=torch.Generator().manual_seed(3), device=device)
+    x = torch.rand(1001, 3, device=device) * 2 - 1
+    a, c = torch.randn(1001, device=device), torch.randn(1001, 3, device=device)
+    grads = []
+    for vag in (fi.make_fused_value_and_grad(model, torch.float32),
+                fi.make_fused_value_and_grad_sharded(model, (device,) * 4, torch.float32)):
+        model.zero_grad(set_to_none=True)
+        fi.reset_launches()
+        f, g = vag(x)
+        ((a * f).sum() + (c * g).sum()).backward()
+        grads.append([p.grad.clone() for p in model.parameters()])
+    assert fi.LAUNCHES == {"igr_fwd": 4, "igr_bwd": 4}
+    for one, shd in zip(*grads):
+        torch.testing.assert_close(shd, one, rtol=2e-4, atol=2e-5)
