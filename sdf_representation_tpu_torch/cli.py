@@ -28,7 +28,8 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default=None,
                         help="torch device; default: the card (raises without one)")
     parser.add_argument("--compute-dtype", choices=sorted(_DTYPES), default="bfloat16",
-                        help="working type of the fused evaluation kernels")
+                        help="working type of the fused evaluation kernels on the card; "
+                             "on the CPU, reconstruction and the audit evaluate in float32")
     args = parser.parse_args(argv)
     print(f"Running with config file: {args.config}")
 

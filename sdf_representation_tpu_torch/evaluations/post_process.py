@@ -3,9 +3,11 @@ counterpart of sdf_representation_tpu/evaluations/post_process.py (reference
 evaluations/post_process.py:40-211).
 
 The model is evaluated over the cubesize^3 grid through the fused grid
-kernel, compared on the device against EXACT signed distances
-(``ops/sdf_exact.signed_distance`` through the distance and winding
-streams), and the same artifact set is written:
+kernel (on the CPU: the module's own f32 forward on the dense grid, as the
+JAX package evaluates on a CPU backend), compared on the device against
+EXACT signed distances (``ops/sdf_exact.signed_distance`` through the
+distance and winding streams, sharded over the trainer's mesh when it has
+more than one device), and the same artifact set is written:
 
   * thresholded NMSE at 0.01 and 0.00025, sign accuracy
   * classification_report{1,2}.csv, and confusion_matrix.png where
@@ -33,7 +35,7 @@ import torch
 from ..geometry.mesh_io import load_mesh
 from ..models.implicit_net import ImplicitNet
 from ..ops.fused_mlp import fused_grid_eval
-from ..ops.grid_eval import grid_axis, grid_coords
+from ..ops.grid_eval import evaluate_grid, grid_axis, grid_coords
 from ..ops.sdf_exact import signed_distance
 from ..sampling.sampler import sample_surface_points
 from .metrics import (
@@ -82,11 +84,18 @@ def post_process(trainer, mesh_path: Optional[str] = None) -> Dict[str, float]:
     lap("load")
 
     n = c.cubesize
-    pred = fused_grid_eval(trainer.model, n, compute_dtype=trainer.compute_dtype).reshape(-1)
+    if trainer.device.type == "cpu":
+        # the JAX package on a CPU backend: evaluate_points, dense and f32
+        pred = evaluate_grid(trainer.model, n).reshape(-1)
+    else:
+        pred = fused_grid_eval(trainer.model, n, compute_dtype=trainer.compute_dtype).reshape(-1)
     lap("predict")
-    # exact distances stay on the device: the metrics reduce there
+    # exact distances stay on the device: the metrics reduce there. A
+    # multi-device run shards the streams over the training mesh (JAX
+    # post_process.py:91-97)
+    mesh_devices = trainer.mesh if trainer.mesh is not None and len(trainer.mesh) > 1 else None
     true, _ = signed_distance(grid_coords(n), mesh, return_normals=False,
-                              return_device=True, device=trainer.device)
+                              return_device=True, device=trainer.device, devices=mesh_devices)
     lap("exact_distance")
 
     gm = compute_grid_metrics(pred, true, thresholds=(THRESHOLD_1, THRESHOLD_2))

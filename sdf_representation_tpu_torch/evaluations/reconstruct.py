@@ -3,8 +3,10 @@
 Counterpart of sdf_representation_tpu/evaluations/reconstruct.py (reference
 executor/executor.py:346-400): grid evaluation through the fused kernels ->
 marching tetrahedra on the host -> STL. The dispatch is the JAX package's
-for ImplicitNet: the sparse evaluator when ``cubesize`` is a multiple of 8
-and at least 256, the dense fused evaluator otherwise.
+for ImplicitNet: on a card the sparse evaluator when ``cubesize`` is a
+multiple of 8 and at least 256, the dense fused evaluator otherwise; on the
+CPU the module's own f32 forward on the dense grid, whatever
+``compute_dtype`` says (the JAX package's route on a CPU backend).
 
 Not ported yet (ROADMAP.md): the slab-streamed giga extractor for grids past
 the single-pass index space, the on-device packed-wire marcher, and the GIF
@@ -21,6 +23,7 @@ import torch
 from ..geometry.mesh_io import Mesh, save_mesh
 from ..models.implicit_net import ImplicitNet
 from ..ops.fused_mlp import fused_grid_eval
+from ..ops.grid_eval import evaluate_grid
 from ..ops.marching import marching_cubes
 from ..ops.sparse_grid import sparse_grid_eval
 
@@ -53,7 +56,9 @@ def reconstruct_mesh(model, cubesize: int, compute_dtype=torch.bfloat16,
             "(ops/giga_extract.py), not ported yet: see ROADMAP.md"
         )
     t = time.perf_counter()
-    if cubesize % 8 == 0 and cubesize >= SPARSE_MIN_CUBESIZE:
+    if next(model.parameters()).device.type == "cpu":
+        vol = evaluate_grid(model, cubesize)
+    elif cubesize % 8 == 0 and cubesize >= SPARSE_MIN_CUBESIZE:
         vol = sparse_grid_eval(model, cubesize, compute_dtype=compute_dtype, level=level)
     else:
         vol = fused_grid_eval(model, cubesize, compute_dtype=compute_dtype)

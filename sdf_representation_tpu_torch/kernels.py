@@ -2,8 +2,9 @@
 
 A ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
 into ``build/torch_kernels/lib<name>-<hash>.so`` at the root of the checkout
-(the hash covers the source and all its flags, so an edited source or a
-changed flag is rebuilt). Nothing is built or loaded at import time.
+(the hash covers the source, every ``csrc`` header it includes, and all its
+flags, so an edited source or header or a changed flag is rebuilt). Nothing
+is built or loaded at import time.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -44,11 +46,32 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name: str) -> Iterable[Path]:
+    """``csrc/<name>.cu`` and every ``csrc`` file it includes with quotes,
+    directly or through another, each once, in the order first reached."""
+    seen, order, todo = set(), [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.add(path)
+        order.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = CSRC / inc.decode()
+            if dep.exists():
+                todo.append(dep)
+    return order
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(nvcc_flags(name)).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256()
+    for path in _sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(nvcc_flags(name)).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str, verbose: bool = False) -> float:

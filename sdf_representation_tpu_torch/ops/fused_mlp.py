@@ -23,9 +23,12 @@ a card: there is no fallback. ``LAUNCHES`` counts kernel launches.
 Working types, as in the JAX kernel (pallas_mlp.py:90-140): float32 all the
 way, or bfloat16, which rounds the input coordinates, each layer's f32
 accumulator before the activation and the activation's output to bf16,
-with bf16 weights, f32 biases and an f32 last layer. The plain versions
-hold bf16 values in f32 tensors and multiply in f32, which is exact for
-the products; only the summation order differs from the kernel.
+with bf16 weights, f32 biases and an f32 last layer. On a card the f32
+kernels run on the CUDA cores and the bf16 ones on the tensor cores
+(``FusedNet.tiles`` is their weight layout). The plain versions multiply in
+f32 in f32 mode; in bf16 mode they compute each layer in f64, where the bf16
+products and their sums are exact, and round at the JAX body's points: the
+value every f32 summation order approximates, the same on every device.
 """
 
 from __future__ import annotations
@@ -40,9 +43,15 @@ import torch
 from .. import kernels
 
 LANE = 128           # padding unit of the JAX layout (prepare_fused_weights)
-TILE_P = 64          # points per CUDA block (kTileP in csrc/fused_mlp.cu)
+TILE_P = 64          # points per tile, the C interface's unit (kTileP in csrc/fused_mlp.cu)
 MAX_WIDTH = 512      # widest padded layer the CUDA tile holds (kHMax)
 MAX_D_IN = 4         # coordinate columns the CUDA tile holds
+# the bf16 (wgmma) routine's weight stages (csrc/fused_mlp.cu): output
+# columns per product, K columns per stage (one 128-byte row of bf16), and
+# the last layer's narrow product
+CHUNK_N = 64         # kChunkN
+K_BLOCK = 64         # kKBlock
+LAST_ROWS = 8        # kLastRows
 PLAIN_CHUNK = 65536  # points per plain-path matmul chain
 INV_SQRT2 = 1.0 / math.sqrt(2.0)
 
@@ -165,6 +174,21 @@ class FusedNet:
                 torch.tensor(self.layout, dtype=torch.int64, device=self.device))
 
     @functools.cached_property
+    def tiles(self) -> torch.Tensor:
+        """The hidden-input matrices (W_top of each layer but the first) in
+        the order and the image the bf16 kernels' weight stages take them
+        (csrc/fused_mlp.cu): per layer W^T (its output columns as rows; the
+        last layer's first LAST_ROWS only), cut into CHUNK_N-row chunks and
+        K_BLOCK-column blocks, chunk-major, each stage a (rows, 64) block in
+        the 128-byte swizzle. Flat, in compute_dtype."""
+        last = len(self.layers) - 1
+        parts = [swizzle_128b(_layer_stages(w_h, layer == last)).reshape(-1)
+                 for layer, (_, w_h, _, _) in enumerate(self.layers) if w_h is not None]
+        if not parts:
+            return torch.zeros(1, dtype=self.dtype, device=self.device)
+        return torch.cat(parts)
+
+    @functools.cached_property
     def transposed(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(W^T of every hidden-to-hidden matrix, flat in compute_dtype; int64
         offsets per layer, -1 where a layer has none) for csrc/fused_igr.cu,
@@ -181,6 +205,27 @@ class FusedNet:
         return flat, torch.tensor(offsets, dtype=torch.int64, device=self.device)
 
 
+def swizzle_128b(t: torch.Tensor) -> torch.Tensor:
+    """(..., rows, 64) -> the same, the 16-byte groups (8 bf16) of row r put
+    at group index g ^ (r % 8): the 128-byte swizzle wgmma and TMA read. Its
+    own inverse."""
+    rows = t.shape[-2]
+    groups = t.reshape(*t.shape[:-1], 8, 8)
+    index = torch.arange(8, device=t.device)[None, :] ^ (torch.arange(rows, device=t.device) % 8)[:, None]
+    index = index[..., None].expand(rows, 8, 8).expand(*groups.shape)
+    return torch.gather(groups, -2, index).reshape(t.shape)
+
+
+def _layer_stages(w_h: torch.Tensor, last: bool) -> torch.Tensor:
+    """A hidden-input matrix (k, n) as its weight stages (chunks, k blocks,
+    rows, 64), unswizzled."""
+    k = w_h.shape[0]
+    wt = (w_h[:, :LAST_ROWS] if last else w_h).T
+    rows = wt.shape[0]
+    chunk = min(rows, CHUNK_N)
+    return wt.reshape(rows // chunk, chunk, k // K_BLOCK, K_BLOCK).permute(0, 2, 1, 3)
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch versions (the CPU path; on a card only compared against)
 # ---------------------------------------------------------------------------
@@ -189,12 +234,24 @@ def _working(t: torch.Tensor, dtype) -> torch.Tensor:
     return t.to(dtype).float() if dtype == torch.bfloat16 else t
 
 
+def _rounded(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to f32 and then to bf16, in t's own dtype."""
+    return t.float().to(torch.bfloat16).to(t.dtype)
+
+
 def forward_plain(net: FusedNet, x: torch.Tensor) -> torch.Tensor:
-    """The fused forward (pallas_mlp._make_body) over (M, d_in) f32 points."""
-    x = _working(x.float(), net.dtype)
+    """The fused forward (pallas_mlp._make_body) over (M, d_in) f32 points.
+    f32: f32 matmuls. bf16: each layer in f64 (the bf16 products and their
+    sums exact), the coordinates, each layer's accumulator and each
+    activation rounded through f32 to bf16, the last layer's value to f32:
+    no kernel's summation order, and one arithmetic on every device."""
+    bf16 = net.dtype == torch.bfloat16
+    work = torch.float64 if bf16 else torch.float32
+    x = _rounded(x.to(work)) if bf16 else x.float()
     h = x
     n_lin = len(net.plain_layers)
     for layer, (kind, w_h, w_x, b) in enumerate(net.plain_layers):
+        w_h, w_x, b = (None if t is None else t.to(work) for t in (w_h, w_x, b))
         if kind == "first":
             acc = x @ w_x + b
         elif kind == "skip":
@@ -202,18 +259,19 @@ def forward_plain(net: FusedNet, x: torch.Tensor) -> torch.Tensor:
         else:
             acc = h @ w_h + b
         if layer < n_lin - 1:
-            acc = _working(acc, net.dtype)
+            if bf16:
+                acc = _rounded(acc)
             if net.beta > 0:
                 t = net.beta * acc
                 acc = (torch.clamp_min(t, 0.0) + torch.log1p(torch.exp(-t.abs()))) / net.beta
             else:
                 acc = torch.clamp_min(acc, 0.0)
-            h = _working(acc, net.dtype)
+            h = _rounded(acc) if bf16 else acc
         else:
             h = acc
     if net.beta <= 0:
         h = torch.tanh(h)
-    return h[:, 0]
+    return h[:, 0].float()
 
 
 def _plain_chunked(net: FusedNet, coords, total: int) -> torch.Tensor:
@@ -307,9 +365,9 @@ def fused_blocks_plain(net: FusedNet, ids: torch.Tensor, count: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     lib = kernels.load("fused_mlp")
     P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    lib.sdf_mlp_points.argtypes = [P, L, I, P, I, F, I, P, P, P, P]
-    lib.sdf_mlp_grid.argtypes = [L, L, I, F, P, I, F, I, P, P, P, P]
-    lib.sdf_mlp_blocks.argtypes = [P, P, I, I, I, F, P, I, F, I, P, P, P, P]
+    lib.sdf_mlp_points.argtypes = [P, L, I, P, I, F, I, P, P, P, I, P, P]
+    lib.sdf_mlp_grid.argtypes = [L, L, I, F, P, I, F, I, P, P, P, I, P, P]
+    lib.sdf_mlp_blocks.argtypes = [P, P, I, I, I, F, P, I, F, I, P, P, P, I, P, P]
     for fn in (lib.sdf_mlp_points, lib.sdf_mlp_grid, lib.sdf_mlp_blocks):
         fn.restype = I
     lib.sdf_mlp_error_string.argtypes = [I]
@@ -327,7 +385,8 @@ def _check_launch(rc: int, what: str) -> None:
 
 def _cuda_args(net: FusedNet, *tensors: torch.Tensor):
     """Validate a launch and return (weights ptr, biases ptr, desc ptr,
-    n_lin, bf16 flag, stream ptr)."""
+    n_lin, bf16 flag, stream ptr, tiles ptr, hidden width). bf16 launches
+    take the tensor-core routine, which also reads ``net.tiles``."""
     if net.device.type != "cuda":
         raise ValueError(f"the net's weights are on {net.device}, the inputs on a card")
     for t in tensors:
@@ -341,8 +400,10 @@ def _cuda_args(net: FusedNet, *tensors: torch.Tensor):
         raise ValueError(f"d_in {net.d_in} exceeds the kernel's {MAX_D_IN}")
     wbuf, bbuf, desc = net.packed
     stream = torch.cuda.current_stream(net.device).cuda_stream
-    return (wbuf.data_ptr(), bbuf.data_ptr(), desc.data_ptr(), desc.shape[0],
-            int(net.dtype == torch.bfloat16), stream)
+    bf16 = net.dtype == torch.bfloat16
+    tiles = net.tiles.data_ptr() if bf16 else None
+    return (wbuf.data_ptr(), bbuf.data_ptr(), desc.data_ptr(), desc.shape[0], int(bf16), stream,
+            tiles, net.h_pad)
 
 
 def fused_points(net: FusedNet, x: torch.Tensor) -> torch.Tensor:
@@ -353,12 +414,12 @@ def fused_points(net: FusedNet, x: torch.Tensor) -> torch.Tensor:
         return fused_points_plain(net, x)
     if x.dtype != torch.float32:
         raise ValueError(f"points must be float32, got {x.dtype}")
-    w, b, desc, n_lin, bf16, stream = _cuda_args(net, x)
+    w, b, desc, n_lin, bf16, stream, tiles, width = _cuda_args(net, x)
     out = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
     if x.shape[0]:
         with torch.cuda.device(x.device):
             rc = _lib().sdf_mlp_points(x.data_ptr(), x.shape[0], net.d_in, desc, n_lin,
-                                       net.beta, bf16, w, b, out.data_ptr(), stream)
+                                       net.beta, bf16, w, b, tiles, width, out.data_ptr(), stream)
         _check_launch(rc, "fused_points")
         LAUNCHES["fused_points"] += 1
     return out
@@ -368,10 +429,10 @@ def _grid_launch(net: FusedNet, n: int, base_tile: int, n_tiles: int, out: torch
                  what: str) -> None:
     """One grid-entry launch over tiles [base_tile, base_tile + n_tiles),
     written to ``out`` from its start (points past n^3 are not written)."""
-    w, b, desc, n_lin, bf16, stream = _cuda_args(net, out)
+    w, b, desc, n_lin, bf16, stream, tiles, width = _cuda_args(net, out)
     with torch.cuda.device(net.device):
         rc = _lib().sdf_mlp_grid(base_tile, n_tiles, n, 2.0 / (n - 1), desc, n_lin,
-                                 net.beta, bf16, w, b, out.data_ptr(), stream)
+                                 net.beta, bf16, w, b, tiles, width, out.data_ptr(), stream)
     _check_launch(rc, what)
     LAUNCHES[what] += 1
 
@@ -420,12 +481,12 @@ def fused_blocks(net: FusedNet, ids: torch.Tensor, count: torch.Tensor,
         raise ValueError("ids and count must be int32, count one element")
     if block ** 3 % TILE_P:
         raise ValueError(f"block^3 must be a multiple of {TILE_P} (block % 4 == 0)")
-    w, b, desc, n_lin, bf16, stream = _cuda_args(net, ids, count)
+    w, b, desc, n_lin, bf16, stream, tiles, width = _cuda_args(net, ids, count)
     out = torch.empty((ids.shape[0], block ** 3), dtype=torch.float32, device=ids.device)
     with torch.cuda.device(ids.device):
         rc = _lib().sdf_mlp_blocks(ids.data_ptr(), count.data_ptr(), ids.shape[0], n // block,
                                    block, 2.0 / (n - 1), desc, n_lin, net.beta, bf16, w, b,
-                                   out.data_ptr(), stream)
+                                   tiles, width, out.data_ptr(), stream)
     _check_launch(rc, counter)
     LAUNCHES[counter] += 1
     return out

@@ -50,6 +50,15 @@ float32, as the JAX package's does.
                   (``torch.set_float32_matmul_precision("medium")``), set for
                   the step and restored after it: per-product rounding
                   instead of stored-activation rounding.
+  the other names ``jax.default_matmul_precision`` takes, mapped onto
+  ``torch.set_float32_matmul_precision`` for the step and restored after
+  it: "float32" and "highest" -> "highest", "tensorfloat32" and "high" ->
+  "high"; "default" leaves the setting as it is. Any other name raises,
+  as it does in JAX.
+
+``[TPU] debug_nans = True`` turns on ``torch.autograd.set_detect_anomaly``
+(the JAX Trainer's ``jax_debug_nans``, the reference's anomaly detection):
+a backward that makes a NaN raises.
 """
 
 from __future__ import annotations
@@ -71,7 +80,12 @@ from ..utils.device import resolve_device
 from ..utils.files import create_directory
 from . import checkpoint as ckpt
 
-PRECISIONS = (None, "bfloat16", "bfloat16_mxu")
+# train_matmul_precision names besides None and "bfloat16" (the mixed-
+# precision step), each with the torch float32 matmul precision its step
+# runs under (None: the setting is left as it is)
+_TORCH_PRECISION = {"bfloat16_mxu": "medium", "float32": "highest", "highest": "highest",
+                    "tensorfloat32": "high", "high": "high", "default": None}
+PRECISIONS = (None, "bfloat16", *_TORCH_PRECISION)
 
 # the last ``Trainer.train``: seconds up to the dataset on the device, epochs
 # run, seconds in the epoch loop (closed by the last epoch's host read),
@@ -81,13 +95,15 @@ LAST_RUN: dict = {}
 
 @contextlib.contextmanager
 def _matmul_precision(precision: Optional[str]):
-    """Reduced-precision float32 matmul passes for "bfloat16_mxu", restored
-    on exit (the global switch is never left changed)."""
-    if precision != "bfloat16_mxu":
+    """The float32 matmul precision a ``train_matmul_precision`` name asks
+    for (``_TORCH_PRECISION``), restored on exit (the global switch is never
+    left changed)."""
+    setting = _TORCH_PRECISION.get(precision)
+    if setting is None:
         yield
         return
     before = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("medium")
+    torch.set_float32_matmul_precision(setting)
     try:
         yield
     finally:
@@ -240,6 +256,8 @@ class Trainer:
         self.init_seed = init_seed
         self.compute_dtype = compute_dtype
         self.geometry_name = config.name
+        if config.debug_nans:
+            torch.autograd.set_detect_anomaly(True)
 
         c = config
         self.main_path = create_directory(

@@ -69,12 +69,13 @@ def test_kernels_match_plain(device, hidden, skip, beta, dt):
     assert torch.equal(blocks, dense)
 
 
-def test_two_dimensional_points(device):
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_two_dimensional_points(device, dt):
     model = ImplicitNet(d_in=2, hidden_dims=(128,) * 3, skip_in=(2,), radius_init=0.5,
                         generator=torch.Generator().manual_seed(1), device=device)
-    net = fm.FusedNet(model, torch.float32)
+    net = fm.FusedNet(model, dt)
     pts = torch.rand(777, 2, device=device) * 2 - 1
-    _check(fm.fused_points(net, pts), fm.fused_points_plain(net, pts), torch.float32)
+    _check(fm.fused_points(net, pts), fm.fused_points_plain(net, pts), dt)
 
 
 def test_too_wide_net_is_refused(device):
