@@ -8,9 +8,10 @@ Phases, none of which is allowed to fail quietly:
  1. Card name and power limit (nvidia-smi); TF32 off, checked.
  2. Build csrc/fused_mlp.cu, csrc/sdf_streams.cu and csrc/fused_igr.cu with
     nvcc for sm_90a, all at once, printing ptxas's report; then each bf16
-    entry of fused_mlp.cu (the tensor-core routine, at widths 128-512) must
-    issue HGMMA and use no local memory (cuobjdump's SASS and resource
-    usage, printed per entry).
+    entry of fused_mlp.cu (the tensor-core routine, at widths 128-512: 12)
+    and of fused_igr.cu (igr_fwd and igr_bwd at widths 128-512, softplus and
+    ReLU, and the dW pass igr_dw: 17) must issue HGMMA and use no local
+    memory (cuobjdump's SASS and resource usage, printed per entry).
  3. Kernels against their plain PyTorch versions on the flagship net
     (configs/mesh_sdf.ini: ImplicitNet 8x512, skip at layer 4, beta 100;
     geometric init, radius 0.5, seeded weights), in f32 and bf16: the points
@@ -39,10 +40,14 @@ Phases, none of which is allowed to fail quietly:
     The fused (f, grad_x f) kernel and its params-only backward (igr_fwd,
     igr_bwd) against their plain versions at 8x512 and 8x256 (skip 4, beta
     100), N = 16,384 and an odd N, in f32 and bf16: f, grad f, every dW and
-    db. ReLU/tanh twice: on uniform points, where step'(z) may flip at a few,
-    and on points picked to keep every pre-activation clear of zero, where
-    every limit of the softplus cases holds. Controls: the bf16 plain
+    db. ReLU/tanh on uniform points, where step'(z) may flip at a few, and on
+    points picked to keep every pre-activation clear of zero, where every
+    limit of the softplus cases holds: at 8x512 in f32 (in bf16 differing
+    roundings still flip single steps there), at 4x512 in both types. Controls: the bf16 plain
     versions with one rounding point left out must fail the bf16 limits.
+    bf16 igr_bwd sums in a fixed order: two launches must give the same dW
+    and db bit for bit; its two passes (the workspace of its first pass, and
+    the dW pass over a workspace) are held against their plain versions.
  4. The main path, `python -m sdf_representation_tpu_torch cfg.ini`
     (reconstruct from a checkpoint), once per route, the launch counts
     zeroed just before each run and read just after: cubesize 256 must
@@ -122,8 +127,9 @@ Phases, none of which is allowed to fail quietly:
     For igr_fwd and igr_bwd at (8x512, N 16,384) and (8x256, N 5,461): the
     operations are 2 N times the multiply-adds of the products each kernel
     performs (2 and ~6 passes over the layers), the bytes are the inputs, the
-    weights and the outputs (the kernels' stash workspace is reported beside
-    the bound, not counted in it), and the library yardstick is the same
+    weights and the outputs (the kernels' workspace bytes and the kernel
+    launches per wrapper call are reported beside the bound; bf16 igr_bwd
+    also times its dW pass alone), and the library yardstick is the same
     (f, grad f) and parameter gradient through cuBLAS and torch autograd's
     double backward (create_graph=True), timed only.
     The sharded streams on phase 3's culled schedule, the card listed 4
@@ -196,28 +202,40 @@ WIND_OPS_PER_PAIR = 112
 EPOCHS = 30
 # igr_fwd / igr_bwd against plain. f32: f and grad f within F32_TOL, every
 # dW and db within IGR_F32_GRAD_TOL of its tensor's largest entry (summation
-# order; the backward adds with atomics, whose order changes run to run).
-# bf16: an f32 sum in another order can round to the neighbouring bf16 value
-# and sigma'(beta z) carries that on, so a sound kernel differs from plain at
-# a few points; leaving out one rounding point moves nearly every point. The
-# mean limits sit between the two (the controls are recomputed in every run
-# and must fail them), the max limits catch gross errors.
-# Under ReLU, step'(z) flips where the two summation orders leave z on either
-# side of zero, and a flipped point moves grad f and its share of dW by a
-# whole term. So the ReLU kernels are held twice. "relu_clear": on the 4,096
-# points, of 262,144 candidates, whose hidden pre-activations all stay
-# farthest from zero (|z| >= 8e-5 on an H100) an f32 step cannot flip, and
-# every limit above applies unchanged, with the bf16 controls (the tanh
-# head's rounding among them); in bf16 a value that rounds to its neighbour
-# moves a later z by ~1e-4 and can still cross that margin at single points,
-# so there the worst tensor is held for gross errors only
-# (IGR_RELU_BF16_GRAD_MAX_TOL; sound 1.5e-2 to 2.5e-2) while the mean
-# separates the sound kernel (7e-4 to 1e-3) from the controls (from 2.9e-3,
-# the head's). PERF.md has the readings. "relu": on uniform
-# points f keeps its limits, grad f may differ by more than the type's max
-# limit at no more than IGR_RELU_FLIPPED of the points (sound: up to 4.3e-4
-# of them in f32, 1.8e-4 in bf16), and the gradients are held for gross errors only
-# (IGR_RELU_GRAD_MEAN_TOL; sound 4e-4 to 7e-4 in f32, 2.1e-3 to 2.3e-3 in bf16).
+# order; the f32 backward adds with atomics, whose order changes run to run).
+# bf16 (the plain versions sum exactly, in f64): an f32 sum can round to the
+# neighbouring bf16 value and sigma'(beta z) carries that on, so a sound
+# kernel differs from plain at a few points; leaving out one rounding point
+# moves nearly every point. The mean limits sit between the two (the
+# controls are recomputed in every run and must fail them), the max limits
+# catch gross errors. Against exact sums every f32 summation reads farther
+# than against another f32 summation (the f32 plain version, the JAX order,
+# reads 1.9e-3 to 2.1e-3 on the gradients of 8x512 softplus nets, the
+# tensor-core kernel 1.5e-3 to 1.8e-3; tools/igr_sum_study.py, PERF.md).
+# Under ReLU, step'(z) flips where two summations leave z on either side of
+# zero, and a flipped point moves grad f and its share of dW by a whole
+# term. So the ReLU kernels are held twice. "relu": the flagship 8x512 on
+# uniform points: f keeps its limits, grad f may differ by more than the
+# type's max limit at no more than IGR_RELU_FLIPPED of the points, and the
+# gradients are held for gross errors only (IGR_RELU_GRAD_MEAN_TOL).
+# "relu_clear": the 4,096 points, of 262,144 candidates, whose hidden
+# pre-activations all stay farthest from zero, where every limit above
+# applies, with the bf16 controls (the tanh head's rounding among them); the
+# worst tensor is held by IGR_RELU_BF16_GRAD_MAX_TOL. At 8x512 the pick keeps
+# |z| >= 8e-5: no f32 step flips, but bf16 roundings that differ upstream
+# cross that margin at single points. Against exact sums, over six seeded
+# nets, the kernel reads 2.5e-3 to 4.0e-3 on the gradients and the f32
+# plain version 2.8e-3 to 4.6e-3, level with the cotangent and head
+# controls (3.5e-3 to 5.1e-3); with 1,024 of 16.8 M candidates (|z| >=
+# 2e-4) the f32 plain version still fails 2e-3 on three nets of six. So
+# there bf16 keeps the limits of f and grad f with their controls, its
+# gradients are held as "relu" with the controls that leave out x or the
+# stash (5e-2 and more), and the cotangent and head controls are read, not
+# gated. At 4x512 (skip at 2; |z| >= 1.6e-4) the kernel (2.2e-5 to 1.8e-4
+# on the gradients) and the f32 plain version hold every limit on all six
+# nets and every control fails (the gradients' from 3.3e-3): there bf16
+# keeps every limit and every control.
+# tools/igr_sum_study.py; PERF.md has the readings.
 IGR_F32_GRAD_TOL = 1e-4
 IGR_BF16_TOL = 1e-2
 IGR_BF16_F_MEAN_TOL = 5e-5
@@ -277,13 +295,13 @@ def plain_dropping(net, x, drop, product=None):
 
 def plain_kernel_order(net, x):
     """The bf16 forward over (M, 3) points on the card with each hidden-input
-    product summed as the bf16 kernels sum it (kSumK-deep tensor-core sums
-    of csrc/fused_mlp.cu, each a cuBLAS bf16 product with an f32 result,
+    product summed as the bf16 kernels sum it (the kSumK-deep tensor-core
+    sums of csrc/hopper.cuh's mma_stream, each a cuBLAS bf16 product with an f32 result,
     added in order in f32) and every other step the plain version's in f32:
     held against the kernel, it leaves the epilogue's own errors (the
     cheaper softplus, the order of bias and scale). Only the 255^3 max uses
     it (see BF16_TOL)."""
-    src = (REPO / "sdf_representation_tpu_torch" / "csrc" / "fused_mlp.cu").read_text()
+    src = (REPO / "sdf_representation_tpu_torch" / "csrc" / "hopper.cuh").read_text()
     depth = int(re.search(r"constexpr int kSumK = (\d+);", src).group(1))
 
     def product(h, w_h):
@@ -296,10 +314,11 @@ def plain_kernel_order(net, x):
     return plain_dropping(net, x, (), product)
 
 
-def check_sass(library):
-    """Each bf16 entry of csrc/fused_mlp.cu (the wgmma_* kernels) must issue
-    tensor-core products (HGMMA) and use no local memory (spills or stack):
-    counts from cuobjdump's SASS and resource usage, printed per function."""
+def check_sass(library, entry, expected):
+    """Each bf16 entry of a source (the tensor-core kernels: mangled names
+    that the regular expression ``entry`` finds) must issue tensor-core products (HGMMA) and use no local
+    memory (spills or stack): counts from cuobjdump's SASS and resource
+    usage, printed per function; ``expected`` entries."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
                           check=True).stdout
@@ -318,11 +337,11 @@ def check_sass(library):
         if m.group(1) in counts:
             counts[m.group(1)].update(registers=int(m.group(2)), stack=int(m.group(3)),
                                       local=int(m.group(5)))
-    entries = {name: c for name, c in counts.items() if "wgmma_" in name}
+    entries = {name: c for name, c in counts.items() if re.search(entry, name)}
     for name, c in sorted(entries.items()):
         print(f"sass {name}: {c}", flush=True)
-    if len(entries) != 12:  # points, grid, blocks x widths 128, 256, 384, 512
-        raise RuntimeError(f"expected 12 bf16 entries in fused_mlp's SASS, found {len(entries)}")
+    if len(entries) != expected:
+        raise RuntimeError(f"expected {expected} bf16 entries in {library.name}'s SASS, found {len(entries)}")
     for name, c in entries.items():
         if c["HGMMA"] == 0:
             raise RuntimeError(f"{name} issues no HGMMA")
@@ -900,18 +919,21 @@ def gradient_errors(got, want):
 def igr_fwd_dropping(net, x, drop):
     """fused_igr.fused_value_and_grad_plain with the rounding points named
     in ``drop`` ("x", "stash", "act", "cotangent") left out: what a kernel
-    that skipped them would compute (the control of the bf16 checks). Also
-    returns, per point, the least |z| over all hidden units (padding apart)."""
+    that skipped them would compute (the control of the bf16 checks), in
+    the plain version's arithmetic (bf16: f64 sums). Also returns, per
+    point, the least |z| over all hidden units (padding apart)."""
     from sdf_representation_tpu_torch.ops import fused_igr as fi
     from sdf_representation_tpu_torch.ops import fused_mlp as fm
 
-    def rnd(t, point):
-        return t if point in drop else fm._working(t, net.dtype)
+    work, rounded, layers = fi._plain_arith(net)
 
-    beta, layers = net.beta, fi._head_layers(net)
-    x = rnd(x.float(), "x")
+    def rnd(t, point):
+        return t if point in drop else rounded(t)
+
+    beta = net.beta
+    x = rnd(x.to(work), "x")
     h, stash = x, []
-    margin = torch.full(x.shape[:1], math.inf, device=x.device)
+    margin = torch.full(x.shape[:1], math.inf, dtype=work, device=x.device)
     for layer, (kind, w_h, w_x, b) in enumerate(layers):
         if kind == "first":
             z = x @ w_x + b
@@ -935,21 +957,24 @@ def igr_fwd_dropping(net, x, drop):
             dx = dx + (dz_c @ w_x.T) * scale
         if layer > 0:
             dz = (dz_c @ w_h.T) * scale * stash[layer - 1]
-    return f[:, 0], dx, margin
+    return f[:, 0].float(), dx.float(), margin.float()
 
 
 def igr_bwd_dropping(net, x, a, c, drop):
     """fused_igr.fused_param_grads_plain with the rounding points named in
-    ``drop`` ("x", "stash", "cotangent", "head") left out."""
+    ``drop`` ("x", "stash", "cotangent", "head") left out, in the plain
+    version's arithmetic."""
     from sdf_representation_tpu_torch.ops import fused_igr as fi
     from sdf_representation_tpu_torch.ops import fused_mlp as fm
 
-    def rnd(t, point):
-        return t if point in drop else fm._working(t, net.dtype)
+    work, rounded, layers = fi._plain_arith(net)
 
-    beta, layers = net.beta, fi._head_layers(net)
+    def rnd(t, point):
+        return t if point in drop else rounded(t)
+
+    beta = net.beta
     n_lin = len(layers)
-    x, c, a = rnd(x.float(), "x"), rnd(c.float(), "x"), a.float()
+    x, c, a = rnd(x.to(work), "x"), rnd(c.to(work), "x"), a.to(work)
     h, tc, stash = x, c, []
     for layer, (kind, w_h, w_x, b) in enumerate(layers):
         if kind == "first":
@@ -975,19 +1000,65 @@ def igr_bwd_dropping(net, x, a, c, drop):
         scale = fm.INV_SQRT2 if kind == "skip" else 1.0
         h_prev, tc_prev = (x, c) if layer == 0 else stash[layer - 1]
         dz_c, dtcz_c = rnd(dz, "cotangent"), rnd(dtcz, "cotangent")
-        g_h = None if w_h is None else (h_prev.T @ dz_c + tc_prev.T @ dtcz_c) * scale
-        g_x = None if w_x is None else (x.T @ dz_c + c.T @ dtcz_c) * scale
-        grads[layer] = (g_h, g_x, dz.sum(dim=0))
+        g_h = None if w_h is None else ((h_prev.T @ dz_c + tc_prev.T @ dtcz_c) * scale).float()
+        g_x = None if w_x is None else ((x.T @ dz_c + c.T @ dtcz_c) * scale).float()
+        grads[layer] = (g_h, g_x, dz.sum(dim=0).float())
         if layer > 0:
             dh, dtc = (dz_c @ w_h.T) * scale, (dtcz_c @ w_h.T) * scale
             if beta > 0:
                 sg = 1.0 - torch.exp(-beta * h_prev)
                 dz = dh * sg + (dtc * tc_prev) * (beta * (1.0 - sg))
             else:
-                sg = (h_prev > 0).float()
+                sg = (h_prev > 0).to(work)
                 dz = dh * sg
             dtcz = dtc * sg
     return grads
+
+
+def check_igr_passes(net, x, a, c, tag, readings):
+    """The bf16 backward's two passes on their own: the first pass's
+    workspace against fused_igr.images_plain (bf16 images, equal but where
+    a sum in another order rounds to the neighbouring value, which later
+    layers carry on: the mean difference within 1e-2 of the mean value, where
+    a misplaced row or column reads ~1; per-tile db sums within 1e-3 of the
+    largest on average), and the dW pass on that plain workspace against
+    fused_igr.dw_pass_plain (bf16 products, exact sums: within 1e-5 of each
+    buffer's largest entry)."""
+    from sdf_representation_tpu_torch.ops import fused_igr as fi
+
+    _, _, (found_ws, found_partial) = fi._bwd_bf16(net, x, a, c)
+    ws, partial = fi.images_plain(net, x, a, c)
+    torch.cuda.synchronize()
+    equal = (found_ws == ws).float().mean().item()
+    ws_mean = ((found_ws.float() - ws.float()).abs().mean() / ws.float().abs().mean()).item()
+    db_mean = ((found_partial - partial).abs().mean() / partial.abs().max()).item()
+    gw, gb = fi.dw_pass(net, ws, partial)
+    pw, pb = fi.dw_pass_plain(net, ws, partial)
+    dw = max(((gw - pw).abs().max() / pw.abs().max()).item(), ((gb - pb).abs().max() / pb.abs().max()).item())
+    readings[f"{tag}/passes"] = {"workspace_equal": equal, "workspace_mean_rel": ws_mean,
+                                 "db_partials_mean_rel": db_mean, "dw_pass_max_rel": dw}
+    print(f"check igr_bwd/{tag} passes: workspace {equal:.5f} equal to images_plain (mean rel "
+          f"{ws_mean:.3e}), db partials mean {db_mean:.3e}; dW pass on it max rel {dw:.3e}", flush=True)
+    if not (ws_mean <= 1e-2 and db_mean <= 1e-3 and dw <= 1e-5):
+        raise RuntimeError(f"igr_bwd/{tag}: a pass of the backward disagrees with its plain version")
+
+
+def kernels_per_call(fn):
+    """{kernel: launches} of csrc/fused_igr.cu's kernels in one call of fn,
+    read from torch.profiler's device events (fn has run before: built,
+    warmed, its plan on the card)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    found = {}
+    for event in prof.events():
+        m = re.search(r"igr_(fwd|bwd|dw)_kernel", event.name)
+        if m and event.device_type == torch.autograd.DeviceType.CUDA:
+            found[m.group(0)] = found.get(m.group(0), 0) + 1
+    return found
 
 
 def check_igr(device, gen, report):
@@ -999,27 +1070,32 @@ def check_igr(device, gen, report):
     from sdf_representation_tpu_torch.ops import fused_igr as fi
     from sdf_representation_tpu_torch.ops import fused_mlp as fm
 
-    # case: (width, beta, N, points kept clear of the step's flips)
-    cases = {"8x512/n16384": (512, 100.0, 16384, False), "8x256/n5461": (256, 100.0, 5461, False),
-             "8x256/n16384": (256, 100.0, 16384, False), "8x512/n4999": (512, 100.0, 4999, False),
-             "8x512/n16384/relu": (512, 0.0, 16384, False),
-             "8x512/n4096/relu_clear": (512, 0.0, 4096, True)}
+    # case: (width, depth, beta, N, points kept clear of the step's flips,
+    # the working types in which a step may flip); the skip input at depth / 2
+    both, none = (torch.float32, torch.bfloat16), ()
+    cases = {"8x512/n16384": (512, 8, 100.0, 16384, False, none),
+             "8x256/n5461": (256, 8, 100.0, 5461, False, none),
+             "8x256/n16384": (256, 8, 100.0, 16384, False, none),
+             "8x512/n4999": (512, 8, 100.0, 4999, False, none),
+             "8x512/n16384/relu": (512, 8, 0.0, 16384, False, both),
+             "8x512/n4096/relu_clear": (512, 8, 0.0, 4096, True, (torch.bfloat16,)),
+             "4x512/n4096/relu_clear": (512, 4, 0.0, 4096, True, none)}
     timed_cases, errors, controls, readings = {}, {}, {}, {}
-    for case, (width, beta, n, clear) in cases.items():
-        model = ImplicitNet(hidden_dims=(width,) * 8, skip_in=(4,), beta=beta, radius_init=0.5,
-                            generator=gen, device=device)
+    for case, (width, depth, beta, n, clear, flip_types) in cases.items():
+        model = ImplicitNet(hidden_dims=(width,) * depth, skip_in=(depth // 2,), beta=beta,
+                            radius_init=0.5, generator=gen, device=device)
         x = (torch.rand(IGR_RELU_CANDIDATES if clear else n, 3, generator=gen) * 2 - 1).to(device)
         # cotangents of a mean over the batch: a = dL/df, c = dL/d(grad f)
         a = (torch.randn(n, generator=gen) / n).to(device)
         c = (torch.randn(n, 3, generator=gen) / n).to(device)
         shapes = [w.shape for w, _ in model.effective_layers()]
-        flips = beta <= 0 and not clear
         if case in ("8x512/n16384", "8x256/n5461"):
             timed_cases[case] = (model, x, a, c)
         candidates = x
         for dt in (torch.float32, torch.bfloat16):
             tag = f"{case}/{str(dt).split('.')[1]}"
             bf16 = dt == torch.bfloat16
+            flips = dt in flip_types
             net = fm.FusedNet(model, dt)
             if clear:  # the n candidates whose pre-activations stay farthest from zero
                 margin = torch.cat([igr_fwd_dropping(net, part, ())[2]
@@ -1034,10 +1110,18 @@ def check_igr(device, gen, report):
             pf, pg = fi.fused_value_and_grad_plain(net, x)
             padded = fi.fused_param_grads_plain(net, x, a, c)
             want = fi.unpack_grads(3, shapes, padded)
-            if case == "8x512/n16384":  # the atomics' order: one input, two launches
+            if case == "8x512/n16384":
+                # one input, two launches: bf16 sums in a fixed order and must
+                # agree bit for bit; f32 adds by atomics, whose order changes
                 again = fi.unpack_grads(3, shapes, fi.fused_param_grads(net, x, a, c))
-                print(f"check igr_bwd/{tag}: two launches differ by at most "
+                same = all(torch.equal(u, v) for u, v in zip(again, got))
+                print(f"check igr_bwd/{tag}: two launches bit-equal {same}, differ by at most "
                       f"{gradient_errors(again, got)[1]:.3e} of a tensor's largest entry", flush=True)
+                readings[f"{tag}/two_launches_bit_equal"] = same
+                if bf16 and not same:
+                    raise RuntimeError(f"igr_bwd/{tag}: two launches give different gradients")
+                if bf16:
+                    check_igr_passes(net, x, a, c, tag, readings)
             if not (f.shape == (n,) and g.shape == (n, 3) and torch.isfinite(f).all()
                     and torch.isfinite(g).all() and all(torch.isfinite(t).all() for t in got)):
                 raise RuntimeError(f"igr/{tag}: non-finite or misshapen output")
@@ -1067,7 +1151,8 @@ def check_igr(device, gen, report):
                 raise RuntimeError(f"igr/{tag}: kernel and plain version disagree")
             errors["igr_fwd", case, dt] = max(df.max().item(), dg.max().item())
             errors["igr_bwd", case, dt] = max((u - v).abs().max().item() for u, v in zip(got, want))
-            if not bf16 or flips or case not in ("8x512/n16384", "8x256/n5461", "8x512/n4096/relu_clear"):
+            if not bf16 or case not in ("8x512/n16384", "8x256/n5461", "8x512/n4096/relu_clear",
+                                        "4x512/n4096/relu_clear"):
                 continue
             # controls: a kernel that left one bf16 rounding point out must fail
             # the limits. step'(z) is exact in bf16: ReLU has no "stash" control
@@ -1088,10 +1173,17 @@ def check_igr(device, gen, report):
             for drop in ("x", "stash", "cotangent") + (("head",) if beta <= 0 else ()):
                 cw = fi.unpack_grads(3, shapes, igr_bwd_dropping(net, x, a, c, (drop,)))
                 c_mean, c_worst = gradient_errors(cw, want)
-                controls[f"igr_bwd/{tag}/without_{drop}"] = {"mean": c_mean, "worst": c_worst}
+                # where steps may flip, the gradients are held for gross errors
+                # only, which the cotangent and head controls do not reach: read, not gated
+                gated = not flips or drop in ("x", "stash")
+                controls[f"igr_bwd/{tag}/without_{drop}"] = {"mean": c_mean, "worst": c_worst, "gated": gated}
                 print(f"control igr_bwd/{tag}/without_{drop}: sum|diff|/sum|plain| {c_mean:.3e}, "
-                      f"worst {c_worst:.3e}", flush=True)
-                if c_mean <= IGR_GRAD_MEAN_TOL and c_worst <= worst_tol:
+                      f"worst {c_worst:.3e}" + ("" if gated else " (not gated)"), flush=True)
+                if flips:
+                    passes = c_mean <= IGR_RELU_GRAD_MEAN_TOL
+                else:
+                    passes = c_mean <= IGR_GRAD_MEAN_TOL and c_worst <= worst_tol
+                if gated and passes:
                     raise RuntimeError(f"control igr_bwd/{tag}/without_{drop}: the limits would pass it")
     report.update(igr_readings=readings, igr_controls=controls)
     return timed_cases, errors
@@ -1414,7 +1506,10 @@ def main() -> int:
     report["build_s"] = kernels.build_all(["fused_mlp", "sdf_streams", "fused_igr"], verbose=True)
     print(f"build: {report['build_s']} s per source, {time.perf_counter() - t0:.1f} s in all "
           "(one nvcc each, started together)", flush=True)
-    report["sass"] = check_sass(kernels.library_path("fused_mlp"))
+    # fused_mlp: points, grid, blocks x widths 128-512; fused_igr (namespace
+    # tc): igr_fwd and igr_bwd x widths x softplus / ReLU, and igr_dw
+    report["sass"] = {**check_sass(kernels.library_path("fused_mlp"), "wgmma_", 12),
+                      **check_sass(kernels.library_path("fused_igr"), r"2tc\d+igr_", 17)}
 
     # ---- 3. kernels against plain -------------------------------------------
     gen = torch.Generator().manual_seed(SEED)
@@ -1745,39 +1840,50 @@ def main() -> int:
             mac0 = shapes[0][0] * shapes[0][1]
             for dt in (torch.bfloat16, torch.float32):
                 net = fm.FusedNet(net_model, dt)
-                hidden = len(net.spec) - 1
+                bf16 = dt == torch.bfloat16
                 wbuf, bbuf, _ = net.packed
                 # what the function must move: the weights and biases once in
                 # the working type, the inputs, the outputs. The kernel's own
-                # traffic (its stash workspace, written and read back, and the
-                # transposed weight copies) is reported beside the bound, not in it.
+                # traffic (its workspace, written and read back, and the staged
+                # or transposed weight copies) is reported beside the bound, not in it.
                 w_bytes = wbuf.numel() * wbuf.element_size() + bbuf.numel() * bbuf.element_size()
+                extra = {}
                 if name == "igr_fwd":
                     # one pass forward, one transposed pass back (2 per layer)
                     ops = 2.0 * n * 2 * macs
-                    rows = -(-n // fi.FWD_TILE_P) * fi.TILE_ROWS
                     bytes_ = n * d * 4 + w_bytes + n * (1 + d) * 4
                     run = lambda: fi.fused_value_and_grad(net, x)
                     plain = lambda: fi.fused_value_and_grad_plain(net, x)
                     lib = lambda: library_vag(net_model, x, a, c, dt, False)
+                    expect = {"igr_fwd_kernel": 1}
                 else:
                     # two chains forward, two back (no W^T pass below the first
                     # layer), two into dW (~6 per layer); out: f32 dW and db
                     ops = 2.0 * n * (2 * macs + 2 * (macs - mac0) + 2 * macs)
-                    rows = -(-n // fi.BWD_TILE_P) * fi.TILE_ROWS
                     bytes_ = n * (2 * d + 1) * 4 + w_bytes + (wbuf.numel() + bbuf.numel()) * 4
                     run = lambda: fi.fused_param_grads(net, x, a, c)
                     plain = lambda: fi.fused_param_grads_plain(net, x, a, c)
                     lib = lambda: library_vag(net_model, x, a, c, dt, True)
-                stash_bytes = hidden * rows * net.h_pad * 4
+                    # bf16: igr_bwd, then the dW pass (igr_dw) from the same call
+                    expect = {"igr_bwd_kernel": 1, "igr_dw_kernel": 1} if bf16 else {"igr_bwd_kernel": 1}
+                    if bf16:  # the dW pass alone, on this input's workspace
+                        ws, part = fi.images_plain(net, x, a, c)
+                        extra["dw_pass_ms"] = timed(lambda: fi.dw_pass(net, ws, part), 5)
+                        del ws, part
                 t_bytes, t_ops = bytes_ / MEM_BW * 1e3, ops / PEAK[dt] * 1e3
-                ms, plain_ms, lib_ms = timed(run, 5), timed(plain, 2), timed(lib, 3)
+                ms = timed(run, 5)
+                workspace = fi.WORKSPACE_BYTES[name]  # what the timed calls allocated
+                launched = kernels_per_call(run)
+                if launched != expect:
+                    raise RuntimeError(f"{name}/{case}: one call ran {launched} on the card, not {expect}")
+                plain_ms, lib_ms = timed(plain, 2), timed(lib, 3)
                 numbers = {"max_abs_err": igr_errors[name, case, dt], "ms": ms, "plain_ms": plain_ms,
                            "bound_ms": max(t_bytes, t_ops),
                            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                            "library_ms": lib_ms, "points": n, "bound_bytes": bytes_,
-                           "stash_bytes": stash_bytes,
-                           "tflops": ops / ms / 1e9, "points_per_s": n / ms * 1e3}
+                           "workspace_bytes": workspace,
+                           "kernel_launches_per_call": sum(launched.values()), "kernels_per_call": launched,
+                           "tflops": ops / ms / 1e9, "points_per_s": n / ms * 1e3, **extra}
                 tag = str(dt).split(".")[1]
                 print(f"time {name}/{case}/{tag}: " + json.dumps(numbers), flush=True)
                 if case == "8x512/n16384" and dt == torch.bfloat16:

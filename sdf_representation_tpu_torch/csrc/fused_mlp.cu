@@ -50,6 +50,8 @@
 // each 32-deep sum is waited for before it is added, and the epilogue's
 // dependent chains run on two warps per scheduler; without the epilogue's
 // arithmetic the sweep takes about half the time.
+// The ring, the chunk routine (chunked_layer) and the epilogue functions
+// are csrc/hopper.cuh's, shared with the eikonal kernels (csrc/fused_igr.cu).
 // Activations stay in shared memory as bf16 in the same swizzled K-major
 // image, so they are the A operand as they stand. The coordinate rows (W_0,
 // and W_bot of the skip layer; d_in <= 4) are added in the epilogue with
@@ -88,10 +90,22 @@
 
 namespace {
 
-constexpr int kTileP = 64;     // points per tile (the C interface's unit)
-constexpr int kHMax = 512;     // widest padded layer a tile holds
-constexpr int kDesc = 6;       // int64 fields per layer descriptor
-constexpr float kInvSqrt2 = 0.70710678118654752440f;
+using hopper::kAcc;
+using hopper::kBlockBytes;
+using hopper::kChunkN;
+using hopper::kHBytes;
+using hopper::kHMax;            // widest padded layer a tile holds
+using hopper::kInvSqrt2;
+using hopper::kKBlock;
+using hopper::kLastRows;
+using hopper::kStageBytes;
+using hopper::kStages;
+using hopper::kWgThreads;
+using hopper::LayerArgs;
+using hopper::Ring;
+
+constexpr int kTileP = hopper::kRows;  // points per tile (the C interface's unit)
+constexpr int kDesc = 6;               // int64 fields per layer descriptor
 
 // layer descriptor (int64 x kDesc, device memory), see FusedNet.pack():
 //   [0] k     rows of the hidden-input matrix (0 for the first layer)
@@ -366,18 +380,7 @@ simt_blocks_kernel(const int* __restrict__ ids, const int* __restrict__ count, i
 
 constexpr int kCtaTiles = 2;                    // 64-point tiles per CTA, one per consumer warpgroup
 constexpr int kCtaRows = kCtaTiles * kTileP;    // 128 points
-constexpr int kWgThreads = 128;                 // a warpgroup
 constexpr int kWgmmaThreads = 3 * kWgThreads;   // producer + two consumers
-constexpr int kProducerRegs = 24;               // setmaxnreg: 128 x 24 + 256 x 240 <= 65,536
-constexpr int kConsumerRegs = 240;
-constexpr int kStages = 5;                      // weight stages in flight
-constexpr int kChunkN = 64;                     // output columns per product (m64n64k16)
-constexpr int kKBlock = 64;                     // K per stage: one 128-byte swizzled row
-constexpr int kSumK = 32;                       // K per tensor-core sum; the sums are added in f32
-constexpr int kLastRows = 8;                    // columns of the last layer's product (m64n8k16)
-constexpr int kBlockBytes = kTileP * kKBlock * 2;          // one 64-row K block of activations: 8 KB
-constexpr int kStageBytes = kChunkN * kKBlock * 2;         // 8 KB
-constexpr int kHBytes = (kHMax / kKBlock) * kBlockBytes;   // a warpgroup's activations: 64 KB
 constexpr size_t kOffRing = size_t(kCtaTiles) * kHBytes;
 constexpr size_t kOffX = kOffRing + size_t(kStages) * kStageBytes;
 constexpr size_t kOffBar = kOffX + size_t(kCtaRows) * 4 * sizeof(float);
@@ -392,158 +395,10 @@ constexpr size_t kWgmmaSmem = kOffBar + 2 * kStages * sizeof(uint64_t) + 1024;  
 //   xs       128 x 4 f32 coordinates (bf16 values)
 //   full, empty  the ring's mbarriers
 
-__device__ __forceinline__ int act_offset(int row, int col) {
-  return (col >> 6) * kBlockBytes + row * 128 + ((((col & 63) >> 3) ^ (row & 7)) << 4) + ((col & 7) << 1);
-}
-
-// round to the nearest bf16 (ties to even) on the integer pipe; the
-// values are finite
-__device__ __forceinline__ float bf16_rne(float v) {
-  uint32_t u = __float_as_uint(v);
-  u += 0x7fffu + ((u >> 16) & 1u);
-  return __uint_as_float(u & 0xffff0000u);
-}
-
-// two bf16 values (held in f32) as one packed pair, lo at the lower address
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
-}
-
-__device__ __forceinline__ float ex2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-__device__ __forceinline__ float lg2_ftz(float x) {
-  float y;
-  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// The activation of a bf16-rounded pre-activation, rounded to bf16, with
-// no branch (a chunk's elements interleave). Softplus in the cheaper form
-// (max(t,0) + ln2 lg2(1 + ex2(-|t| log2 e))) * RN(1/beta) on the hardware's
-// approximate ex2/lg2: its f32 result is within ~2e-7 absolute of the
-// exact form's, against bf16 steps of 2^-8 relative. Against exact sums
-// the exact form (expf, log1pf, division by beta) reads the same max and
-// a mean 0.4% lower, and takes 1.84x the time (PERF.md).
-template <bool kSoftplus>
-__device__ __forceinline__ float activate_bf16(float v, float beta, float rb) {
-  v = bf16_rne(v);
-  if constexpr (kSoftplus) {
-    const float t = __fmul_rn(beta, v);
-    const float e = ex2_ftz(__fmul_rn(-fabsf(t), 1.44269504088896341f));
-    const float s = __fadd_rn(fmaxf(t, 0.f), __fmul_rn(lg2_ftz(__fadd_rn(1.f, e)), 0.69314718055994531f));
-    v = __fmul_rn(s, rb);
-  } else {
-    v = fmaxf(v, 0.f);
-  }
-  return bf16_rne(v);
-}
-
-struct Ring {
-  uint8_t* stages;
-  uint64_t* full;
-  uint64_t* empty;
-  int s = 0;
-  uint32_t phase = 0;
-  __device__ __forceinline__ void advance() {
-    if (++s == kStages) {
-      s = 0;
-      phase ^= 1;
-    }
-  }
-};
-
-template <int N>
-__device__ __forceinline__ void wgmma_tile(float (&acc)[N], uint64_t da, uint64_t db, int scale_d) {
-  if constexpr (N == 32) {
-    hopper::wgmma_m64n64k16(acc, da, db, scale_d);
-  } else {
-    hopper::wgmma_m64n8k16(acc, da, db, scale_d);
-  }
-}
-
-// acc = A(64 x 64 kbs, the warpgroup's activations) * B(the next kbs stages
-// of the ring), as kSumK-deep tensor-core sums added in order in f32; each
-// stage is handed back to the producer once its products have completed.
-template <int N>
-__device__ __forceinline__ void mma_stream(float (&acc)[N], const uint8_t* H, int kbs, Ring& ring, bool signal) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) acc[i] = 0.f;
-  for (int kb = 0; kb < kbs; ++kb) {
-    hopper::mbar_wait(&ring.full[ring.s], ring.phase);
-    const uint8_t* a = H + kb * kBlockBytes;
-    const uint8_t* b = ring.stages + ring.s * kStageBytes;
-#pragma unroll
-    for (int g = 0; g < kKBlock / kSumK; ++g) {
-      float part[N];
-      hopper::wgmma_fence();
-#pragma unroll
-      for (int u = 0; u < kSumK / 16; ++u) {
-        const int off = 2 * (g * kSumK + 16 * u);  // bytes along the 128-byte row
-        wgmma_tile(part, hopper::desc_k_sw128(a + off), hopper::desc_k_sw128(b + off), u > 0);
-      }
-      hopper::wgmma_commit();
-      hopper::wgmma_wait<0>();
-      hopper::fence_registers(part);
-#pragma unroll
-      for (int i = 0; i < N; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
-    }
-    if (signal) hopper::mbar_arrive(&ring.empty[ring.s]);
-    ring.advance();
-  }
-}
-
-// x . w over the d_in coordinates, the products exact in f32
-__device__ __forceinline__ float coord_dot(const float (&x)[4], const float (&w)[4], int d_in) {
-  float t = __fmul_rn(x[0], w[0]);
-#pragma unroll
-  for (int r = 1; r < 4; ++r)
-    if (r < d_in) t = __fmaf_rn(x[r], w[r], t);
-  return t;
-}
-
-struct LayerArgs {
-  int k, n, d_in;
-  bool skip;
-  float beta, rb;               // beta and RN(1 / beta)
-  const float* bias;            // this layer's biases
-  const __nv_bfloat16* wx;      // coordinate rows (d_in x n), or null
-};
-
-// bias, coordinate term and scale of output columns col and col + 1 for
-// the thread's rows r0 (h = 0) and r0 + 8 (h = 1), applied to their sums
-__device__ __forceinline__ void column_pair(const LayerArgs& L, int col, const float (&x)[2][4], float (&v)[2][2]) {
-  const float2 bias = __ldg(reinterpret_cast<const float2*>(L.bias + col));
-  float w0[4] = {0.f, 0.f, 0.f, 0.f}, w1[4] = {0.f, 0.f, 0.f, 0.f};
-  if (L.wx != nullptr) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      if (r < L.d_in) {
-        const __nv_bfloat162 w = *reinterpret_cast<const __nv_bfloat162*>(L.wx + r * L.n + col);
-        w0[r] = __low2float(w);
-        w1[r] = __high2float(w);
-      }
-    }
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float a = v[h][0], b = v[h][1];
-    if (L.wx != nullptr) {
-      a = __fadd_rn(a, coord_dot(x[h], w0, L.d_in));
-      b = __fadd_rn(b, coord_dot(x[h], w1, L.d_in));
-    }
-    if (L.skip) {
-      a = __fmul_rn(a, kInvSqrt2);
-      b = __fmul_rn(b, kInvSqrt2);
-    }
-    v[h][0] = __fadd_rn(a, bias.x);
-    v[h][1] = __fadd_rn(b, bias.y);
-  }
-}
-
-constexpr int kAcc = kChunkN / 2;  // accumulator registers of a chunk's product
+using hopper::activate_bf16;
+using hopper::bf16_rne;
+using hopper::column_pair;
+using hopper::pack_bf16x2;
 
 // chunk c of a hidden layer's outputs: scale, bias, activation, packed as
 // bf16 pairs; sink(j, h, pair) takes column kChunkN c + 8 j + cq and row
@@ -566,32 +421,10 @@ __device__ __forceinline__ void hidden_epilogue(const float (&acc)[kAcc], int c,
 template <int NQ, bool kSoftplus>
 __device__ __forceinline__ void hidden_layer(const LayerArgs& L, uint8_t* H, Ring& ring, int wg, int lt,
                                              const float (&x)[2][4]) {
-  constexpr int kChunks = NQ * 128 / kChunkN;
-  const int warp = lt >> 5, lane = lt & 31;
-  const int r0 = 16 * warp + (lane >> 2), cq = 2 * (lane & 3);
-  const int kbs = L.k / kKBlock;
-  uint32_t held[kChunks - 1][kChunkN / 4];  // finished chunks, packed bf16
-  auto store = [&](int c, int j, int h, uint32_t pair) {
-    *reinterpret_cast<uint32_t*>(H + act_offset(r0 + 8 * h, kChunkN * c + 8 * j + cq)) = pair;
-  };
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-    float acc[kAcc];
-    mma_stream(acc, H, kbs, ring, lt == 0);
-    if (c < kChunks - 1) {
-      hidden_epilogue<kSoftplus>(acc, c, cq, L, x, [&](int j, int h, uint32_t pair) { held[c][2 * j + h] = pair; });
-    } else {
-      // every product of this layer has read H: overwrite it
-      hopper::named_barrier(1 + wg, kWgThreads);
-#pragma unroll
-      for (int cc = 0; cc < kChunks - 1; ++cc)
-#pragma unroll
-        for (int i = 0; i < kChunkN / 4; ++i) store(cc, i >> 1, i & 1, held[cc][i]);
-      hidden_epilogue<kSoftplus>(acc, c, cq, L, x, [&](int j, int h, uint32_t pair) { store(c, j, h, pair); });
-      hopper::fence_proxy_async();  // the next layer's wgmma reads what was just written
-      hopper::named_barrier(1 + wg, kWgThreads);
-    }
-  }
+  const int cq = 2 * (lt & 3);
+  hopper::chunked_layer<NQ * 128 / kChunkN>(
+      H, L.k / kKBlock, ring, 1 + wg, lt, [](int) {},
+      [&](int c, const float (&acc)[kAcc], auto sink) { hidden_epilogue<kSoftplus>(acc, c, cq, L, x, sink); });
 }
 
 // The last layer: one output, column 0 of an m64n8k16 product; emit(row, v)
@@ -602,7 +435,7 @@ __device__ __forceinline__ void last_layer(const LayerArgs& L, const uint8_t* H,
   const int warp = lt >> 5, lane = lt & 31;
   const int r0 = 16 * warp + (lane >> 2);
   float acc[4];
-  mma_stream(acc, H, L.k / kKBlock, ring, lt == 0);
+  hopper::mma_stream(acc, H, L.k / kKBlock, ring, lt == 0);
   if ((lane & 3) == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -612,7 +445,7 @@ __device__ __forceinline__ void last_layer(const LayerArgs& L, const uint8_t* H,
 #pragma unroll
         for (int r = 0; r < 4; ++r)
           if (r < L.d_in) w[r] = __bfloat162float(L.wx[r * L.n]);
-        v = __fadd_rn(v, coord_dot(x[h], w, L.d_in));
+        v = __fadd_rn(v, hopper::coord_dot(x[h], w, L.d_in));
       }
       if (L.skip) v = __fmul_rn(v, kInvSqrt2);
       v = __fadd_rn(v, __ldg(L.bias));
@@ -628,24 +461,16 @@ template <int NQ, class Emit>
 __device__ __forceinline__ void wgmma_forward(const long long* __restrict__ desc, int n_lin, int d_in, float beta,
                                               const __nv_bfloat16* __restrict__ W, const float* __restrict__ B,
                                               const __nv_bfloat16* __restrict__ tiles, uint8_t* smem, Emit emit) {
-  Ring ring;
-  ring.stages = smem + kOffRing;
-  ring.full = reinterpret_cast<uint64_t*>(smem + kOffBar);
-  ring.empty = ring.full + kStages;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      hopper::mbar_init(&ring.full[s], 1);
-      hopper::mbar_init(&ring.empty[s], kCtaTiles);  // one arrival per consumer warpgroup
-    }
-    hopper::fence_barrier_init();
-  }
+  Ring ring = hopper::ring_init(smem + kOffRing, reinterpret_cast<uint64_t*>(smem + kOffBar),
+                               kCtaTiles,  // one arrival per consumer warpgroup
+                               threadIdx.x == 0);
   __syncthreads();  // barriers and coordinates ready
 
   const int wg = threadIdx.x / kWgThreads;
   if (wg == 0) {
     // producer: the weight stages of every layer, in the order the
     // consumers multiply by them (FusedNet.tiles is laid out in that order)
-    hopper::regs_decrease<kProducerRegs>();
+    hopper::regs_decrease<hopper::kProducerRegs>();
     if (threadIdx.x == 0) {
       const uint8_t* src = reinterpret_cast<const uint8_t*>(tiles);
       for (int l = 0; l < n_lin; ++l) {
@@ -654,19 +479,13 @@ __device__ __forceinline__ void wgmma_forward(const long long* __restrict__ desc
         const bool last = l == n_lin - 1;
         const uint32_t bytes = (last ? kLastRows : kChunkN) * kKBlock * 2;
         const int count = (last ? 1 : static_cast<int>(desc[kDesc * l + 1]) / kChunkN) * (k / kKBlock);
-        for (int t = 0; t < count; ++t) {
-          hopper::mbar_wait(&ring.empty[ring.s], ring.phase ^ 1);
-          hopper::mbar_arrive_expect_tx(&ring.full[ring.s], bytes);
-          hopper::bulk_load(ring.stages + ring.s * kStageBytes, src, bytes, &ring.full[ring.s]);
-          src += bytes;
-          ring.advance();
-        }
+        src = hopper::produce(ring, src, bytes, count);
       }
     }
     return;
   }
 
-  hopper::regs_increase<kConsumerRegs>();
+  hopper::regs_increase<hopper::kConsumerRegs>();
   const int c = wg - 1;               // consumer 0 or 1: rows 64 c .. 64 c + 63
   const int lt = threadIdx.x - wg * kWgThreads;
   const int r0 = 16 * (lt >> 5) + ((lt & 31) >> 2);
@@ -680,16 +499,7 @@ __device__ __forceinline__ void wgmma_forward(const long long* __restrict__ desc
 
   const float rb = beta > 0.f ? __frcp_rn(beta) : 0.f;
   for (int l = 0; l < n_lin; ++l) {
-    const long long* d = desc + kDesc * l;
-    LayerArgs L;
-    L.k = static_cast<int>(d[0]);
-    L.n = static_cast<int>(d[1]);
-    L.d_in = d_in;
-    L.skip = d[2] != 0;
-    L.beta = beta;
-    L.rb = rb;
-    L.bias = B + d[3];
-    L.wx = d[5] >= 0 ? W + d[5] : nullptr;
+    const LayerArgs L = hopper::layer_args(desc, l, d_in, beta, rb, W, B);
     if (l == n_lin - 1) {
       last_layer(L, H, ring, lt, x, [&](int row, float v) { emit(kTileP * c + row, v); });
     } else if (beta > 0.f) {
@@ -700,9 +510,7 @@ __device__ __forceinline__ void wgmma_forward(const long long* __restrict__ desc
   }
 }
 
-__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
-  return raw + ((1024 - (hopper::smem_u32(raw) & 1023)) & 1023);
-}
+using hopper::aligned_smem;
 
 template <int NQ>
 __global__ void __launch_bounds__(kWgmmaThreads, 1)

@@ -36,7 +36,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -180,19 +180,37 @@ class FusedNet:
         (csrc/fused_mlp.cu): per layer W^T (its output columns as rows; the
         last layer's first LAST_ROWS only), cut into CHUNK_N-row chunks and
         K_BLOCK-column blocks, chunk-major, each stage a (rows, 64) block in
-        the 128-byte swizzle. Flat, in compute_dtype."""
-        last = len(self.layers) - 1
-        parts = [swizzle_128b(_layer_stages(w_h, layer == last)).reshape(-1)
-                 for layer, (_, w_h, _, _) in enumerate(self.layers) if w_h is not None]
-        if not parts:
+        the 128-byte swizzle. Flat, in compute_dtype: one gather from
+        ``packed``'s weights."""
+        return self._staged(igr=False)
+
+    @functools.cached_property
+    def igr_tiles(self) -> torch.Tensor:
+        """The weight stages of the bf16 eikonal kernels (csrc/fused_igr.cu),
+        in the order both take them: ``tiles`` (the forward products of
+        layers 1 .. n_lin - 1), then per layer n_lin - 2 .. 1 the stages of
+        the reverse product dz W^T, whose B operand is W itself, K-major
+        over the layer's outputs: W (k, n) cut into CHUNK_N-row chunks
+        (the k inputs, the product's output columns) and K_BLOCK-column
+        blocks (the n outputs, its K), chunk-major, each a (64, 64) block in
+        the 128-byte swizzle. Flat, in compute_dtype: one gather from
+        ``packed``'s weights, so it costs a step one launch (the f32
+        kernels' ``transposed`` costs a copy per layer)."""
+        return self._staged(igr=True)
+
+    def _staged(self, igr: bool) -> torch.Tensor:
+        layout = tuple(tuple(row) for row in self.layout)
+        index = _stage_index(layout, igr, self.device)
+        if index is None:
             return torch.zeros(1, dtype=self.dtype, device=self.device)
-        return torch.cat(parts)
+        return self.packed[0].index_select(0, index)
 
     @functools.cached_property
     def transposed(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(W^T of every hidden-to-hidden matrix, flat in compute_dtype; int64
-        offsets per layer, -1 where a layer has none) for csrc/fused_igr.cu,
-        whose reverse sweeps multiply by W^T and stream rows."""
+        offsets per layer, -1 where a layer has none) for the f32 kernels of
+        csrc/fused_igr.cu, whose reverse sweeps multiply by W^T and stream
+        rows."""
         mats, offsets, off = [], [], 0
         for layer, (_, w_h, _, _) in enumerate(self.layers):
             if w_h is None or layer == len(self.layers) - 1:
@@ -203,6 +221,23 @@ class FusedNet:
                 off += w_h.numel()
         flat = torch.cat(mats) if mats else torch.zeros(1, dtype=self.dtype, device=self.device)
         return flat, torch.tensor(offsets, dtype=torch.int64, device=self.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _stage_index(layout: Tuple[Tuple[int, ...], ...], igr: bool, device) -> Optional[torch.Tensor]:
+    """int32 positions in ``FusedNet.packed``'s weight buffer of the
+    elements of ``FusedNet.tiles`` (``igr``: of ``FusedNet.igr_tiles``),
+    for a net of this ``layout``: the images of the weights' own indices.
+    None where the net has no hidden-input matrix. Made once per layout and
+    device."""
+    last = len(layout) - 1
+    mats = {layer: torch.arange(w_off, w_off + k * n, dtype=torch.int32).view(k, n)
+            for layer, (k, n, _, _, w_off, _) in enumerate(layout) if w_off >= 0}
+    parts = [swizzle_128b(_layer_stages(m, layer == last)).reshape(-1) for layer, m in mats.items()]
+    if igr:
+        parts += [swizzle_128b(_layer_stages(mats[layer].T, False)).reshape(-1)
+                  for layer in range(last - 1, 0, -1)]
+    return torch.cat(parts).to(device) if parts else None
 
 
 def swizzle_128b(t: torch.Tensor) -> torch.Tensor:

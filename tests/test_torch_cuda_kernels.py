@@ -210,23 +210,25 @@ def test_streams_refuse_what_the_kernels_do_not_take(device):
 # ---- the fused (f, grad_x f) kernels and their backward ----------------------
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hidden,layers,skip,beta,n", [
-    (64, 4, (2,), 100.0, 200), (200, 2, (), 100.0, 17), (384, 3, (1,), 100.0, 1000),
-    (509, 5, (4,), 100.0, 3001), (256, 1, (), 100.0, 64),
+@pytest.mark.parametrize("hidden,layers,skip,beta,n,d_in", [
+    (64, 4, (2,), 100.0, 200, 3), (200, 2, (), 100.0, 17, 3), (384, 3, (1,), 100.0, 1000, 3),
+    (509, 5, (4,), 100.0, 3001, 3), (256, 1, (), 100.0, 64, 3), (128, 3, (2,), 100.0, 500, 2),
+    (256, 2, (1,), 100.0, 129, 4),
 ])
-def test_igr_kernels_match_plain(device, hidden, layers, skip, beta, n, dt):
-    """f, grad f, and every dW and db against the plain versions. Limits:
-    f32 1e-4 of each tensor's largest entry (summation order, carried on
-    by sigma' with a factor of up to beta / 4; the atomics' order); bf16 max
-    1e-2 of it and mean 1e-3 (a sum in another order can round to the
-    neighbouring bf16 value)."""
+def test_igr_kernels_match_plain(device, hidden, layers, skip, beta, n, d_in, dt):
+    """f, grad f, and every dW and db against the plain versions, at the four
+    padded widths (128, 256, 384, 512) and d_in 2-4. Limits: f32 1e-4 of
+    each tensor's largest entry (summation order, carried on by sigma' with
+    a factor of up to beta / 4; the atomics' order); bf16 max 1e-2 of it and
+    mean 1e-3 (a sum in another order can round to the neighbouring bf16
+    value)."""
     gen = torch.Generator().manual_seed(hidden + n)
-    model = ImplicitNet(hidden_dims=(hidden,) * layers, skip_in=skip, beta=beta, radius_init=0.5,
-                        generator=gen, device=device)
+    model = ImplicitNet(d_in=d_in, hidden_dims=(hidden,) * layers, skip_in=skip, beta=beta,
+                        radius_init=0.5, generator=gen, device=device)
     net = fm.FusedNet(model, dt)
-    x = (torch.rand(n, 3, generator=gen) * 2 - 1).to(device)
+    x = (torch.rand(n, d_in, generator=gen) * 2 - 1).to(device)
     a = (torch.randn(n, generator=gen) / n).to(device)
-    c = (torch.randn(n, 3, generator=gen) / n).to(device)
+    c = (torch.randn(n, d_in, generator=gen) / n).to(device)
     max_tol, mean_tol = (1e-4, 1e-5) if dt == torch.float32 else (1e-2, 1e-3)
 
     def close(got, want, what):
@@ -244,19 +246,20 @@ def test_igr_kernels_match_plain(device, hidden, layers, skip, beta, n, dt):
     close(f, pf, "f")
     close(g, pg, "grad f")
     shapes = [w.shape for w, _ in model.effective_layers()]
-    got = fi.unpack_grads(3, shapes, grads)
-    want = fi.unpack_grads(3, shapes, fi.fused_param_grads_plain(net, x, a, c))
+    got = fi.unpack_grads(d_in, shapes, grads)
+    want = fi.unpack_grads(d_in, shapes, fi.fused_param_grads_plain(net, x, a, c))
     for i, (u, v) in enumerate(zip(got, want)):
         close(u, v, f"gradient {i}")
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-def test_igr_relu_tanh_head(device, dt):
+@pytest.mark.parametrize("hidden", [128, 256, 384, 512])
+def test_igr_relu_tanh_head(device, hidden, dt):
     """ReLU + tanh head: step'(z) flips where z changes sign under another
     summation order, which moves grad f at single points by a whole term, so
     grad f and the gradients are held by their mean."""
     gen = torch.Generator().manual_seed(5)
-    model = ImplicitNet(hidden_dims=(256,) * 4, skip_in=(2,), beta=0.0, radius_init=0.5,
+    model = ImplicitNet(hidden_dims=(hidden,) * 4, skip_in=(2,), beta=0.0, radius_init=0.5,
                         generator=gen, device=device)
     net = fm.FusedNet(model, dt)
     x = (torch.rand(2000, 3, generator=gen) * 2 - 1).to(device)
@@ -271,6 +274,84 @@ def test_igr_relu_tanh_head(device, dt):
     want = fi.unpack_grads(3, shapes, fi.fused_param_grads_plain(net, x, a, c))
     for u, v in zip(got, want):
         assert float((u - v).abs().mean()) <= 1e-2 * max(float(v.abs().mean()), 1e-6)
+
+
+@pytest.mark.parametrize("beta", [100.0, 0.0])
+def test_igr_bwd_bf16_is_reproducible(device, beta):
+    """The bf16 backward sums dW and db in a fixed order (no atomics): two
+    launches on one input give the same gradients bit for bit."""
+    gen = torch.Generator().manual_seed(11)
+    model = ImplicitNet(hidden_dims=(512,) * 8, skip_in=(4,), beta=beta, radius_init=0.5,
+                        generator=gen, device=device)
+    net = fm.FusedNet(model, torch.bfloat16)
+    x = (torch.rand(4999, 3, generator=gen) * 2 - 1).to(device)
+    a = (torch.randn(4999, generator=gen) / 4999).to(device)
+    c = (torch.randn(4999, 3, generator=gen) / 4999).to(device)
+    one, two = fi.fused_param_grads(net, x, a, c), fi.fused_param_grads(net, x, a, c)
+    for p, q in zip(one, two):
+        for u, v in zip(p, q):
+            assert (u is None and v is None) or torch.equal(u, v)
+
+
+@pytest.mark.parametrize("hidden,skip,beta,d_in", [(512, (4,), 100.0, 3), (256, (2,), 0.0, 3),
+                                                   (128, (1,), 100.0, 2)])
+def test_igr_bwd_bf16_passes(device, hidden, skip, beta, d_in):
+    """The bf16 backward's two passes on their own: the first pass's
+    workspace against ``images_plain`` (bf16 values, equal but where a sum
+    in another order rounds to the neighbouring value, 2^-8 relative, which
+    later layers carry on: the mean difference within 1e-2 of the mean
+    value, where a misplaced row or column reads ~1), and the dW pass on that
+    same plain workspace against ``dw_pass_plain`` (bf16 products, exact
+    sums: within 1e-5 of each buffer's largest entry)."""
+    gen = torch.Generator().manual_seed(hidden)
+    model = ImplicitNet(d_in=d_in, hidden_dims=(hidden,) * 5, skip_in=skip, beta=beta,
+                        radius_init=0.5, generator=gen, device=device)
+    net = fm.FusedNet(model, torch.bfloat16)
+    n = 1000
+    x = (torch.rand(n, d_in, generator=gen) * 2 - 1).to(device)
+    a = (torch.randn(n, generator=gen) / n).to(device)
+    c = (torch.randn(n, d_in, generator=gen) / n).to(device)
+    _, _, (found_ws, found_partial) = fi._bwd_bf16(net, x, a, c)
+    ws, partial = fi.images_plain(net, x, a, c)
+    torch.cuda.synchronize()
+    diff = (found_ws.float() - ws.float()).abs()
+    assert float(diff.mean()) <= 1e-2 * float(ws.float().abs().mean())
+    scale = float(partial.abs().max())
+    assert float((found_partial - partial).abs().mean()) <= 1e-3 * scale
+    gw, gb = fi.dw_pass(net, ws, partial)
+    pw, pb = fi.dw_pass_plain(net, ws, partial)
+    assert float((gw - pw).abs().max()) <= 1e-5 * float(pw.abs().max())
+    assert float((gb - pb).abs().max()) <= 1e-5 * float(pb.abs().max())
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_igr_sharded_with_empty_shards(device, dt):
+    """Three points over the card listed four times: the last shard is
+    empty, launches nothing and adds zeros, so the parameter gradients are
+    the single-device call's (up to the order of the shards' sum). Freed
+    buffers of the gradients' size are filled with NaN first, so that an
+    empty shard returning unwritten memory shows."""
+    gen = torch.Generator().manual_seed(3)
+    model = ImplicitNet(hidden_dims=(256,) * 4, skip_in=(2,), beta=100.0, radius_init=0.5,
+                        generator=gen, device=device)
+    x = (torch.rand(3, 3, generator=gen) * 2 - 1).to(device)
+
+    def grads(vag):
+        model.zero_grad(set_to_none=True)
+        f, g = vag(x)
+        (f.square().sum() + g.sin().sum()).backward()
+        return [p.grad.clone() for p in model.parameters()]
+
+    one = grads(fi.make_fused_value_and_grad(model, dt))
+    wbuf, bbuf, _ = fm.FusedNet(model, dt).packed
+    poison = [torch.full((k.numel(),), float("nan"), device=device) for k in (wbuf, bbuf) * 4]
+    del poison
+    before = dict(fi.LAUNCHES)
+    four = grads(fi.make_fused_value_and_grad_sharded(model, (device,) * 4, dt))
+    assert fi.LAUNCHES == {"igr_fwd": before["igr_fwd"] + 3, "igr_bwd": before["igr_bwd"] + 3}
+    for u, v in zip(four, one):
+        assert torch.isfinite(u).all()
+        torch.testing.assert_close(u, v, rtol=1e-5, atol=1e-6 * float(v.abs().max()))
 
 
 def test_igr_autograd_on_the_card(device):

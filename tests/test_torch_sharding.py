@@ -136,6 +136,25 @@ def test_sharded_fused_op_gathers_on_the_mesh_head():
     torch.testing.assert_close(g4, g1, rtol=1e-6, atol=1e-7)
 
 
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_sharded_fused_op_with_an_empty_shard(dt):
+    """Three points over four shards: the last shard is empty and adds
+    nothing, so the parameter gradients are the single-device op's."""
+    _, _, tm, x, _ = _setup(3)
+    x = torch.from_numpy(x)
+
+    def grads(vag):
+        tm.zero_grad(set_to_none=True)
+        f, g = vag(x)
+        (f.square().sum() + g.sin().sum()).backward()
+        return [p.grad.clone() for p in tm.parameters()]
+
+    one = grads(fused_igr.make_fused_value_and_grad(tm, dt))
+    four = grads(fused_igr.make_fused_value_and_grad_sharded(tm, ("cpu",) * 4, dt))
+    for u, v in zip(four, one):
+        torch.testing.assert_close(u, v, rtol=1e-5, atol=1e-6 * float(v.abs().max()))
+
+
 # ---------------------------------------------------------------------------
 # the sharded training step
 # ---------------------------------------------------------------------------

@@ -35,12 +35,13 @@ dev = torch.device("cuda")
 HERE = REPO / "build" / "bf16_sum_study"
 HERE.mkdir(parents=True, exist_ok=True)
 
-APPROX = """    const float t = __fmul_rn(beta, v);
-    const float e = ex2_ftz(__fmul_rn(-fabsf(t), 1.44269504088896341f));
-    const float s = __fadd_rn(fmaxf(t, 0.f), __fmul_rn(lg2_ftz(__fadd_rn(1.f, e)), 0.69314718055994531f));
-    v = __fmul_rn(s, rb);"""
-EXACT = """    const float t = __fmul_rn(beta, v);
-    v = __fdiv_rn(__fadd_rn(fmaxf(t, 0.f), log1pf(expf(-fabsf(t)))), beta);"""
+# softplus_fast and kSumK of csrc/hopper.cuh, which fused_mlp.cu includes
+APPROX = """  const float t = __fmul_rn(beta, v);
+  const float e = ex2_ftz(__fmul_rn(-fabsf(t), kLog2E));
+  const float s = __fadd_rn(fmaxf(t, 0.f), __fmul_rn(lg2_ftz(__fadd_rn(1.f, e)), kLn2));
+  return __fmul_rn(s, rb);"""
+EXACT = """  const float t = __fmul_rn(beta, v);
+  return __fdiv_rn(__fadd_rn(fmaxf(t, 0.f), log1pf(expf(-fabsf(t)))), beta);"""
 SUMK = "constexpr int kSumK = 32;"
 
 variants = {"approx32": (False, 32), "exact32": (True, 32), "exact16": (True, 16), "approx16": (False, 16)}
@@ -51,12 +52,12 @@ def make(name, exact, sumk):
     if d.exists():
         shutil.rmtree(d)
     shutil.copytree(kernels.CSRC, d)
-    src = (d / "fused_mlp.cu").read_text()
+    src = (d / "hopper.cuh").read_text()
     assert APPROX in src and SUMK in src
     if exact:
         src = src.replace(APPROX, EXACT)
     src = src.replace(SUMK, f"constexpr int kSumK = {sumk};")
-    (d / "fused_mlp.cu").write_text(src)
+    (d / "hopper.cuh").write_text(src)
     lib = HERE / f"lib_{name}.so"
     t0 = time.perf_counter()
     p = subprocess.run(["/usr/local/cuda/bin/nvcc", *kernels.nvcc_flags("fused_mlp"), "-o", str(lib),
