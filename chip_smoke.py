@@ -11,7 +11,9 @@ Phases, none of which is allowed to fail quietly:
     entry of fused_mlp.cu (the tensor-core routine, at widths 128-512: 12)
     and of fused_igr.cu (igr_fwd and igr_bwd at widths 128-512, softplus and
     ReLU, and the dW pass igr_dw: 17) must issue HGMMA and use no local
-    memory (cuobjdump's SASS and resource usage, printed per entry).
+    memory, and the two FP32 stream kernels of sdf_streams.cu (dist_kernel,
+    wind_kernel) no local memory (cuobjdump's SASS and resource usage,
+    printed per entry, with the streams' CTA shape).
  3. Kernels against their plain PyTorch versions on the flagship net
     (configs/mesh_sdf.ini: ImplicitNet 8x512, skip at layer 4, beta 100;
     geometric init, radius 0.5, seeded weights), in f32 and bf16: the points
@@ -123,7 +125,9 @@ Phases, none of which is allowed to fail quietly:
     the bound: the larger of bytes over 3.35 TB/s and operations over the
     card's peak (989 TFLOP/s bf16 tensor cores for bf16, 67 TFLOP/s FP32
     for f32), published figures at a 700 W limit. For the streams the
-    operations are counted per point-triangle pair from the kernel's code.
+    operations are a fixed count per point-triangle pair (the work of the
+    function; each kernel's SASS instruction count, registers, local memory,
+    points per thread and stage bytes stand beside its time).
     For igr_fwd and igr_bwd at (8x512, N 16,384) and (8x256, N 5,461): the
     operations are 2 N times the multiply-adds of the products each kernel
     performs (2 and ~6 passes over the layers), the bytes are the inputs, the
@@ -186,17 +190,24 @@ SEED = 0
 # streams: the limits of the JAX package's tests/test_pallas_streams.py
 D2_RTOL, D2_ATOL = 1e-5, 1e-7
 W_RTOL, W_ATOL = 1e-4, 1e-3
-# FP32 operations per point-triangle pair, counted from csrc/sdf_streams.cu
-# with a multiply and an add as one each (the file is built without FMA
-# contraction), a division or a square root as 8 and atan2f as 36 (one
-# division, an 11-term polynomial, the quadrant fix-ups). Distance: 10 for
-# the two dots, 2 for d and e, 6 for s and t, 8 for the two clamped edge
-# minimisers, 5 for the region tests, 15 for the closest point, 5 for d^2,
-# 4 for the validity select and the running minimum = 55; the division of
-# the region a pair falls in (none, one or two) is left out, so the bound
-# stays a lower one. Winding: 20 for the four dots, 36 for the three
-# lengths, 9 + 1 for the cross terms and the numerator, 7 for the
-# denominator, 36 for atan2f, 3 to scale, mask and add = 112.
+# FP32 operations per point-triangle pair: the work of each function, as it
+# was counted from the first design of csrc/sdf_streams.cu and kept since, so
+# that the bound reads the same work whatever a kernel now issues (its SASS
+# is printed beside it). A multiply and an add count as one each, a
+# division or a square root as 8, and atan2 as 36, the count of libdevice's
+# atan2f that the first design called. Distance: 10 for the two dots, 2 for d
+# and e, 6 for s and t, 8 for the two clamped edge minimisers, 5 for the
+# region tests, 15 for the closest point, 5 for d^2, 4 for the validity
+# select and the running minimum = 55; the division of the region a pair
+# falls in (none, one or two) is left out, so the bound stays a lower one.
+# Winding: 20 for the four dots, 36 for the three lengths, 9 + 1 for the
+# cross terms and the numerator, 7 for the denominator, 36 for atan2, 3 to
+# scale, mask and add = 112. The atan2 that the JAX kernel and wind_kernel
+# now compute (pallas_streams._atan2) counts 34 by the same rules: 2 for the
+# absolute values, 3 for the minimum and maxima, 8 for the division, 1 for
+# q^2, 10 for the 6-coefficient polynomial, 1 for q p, 9 for the three
+# quadrant fix-ups (compare, subtract or negate, select); the 2 ops over it
+# are kept, so that the bound reads the same work as before the redesign.
 DIST_OPS_PER_PAIR = 55
 WIND_OPS_PER_PAIR = 112
 EPOCHS = 30
@@ -314,11 +325,12 @@ def plain_kernel_order(net, x):
     return plain_dropping(net, x, (), product)
 
 
-def check_sass(library, entry, expected):
-    """Each bf16 entry of a source (the tensor-core kernels: mangled names
-    that the regular expression ``entry`` finds) must issue tensor-core products (HGMMA) and use no local
-    memory (spills or stack): counts from cuobjdump's SASS and resource
-    usage, printed per function; ``expected`` entries."""
+def check_sass(library, entry, expected, tensor_cores=True):
+    """The entries of a source whose mangled names the regular expression
+    ``entry`` finds (``expected`` of them) use no local memory (spills or
+    stack), and with ``tensor_cores`` (the bf16 entries) each issues
+    tensor-core products (HGMMA): counts from cuobjdump's SASS and resource
+    usage, printed per function."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
                           check=True).stdout
@@ -341,9 +353,10 @@ def check_sass(library, entry, expected):
     for name, c in sorted(entries.items()):
         print(f"sass {name}: {c}", flush=True)
     if len(entries) != expected:
-        raise RuntimeError(f"expected {expected} bf16 entries in {library.name}'s SASS, found {len(entries)}")
+        raise RuntimeError(f"expected {expected} entries {entry!r} in {library.name}'s SASS, "
+                           f"found {len(entries)}")
     for name, c in entries.items():
-        if c["HGMMA"] == 0:
+        if tensor_cores and c["HGMMA"] == 0:
             raise RuntimeError(f"{name} issues no HGMMA")
         if c.get("local", 1) or c.get("stack", 1):
             raise RuntimeError(f"{name}: local memory (spills or stack) or no resource usage: {c}")
@@ -400,6 +413,35 @@ def counting_plain_calls(modules):
             setattr(mod, name, fn)
 
 
+def stream_inputs(rng):
+    """Phase 3's stream case: the rescaled icosphere(5) (20,480 faces) and
+    262,144 points of stream_points drawn from rng."""
+    from sdf_representation_tpu_torch.geometry.primitives import make_icosphere
+    from sdf_representation_tpu_torch.geometry.rescale import rescale_mesh
+
+    mesh = rescale_mesh(make_icosphere(5, 0.5))
+    return mesh, stream_points(mesh, 262144, rng)
+
+
+def culled_schedule(device, mesh, pts, tri_chunk=512, m=2048):
+    """The schedule the culled method makes for pts: Morton blocks of m
+    points on the card, the faces in Morton order in chunks of tri_chunk,
+    the cull at slack _CULL_SLACK. Returns (Morton order of pts, blocks
+    (n_blocks, m, 3), faces in chunk order, triangle tables, distance keep
+    matrix, winding keep matrix)."""
+    from sdf_representation_tpu_torch.ops import sdf_culled as sc
+    from sdf_representation_tpu_torch.ops import sdf_exact as se
+
+    faces = mesh.faces[sc._morton_order(mesh.vertices[mesh.faces].mean(axis=1))]
+    order, P = sc._sorted_blocks(pts, m, device)
+    tables, _ = se._triangle_tables(mesh.vertices, faces, tri_chunk)
+    centers, radii, _, cbar = sc._chunk_geometry(mesh.vertices, faces, tri_chunk)
+    scale = float(max(np.abs(mesh.vertices).max(), np.abs(pts).max(), 1.0))
+    kd, kw = sc._cull(P, np.full(P.shape[:2], np.inf, np.float32), centers, radii, 2.0,
+                      cbar=cbar, slack=sc._CULL_SLACK * scale)
+    return order, P, faces, tables, kd, kw
+
+
 def stream_points(mesh, n_total, rng):
     """n_total points: half uniform in the cube, a quarter on the surface
     (area-weighted), a quarter in a 0.1 band around it, as float32."""
@@ -418,16 +460,13 @@ def check_streams(device, report):
     the rounded-dots control, signed_distance against the analytic sphere.
     Returns what phase 5 times: (points, dense schedule, tables, tri_chunk,
     per-kernel max errors)."""
-    from sdf_representation_tpu_torch.geometry.primitives import make_icosphere
-    from sdf_representation_tpu_torch.geometry.rescale import rescale_mesh
     from sdf_representation_tpu_torch.ops import sdf_exact as se
     from sdf_representation_tpu_torch.ops import sdf_streams as ss
 
-    mesh = rescale_mesh(make_icosphere(5, 0.5))
-    radius = float(np.linalg.norm(mesh.vertices, axis=1).mean())
     rng = np.random.default_rng(SEED)
+    mesh, pts = stream_inputs(rng)
+    radius = float(np.linalg.norm(mesh.vertices, axis=1).mean())
     tri_chunk, m = 1024, se.POINT_CHUNK
-    pts = stream_points(mesh, 262144, rng)
     n_blocks = len(pts) // m
     tables, n_faces = se._triangle_tables(mesh.vertices, mesh.faces, tri_chunk)
     n_chunks = tables["a"].shape[0]
@@ -522,21 +561,14 @@ def check_sharded(device, mesh, pts, report):
     phase 5 times: (points, dist schedule, wind schedule, tables, tri_chunk,
     errors)."""
     from sdf_representation_tpu_torch.ops import sdf_culled as sc
-    from sdf_representation_tpu_torch.ops import sdf_exact as se
     from sdf_representation_tpu_torch.ops import sdf_streams as ss
 
     tri_chunk, m = 512, 2048
-    faces = mesh.faces[sc._morton_order(mesh.vertices[mesh.faces].mean(axis=1))]
-    order, P = sc._sorted_blocks(pts, m, device)
+    order, P, faces, tables, kd, kw = culled_schedule(device, mesh, pts, tri_chunk, m)
     if not np.array_equal(order.cpu().numpy(), sc._morton_order(pts)):
         raise RuntimeError("the Morton order on the card differs from the host's")
     n_blocks = P.shape[0]
     pad = P.reshape(-1, 3).cpu().numpy()
-    tables, _ = se._triangle_tables(mesh.vertices, faces, tri_chunk)
-    centers, radii, _, cbar = sc._chunk_geometry(mesh.vertices, faces, tri_chunk)
-    scale = float(max(np.abs(mesh.vertices).max(), np.abs(pts).max(), 1.0))
-    kd, kw = sc._cull(P, np.full((n_blocks, m), np.inf, np.float32), centers, radii, 2.0,
-                      cbar=cbar, slack=sc._CULL_SLACK * scale)
     (db, dc, sd), (wb, wc, sw) = ss.stream_steps(kd, n_blocks), ss.stream_steps(kw, n_blocks)
     print(f"sharded: culled schedule on {len(pts)} points in {n_blocks} blocks of {m}, "
           f"{kd.shape[1]} chunks of {tri_chunk}: {sd} distance steps ({sd / kd.size:.3f} of "
@@ -1043,20 +1075,28 @@ def check_igr_passes(net, x, a, c, tag, readings):
         raise RuntimeError(f"igr_bwd/{tag}: a pass of the backward disagrees with its plain version")
 
 
-def kernels_per_call(fn):
+def kernels_per_call(fn, traces=3):
     """{kernel: launches} of csrc/fused_igr.cu's kernels in one call of fn,
     read from torch.profiler's device events (fn has run before: built,
-    warmed, its plan on the card)."""
+    warmed, its plan on the card). A trace that holds no device event at
+    all (the profiler's device tracing now and then records nothing) is
+    taken again, up to ``traces`` times; a trace with device events counts
+    as it stands."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    for trace in range(1, traces + 1):
         torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        device = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if device:
+            break
+        print(f"kernels_per_call: trace {trace} of {traces} holds no device event", flush=True)
     found = {}
-    for event in prof.events():
-        m = re.search(r"igr_(fwd|bwd|dw)_kernel", event.name)
-        if m and event.device_type == torch.autograd.DeviceType.CUDA:
+    for name in device:
+        m = re.search(r"igr_(fwd|bwd|dw)_kernel", name)
+        if m:
             found[m.group(0)] = found.get(m.group(0), 0) + 1
     return found
 
@@ -1476,6 +1516,7 @@ def drive_pipeline(device, run_root, report):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -1509,7 +1550,11 @@ def main() -> int:
     # fused_mlp: points, grid, blocks x widths 128-512; fused_igr (namespace
     # tc): igr_fwd and igr_bwd x widths x softplus / ReLU, and igr_dw
     report["sass"] = {**check_sass(kernels.library_path("fused_mlp"), "wgmma_", 12),
-                      **check_sass(kernels.library_path("fused_igr"), r"2tc\d+igr_", 17)}
+                      **check_sass(kernels.library_path("fused_igr"), r"2tc\d+igr_", 17),
+                      **check_sass(kernels.library_path("sdf_streams"), r"(dist|wind)_kernel", 2,
+                                   tensor_cores=False)}
+    report["stream_layout"] = ss.kernel_layout()
+    print(f"stream kernels: {report['stream_layout']}", flush=True)
 
     # ---- 3. kernels against plain -------------------------------------------
     gen = torch.Generator().manual_seed(SEED)
@@ -1732,18 +1777,39 @@ def main() -> int:
                 entry["float32"] = numbers
         kernels_line.append(entry)
     # the streams at phase 3's shapes, dense schedule; no one PyTorch call
-    # computes either function, so there is no library time
+    # computes either function, so there is no library time. Beside each
+    # time: the kernel's SASS (phase 2), and its CTA shape and table as the
+    # build reports them (kernel_layout); the bound reads each table once
+    layout = report["stream_layout"]
+
+    def stream_facts(kernel):
+        sass = next(c for fn, c in report["sass"].items() if kernel in fn)
+        k = kernel.split("_")[0]
+        return {"kernel": kernel, "sass_instructions": sass["instructions"],
+                "registers": sass["registers"], "local_bytes": sass["local"],
+                "stack_bytes": sass["stack"], "points_per_thread": layout["points_per_thread"],
+                "threads": layout["threads"], "stages": layout["stages"],
+                "stage_triangles": layout[f"{k}_stage_triangles"], "table_rows": layout[f"{k}_rows"],
+                "stage_bytes": layout[f"{k}_ring_bytes"] // layout["stages"]}
+
+    # the SM clock, power and temperature as the stream timings start (the
+    # card clocks down under long loads, and these kernels are issue-bound)
+    report["card_state_before_stream_times"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True).stdout.strip()
+    print(f"card state before the stream times: {report['card_state_before_stream_times']}",
+          flush=True)
     n_blocks, m_pts, _ = stream_P.shape
     n_chunks = stream_tables["a"].shape[0]
     pairs = n_blocks * m_pts * n_chunks * tri_chunk
     schedule_bytes = 4 * (n_blocks + 1 + n_blocks * n_chunks)
     for name, replaces, ops, rows, out_bytes, run, plain in (
         ("dist_stream", "sdf_representation_tpu/ops/pallas_streams.py:284 _dist_slab_call",
-         DIST_OPS_PER_PAIR, 16, 8,
+         DIST_OPS_PER_PAIR, layout["dist_rows"], 8,
          lambda: ss.dist_stream(stream_P, stream_sb, stream_sc, stream_tables, tri_chunk),
          lambda: ss.dist_stream_plain(stream_P, stream_sb, stream_sc, stream_tables, tri_chunk)),
         ("wind_stream", "sdf_representation_tpu/ops/pallas_streams.py:388 _wind_slab_call",
-         WIND_OPS_PER_PAIR, 24, 4,
+         WIND_OPS_PER_PAIR, layout["wind_rows"], 4,
          lambda: ss.wind_stream(stream_P, stream_sb, stream_sc, stream_tables, tri_chunk),
          lambda: ss.wind_stream_plain(stream_P, stream_sb, stream_sc, stream_tables, tri_chunk)),
     ):
@@ -1758,7 +1824,8 @@ def main() -> int:
                  "max_abs_err": checks[f"{name}/dense"], "max_abs_err_sparse": checks[f"{name}/sparse"],
                  "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
                  "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
-                 "pairs": pairs, "ops_per_pair": ops, "pairs_per_s": pairs / ms * 1e3}
+                 "pairs": pairs, "ops_per_pair": ops, "pairs_per_s": pairs / ms * 1e3,
+                 **stream_facts("dist_kernel" if name == "dist_stream" else "wind_kernel")}
         # the same kernel on phase 3's culled schedule (what the culled method runs)
         sched = shard_dist if name == "dist_stream" else shard_wind
         c_pairs = int(np.sum(sched[0] < shard_P.shape[0])) * shard_P.shape[1] * shard_tc
@@ -1777,10 +1844,10 @@ def main() -> int:
     for name, replaces, ops, rows, out_bytes, sched, sharded, plain in (
         ("dist_stream_sharded",
          "sdf_representation_tpu/ops/pallas_streams.py:564 dist_stream_pallas_sharded",
-         DIST_OPS_PER_PAIR, 16, 8, shard_dist, ss.dist_stream_sharded, ss.dist_stream_sharded_plain),
+         DIST_OPS_PER_PAIR, layout["dist_rows"], 8, shard_dist, ss.dist_stream_sharded, ss.dist_stream_sharded_plain),
         ("wind_stream_sharded",
          "sdf_representation_tpu/ops/pallas_streams.py:646 wind_stream_pallas_sharded",
-         WIND_OPS_PER_PAIR, 24, 4, shard_wind, ss.wind_stream_sharded, ss.wind_stream_sharded_plain),
+         WIND_OPS_PER_PAIR, layout["wind_rows"], 4, shard_wind, ss.wind_stream_sharded, ss.wind_stream_sharded_plain),
     ):
         steps = int(np.sum(sched[0] < n_blocks))
         pairs = steps * m_pts * shard_tc
@@ -1799,7 +1866,8 @@ def main() -> int:
                  "bound_ms": max(t_bytes, t_ops),
                  "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
                  "shards": 4, "ms_2_shards": ms2, "pairs": pairs, "ops_per_pair": ops,
-                 "pairs_per_s": pairs / ms * 1e3}
+                 "pairs_per_s": pairs / ms * 1e3,
+                 **stream_facts("dist_kernel" if name == "dist_stream_sharded" else "wind_kernel")}
         print(f"time {name}: " + json.dumps(entry), flush=True)
         if entry["launches"] < 1:
             raise RuntimeError(f"{name} was launched on no run of the main path")
@@ -2002,7 +2070,9 @@ def main() -> int:
                  for dt in (torch.bfloat16, torch.float32)}
     print(f"time sparse_grid_eval n=256 (coarse sweep + refine + assembly, ms): {sparse_ms}",
           flush=True)
-    report.update(kernels=kernels_line, sparse_grid_eval_ms=sparse_ms)
+    report.update(kernels=kernels_line, sparse_grid_eval_ms=sparse_ms,
+                  wall_s=time.perf_counter() - t_start)
+    print(f"chip_smoke: {report['wall_s']:.1f} s from start to report, build included", flush=True)
 
     (REPO / "build" / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(card)

@@ -26,9 +26,10 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-# flags of one source only. sdf_streams: no contraction of a*b+c into FMA, so
-# a point-triangle pair rounds where the plain version and the JAX kernels
-# round (see the note at the top of csrc/sdf_streams.cu)
+# flags of one source only. sdf_streams: no contraction of a*b+c into FMA by
+# the compiler, so every FMA is one the source writes (__fmaf_rn) and the
+# winding rounds its numerator and denominator where the plain version does
+# (see the note at the top of csrc/sdf_streams.cu)
 SOURCE_FLAGS: Dict[str, Tuple[str, ...]] = {"sdf_streams": ("-fmad=false",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

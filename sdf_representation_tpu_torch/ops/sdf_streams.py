@@ -26,6 +26,13 @@ points lie on the CPU, and launches the CUDA kernel (``csrc/sdf_streams.cu``)
 or raises when they lie on a card: there is no fallback. ``LAUNCHES`` counts
 kernel launches, a sharded stream one per shard. All arithmetic is float32:
 no TF32, no bf16.
+
+Host-side pieces of a launch: the distance kernel reads its own table
+(``pack_dist_kernel_table``: the Eberly solve's per-triangle terms computed
+once, here), the schedule as per-block chunk ranges (``block_ranges``) and
+the blocks in launch order, longest chunk list first (``launch_order``).
+``atan2_poly`` is the JAX winding kernel's polynomial atan2, which
+``wind_kernel`` evaluates.
 """
 
 from __future__ import annotations
@@ -63,9 +70,10 @@ def reset_launches() -> None:
 
 def stream_tiling_ok(tri_chunk: int, m: int) -> bool:
     """True iff the streams can tile (tri_chunk, m) without dropping work.
-    The CUDA kernels walk a chunk in strips of 128 triangles with a ragged
-    last strip and mask points past ``m``, so any positive tiling is covered
-    (the TPU kernels need multiples of their 128 x 1024 strips)."""
+    The CUDA kernels walk a chunk in ring stages of a fixed number of
+    triangles with a ragged last stage and mask points past ``m``, so any
+    positive tiling is covered (the TPU kernels need multiples of their
+    128 x 1024 strips)."""
     return tri_chunk >= 1 and m >= 1
 
 
@@ -100,6 +108,42 @@ def pack_wind_table(tables: Dict[str, np.ndarray], tri_chunk: int) -> np.ndarray
     return out
 
 
+# distance-KERNEL table columns (20): the terms of the Eberly solve that
+# depend on the triangle only come computed, and d, e are formed from
+# w = P - v0 (csrc/sdf_streams.cu pair_d2)
+_K_E0, _K_A, _K_E1, _K_C, _K_V0, _K_B = 0, 3, 4, 7, 8, 11
+_K_DET, _K_INV_DET, _K_INV_A, _K_INV_C, _K_INV_DEN, _K_CB, _K_AB = 12, 13, 14, 15, 16, 17, 18
+_K_ROWS = 20
+_PAD_V0X = 1e20  # a padding row's v0.x: (x - 1e20)^2 overflows to +inf
+
+
+def pack_dist_kernel_table(tables: Dict[str, np.ndarray], tri_chunk: int) -> np.ndarray:
+    """(C, T, 20) f32 rows of dist_kernel: E0, a, E1, c, v0, b, then the
+    per-triangle terms of ``_eberly_st`` in its own expressions (det = max(ac
+    - b^2, eps), 1/max(a, eps), 1/max(c, eps), max(a - 2b + c, eps)) as det,
+    1/det, 1/a, 1/c and 1/(a - 2b + c), and c - b, a - b. Padding rows
+    (valid == 0) have no edges and v0 = (1e20, 0, 0), so their d^2 is +inf."""
+    f32, eps = np.float32, np.float32(1e-30)
+    pad = tables["valid"] <= 0
+    E0 = np.where(pad[..., None], f32(0), tables["E0"]).astype(f32)
+    E1 = np.where(pad[..., None], f32(0), tables["E1"]).astype(f32)
+    v0 = np.where(pad[..., None], f32(0), tables["v0"]).astype(f32)
+    v0[..., 0][pad] = _PAD_V0X
+    a, b, c = (np.where(pad, f32(0), tables[k]).astype(f32) for k in "abc")
+    det = np.maximum(a * c - b * b, eps)
+    den = np.maximum(a - f32(2) * b + c, eps)
+    C = a.shape[0]
+    out = np.zeros((C, tri_chunk, _K_ROWS), f32)
+    out[..., _K_E0:_K_E0 + 3], out[..., _K_A] = E0, a
+    out[..., _K_E1:_K_E1 + 3], out[..., _K_C] = E1, c
+    out[..., _K_V0:_K_V0 + 3], out[..., _K_B] = v0, b
+    out[..., _K_DET], out[..., _K_INV_DET] = det, f32(1) / det
+    out[..., _K_INV_A] = f32(1) / np.maximum(a, eps)
+    out[..., _K_INV_C] = f32(1) / np.maximum(c, eps)
+    out[..., _K_INV_DEN], out[..., _K_CB], out[..., _K_AB] = f32(1) / den, c - b, a - b
+    return out
+
+
 def stream_steps(keep: np.ndarray, sink: int) -> Tuple[np.ndarray, np.ndarray, int]:
     """Flatten a (B, C) keep matrix into block-major (step_block,
     step_chunk) int32 arrays, padded to a power of two with sink steps
@@ -126,6 +170,35 @@ def block_ranges(step_block, step_chunk, n_blocks: int) -> Tuple[np.ndarray, np.
     offs = np.zeros(n_blocks + 1, np.int32)
     offs[1:] = np.cumsum(np.bincount(sb, minlength=n_blocks))
     return offs, np.ascontiguousarray(sc[order])
+
+
+def launch_order(offs: np.ndarray) -> np.ndarray:
+    """The point blocks in launch order (int32): longest chunk list first,
+    ties in block order. The kernels' CTAs take blocks in this order, so the
+    longest walks start first and a culled schedule's short ones fill the
+    tail."""
+    return np.argsort(-np.diff(np.asarray(offs, np.int64)), kind="stable").astype(np.int32)
+
+
+def atan2_poly(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The JAX winding kernel's full-quadrant atan2 (pallas_streams._atan2)
+    in torch f32, operation for operation: atan(q) = q P(q^2) for q =
+    min(|x|, |y|) / max(|x|, |y|, 1e-30), then the quadrant fix-ups. Max
+    error ~2e-6 (atan(q) ~ 0.99997726 q for small q). ``wind_kernel``
+    evaluates this polynomial with a reciprocal and contracted steps, and
+    takes the sign of y as atan2 does (this copy, as the JAX one, gives
+    y = -0 the sign of +0)."""
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)
+    ax, ay = x.abs(), y.abs()
+    q = torch.minimum(ax, ay) / torch.maximum(torch.maximum(ax, ay), f32(1e-30))
+    s = q * q
+    p = torch.full_like(s, -0.0117212)
+    for coef in (0.05265332, -0.11643287, 0.19354346, -0.33262347, 0.99997726):
+        p = p * s + f32(coef)
+    r = q * p
+    r = torch.where(ay > ax, f32(np.pi / 2) - r, r)
+    r = torch.where(x < 0, f32(np.pi) - r, r)
+    return torch.where(y < 0, -r, r)
 
 
 def _check_points(P_blocks: torch.Tensor) -> Tuple[int, int]:
@@ -228,12 +301,41 @@ def wind_stream_plain(P_blocks: torch.Tensor, step_block, step_chunk, tables, tr
 def _lib() -> ctypes.CDLL:
     lib = kernels.load("sdf_streams")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.sdf_dist_stream.argtypes = [P, P, P, P, I, I, I, P, P, P]
-    lib.sdf_wind_stream.argtypes = [P, P, P, P, I, I, I, P, P]
+    lib.sdf_dist_stream.argtypes = [P, P, P, P, P, I, I, I, P, P, P]
+    lib.sdf_wind_stream.argtypes = [P, P, P, P, P, I, I, I, P, P]
     lib.sdf_dist_stream.restype = lib.sdf_wind_stream.restype = I
+    lib.sdf_streams_layout.argtypes = [P]
+    lib.sdf_streams_layout.restype = None
     lib.sdf_streams_error_string.argtypes = [I]
     lib.sdf_streams_error_string.restype = ctypes.c_char_p
+    _check_layout(_read_layout(lib))
     return lib
+
+
+_LAYOUT_KEYS = ("points_per_thread", "threads", "dist_stage_triangles", "wind_stage_triangles",
+                "stages", "dist_rows", "wind_rows", "dist_ring_bytes", "wind_ring_bytes")
+
+
+def _read_layout(lib: ctypes.CDLL) -> Dict[str, int]:
+    out = (ctypes.c_int * len(_LAYOUT_KEYS))()
+    lib.sdf_streams_layout(ctypes.addressof(out))
+    return dict(zip(_LAYOUT_KEYS, out))
+
+
+def _check_layout(layout: Dict[str, int]) -> None:
+    """The built kernels must read the tables as pack_dist_kernel_table and
+    pack_wind_table write them."""
+    if (layout["dist_rows"], layout["wind_rows"]) != (_K_ROWS, _W_ROWS):
+        raise RuntimeError(f"csrc/sdf_streams.cu reads {layout['dist_rows']} / "
+                           f"{layout['wind_rows']} floats a triangle, ops/sdf_streams.py packs "
+                           f"{_K_ROWS} / {_W_ROWS}")
+
+
+def kernel_layout() -> Dict[str, int]:
+    """The built kernels' CTA shape and tables: points per thread, threads
+    per CTA, triangles per ring stage of each kernel, ring stages, floats
+    per triangle of each kernel's table, and each kernel's ring in bytes."""
+    return _read_layout(_lib())
 
 
 def _check_launch(rc: int, what: str) -> None:
@@ -243,7 +345,8 @@ def _check_launch(rc: int, what: str) -> None:
 
 
 def _cuda_schedule(P_blocks, step_block, step_chunk, table: np.ndarray):
-    """Validate a launch; returns (table, offs, chunks) on the points' card."""
+    """Validate a launch; returns (table, offs, chunks, order) on the
+    points' card."""
     B, _ = _check_points(P_blocks)
     if not P_blocks.is_contiguous():
         raise ValueError("kernel inputs must be contiguous")
@@ -251,16 +354,15 @@ def _cuda_schedule(P_blocks, step_block, step_chunk, table: np.ndarray):
     if len(chunks) and (chunks.min() < 0 or chunks.max() >= table.shape[0]):
         raise ValueError("a step names a triangle chunk outside the table")
     dev = P_blocks.device
-    return (torch.from_numpy(table).to(dev), torch.from_numpy(offs).to(dev),
-            torch.from_numpy(chunks).to(dev))
+    return tuple(torch.from_numpy(a).to(dev) for a in (table, offs, chunks, launch_order(offs)))
 
 
 def _dist_launch(P_blocks: torch.Tensor, step_block, step_chunk, table: np.ndarray,
                  tri_chunk: int):
     """One dist_kernel launch over (B, M, 3) points on their card with the
-    packed distance table; returns (d2, best), both (B + 1, M)."""
+    packed distance-kernel table; returns (d2, best), both (B + 1, M)."""
     B, M = P_blocks.shape[:2]
-    tab, offs, chunks = _cuda_schedule(P_blocks, step_block, step_chunk, table)
+    tab, offs, chunks, order = _cuda_schedule(P_blocks, step_block, step_chunk, table)
     dev = P_blocks.device
     out_d2 = torch.empty((B + 1, M), dtype=torch.float32, device=dev)
     out_best = torch.empty((B + 1, M), dtype=torch.int32, device=dev)
@@ -269,8 +371,8 @@ def _dist_launch(P_blocks: torch.Tensor, step_block, step_chunk, table: np.ndarr
     if B:
         with torch.cuda.device(dev):
             rc = _lib().sdf_dist_stream(
-                P_blocks.data_ptr(), tab.data_ptr(), offs.data_ptr(), chunks.data_ptr(), B, M,
-                tri_chunk, out_d2.data_ptr(), out_best.data_ptr(),
+                P_blocks.data_ptr(), tab.data_ptr(), offs.data_ptr(), chunks.data_ptr(),
+                order.data_ptr(), B, M, tri_chunk, out_d2.data_ptr(), out_best.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
         _check_launch(rc, "dist_stream")
     return out_d2, out_best
@@ -280,15 +382,16 @@ def _wind_launch(P_blocks: torch.Tensor, step_block, step_chunk, table: np.ndarr
                  tri_chunk: int) -> torch.Tensor:
     """One wind_kernel launch (see _dist_launch); returns (B + 1, M) angles."""
     B, M = P_blocks.shape[:2]
-    tab, offs, chunks = _cuda_schedule(P_blocks, step_block, step_chunk, table)
+    tab, offs, chunks, order = _cuda_schedule(P_blocks, step_block, step_chunk, table)
     dev = P_blocks.device
     out_w = torch.empty((B + 1, M), dtype=torch.float32, device=dev)
     out_w[B] = 0.0
     if B:
         with torch.cuda.device(dev):
             rc = _lib().sdf_wind_stream(
-                P_blocks.data_ptr(), tab.data_ptr(), offs.data_ptr(), chunks.data_ptr(), B, M,
-                tri_chunk, out_w.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+                P_blocks.data_ptr(), tab.data_ptr(), offs.data_ptr(), chunks.data_ptr(),
+                order.data_ptr(), B, M, tri_chunk, out_w.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
         _check_launch(rc, "wind_stream")
     return out_w
 
@@ -302,8 +405,8 @@ def dist_stream(P_blocks: torch.Tensor, step_block, step_chunk, tables, tri_chun
     if P_blocks.device.type == "cpu":
         return dist_stream_plain(P_blocks, step_block, step_chunk, tables, tri_chunk)
     _check_tiling(tri_chunk, M)
-    out = _dist_launch(P_blocks, step_block, step_chunk, pack_dist_table(tables, tri_chunk),
-                       tri_chunk)
+    out = _dist_launch(P_blocks, step_block, step_chunk,
+                       pack_dist_kernel_table(tables, tri_chunk), tri_chunk)
     if B:
         LAUNCHES["dist_stream"] += 1
     return out
@@ -408,7 +511,7 @@ def dist_stream_sharded(P_blocks, step_block, step_chunk, tables, tri_chunk: int
     if mesh_kind(devices) == "cpu":
         return dist_stream_sharded_plain(P_blocks, step_block, step_chunk, tables, tri_chunk,
                                          devices)
-    table = pack_dist_table(tables, tri_chunk)
+    table = pack_dist_kernel_table(tables, tri_chunk)
     outs = []
     for P, sb, sc in _shards(P_blocks, step_block, step_chunk, tri_chunk, devices):
         outs.append(_dist_launch(P.contiguous(), sb, sc, table, tri_chunk))

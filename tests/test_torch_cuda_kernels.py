@@ -87,10 +87,14 @@ def test_too_wide_net_is_refused(device):
 
 @pytest.mark.parametrize("tri_chunk,m,keep_frac", [
     (256, 256, 1.0), (256, 256, 0.6), (200, 300, 1.0), (1024, 8192, 0.5), (16, 40, 1.0),
+    (128, 1000, 0.7), (2048, 700, 1.0),
 ])
 def test_streams_match_plain(device, tri_chunk, m, keep_frac):
     """d^2 rtol 1e-5 / atol 1e-7, winners equal but for ties the f64 oracle
-    proves, solid angles rtol 1e-4 / atol 1e-3 (tests/test_pallas_streams.py)."""
+    proves, solid angles rtol 1e-4 / atol 1e-3 (tests/test_pallas_streams.py).
+    Point counts off the kernels' 512 points a CTA, chunks from 16 to 2048
+    triangles (ragged and padded ring stages), a block no step visits and
+    the sink row."""
     import numpy as np
 
     mesh = make_icosphere(3, 0.6) if tri_chunk > 16 else make_box()
@@ -124,6 +128,53 @@ def test_streams_match_plain(device, tri_chunk, m, keep_frac):
         da = np.linalg.norm(q - se.closest_point_on_triangles(q, a), axis=1)
         db = np.linalg.norm(q - se.closest_point_on_triangles(q, b), axis=1)
         np.testing.assert_allclose(da, db, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("mesh_name,tri_chunk", [("box", 128), ("icosphere", 128),
+                                                  ("icosphere", 2048)])
+def test_stream_ties_repeats_and_rings(device, mesh_name, tri_chunk):
+    """Every face twice (faces then the same faces again): the first copy wins
+    each tie, as in the plain version. On the box, with points on a 1/64 grid
+    (off its faces), every step is exact: d^2 equals the plain version's bit
+    for bit and so do the winners. On icosphere(4) doubled: winners lie in
+    the first copy and differ from the plain version's only on f64-oracle
+    ties, d^2 and solid angles within the stream limits. Two launches of
+    each kernel agree bit for bit. The ring holds one chunk of one stage
+    (box), 80 chunks of one stage each, or 5 chunks of 16 stages each."""
+    import numpy as np
+
+    mesh = make_box() if mesh_name == "box" else make_icosphere(4, 0.6)
+    F = len(mesh.faces)
+    faces = np.concatenate([mesh.faces, mesh.faces])
+    rng = np.random.default_rng(tri_chunk)
+    if mesh_name == "box":
+        pts = (2 * rng.integers(-48, 48, (2, 700, 3)) + 1) / 64.0
+    else:
+        pts = rng.uniform(-1, 1, (2, 700, 3))
+    pts = pts.astype(np.float32)
+    tables, _ = se._triangle_tables(mesh.vertices, faces, tri_chunk)
+    sb, sc, _ = ss.stream_steps(np.ones((2, tables["a"].shape[0]), bool), 2)
+    P = torch.from_numpy(pts).to(device)
+    d2, best = ss.dist_stream(P, sb, sc, tables, tri_chunk)
+    w = ss.wind_stream(P, sb, sc, tables, tri_chunk)
+    d2b, bestb = ss.dist_stream(P, sb, sc, tables, tri_chunk)
+    wb = ss.wind_stream(P, sb, sc, tables, tri_chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(d2, d2b) and torch.equal(best, bestb) and torch.equal(w, wb)
+    pd2, pbest = ss.dist_stream_plain(P, sb, sc, tables, tri_chunk)
+    pw = ss.wind_stream_plain(P, sb, sc, tables, tri_chunk)
+    assert (best[:2] < F).all() and (pbest[:2] < F).all()
+    torch.testing.assert_close(w, pw, rtol=1e-4, atol=1e-3)
+    if mesh_name == "box":
+        assert torch.equal(d2, pd2) and torch.equal(best, pbest)
+        return
+    torch.testing.assert_close(d2, pd2, rtol=1e-5, atol=1e-7)
+    diff = torch.nonzero(best[:2].flatten() != pbest[:2].flatten()).flatten().cpu().numpy()
+    q = pts.reshape(-1, 3)[diff].astype(np.float64)
+    tri = mesh.vertices[faces]
+    da = np.linalg.norm(q - se.closest_point_on_triangles(q, tri[best[:2].flatten().cpu().numpy()[diff]]), axis=1)
+    db = np.linalg.norm(q - se.closest_point_on_triangles(q, tri[pbest[:2].flatten().cpu().numpy()[diff]]), axis=1)
+    np.testing.assert_allclose(da, db, rtol=1e-5, atol=1e-6)
 
 
 def test_signed_distance_on_the_card_matches_the_cpu_path(device):

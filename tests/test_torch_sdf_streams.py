@@ -239,3 +239,192 @@ def test_sharded_streams_refuse_bad_meshes_and_count_no_cpu_launch():
                                         ("cpu",) * 2)
     assert w.shape == (2, P_blocks.shape[1])
     assert set(sdf_streams.LAUNCHES.values()) == {0}
+
+
+# ---------------------------------------------------------------------------
+# host-side pieces of the kernels' launches (csrc/sdf_streams.cu): the
+# distance kernel's table, the CTAs' block order, the polynomial atan2
+# ---------------------------------------------------------------------------
+
+def _kernel_form_d2(P: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """(M, T) d^2 as dist_kernel's pair_d2 forms it from its table rows (the
+    same operations and selects, rounded after each step: the kernel
+    contracts some of them into FMAs)."""
+    col = lambda k: rows[:, k]
+    a, b, c = col(sdf_streams._K_A), col(sdf_streams._K_B), col(sdf_streams._K_C)
+    E0 = [col(sdf_streams._K_E0 + k) for k in range(3)]
+    E1 = [col(sdf_streams._K_E1 + k) for k in range(3)]
+    w = [P[:, k:k + 1] - col(sdf_streams._K_V0 + k) for k in range(3)]
+    d = -((w[0] * E0[0] + w[1] * E0[1]) + w[2] * E0[2])
+    e = -((w[0] * E1[0] + w[1] * E1[1]) + w[2] * E1[2])
+    s_raw, t_raw = b * e - c * d, b * d - a * e
+    inside = (s_raw + t_raw) <= col(sdf_streams._K_DET)
+    s_neg, t_neg = s_raw < 0, t_raw < 0
+    s_edge = torch.clamp(-d * col(sdf_streams._K_INV_A), 0, 1)
+    t_edge = torch.clamp(-e * col(sdf_streams._K_INV_C), 0, 1)
+    ed = e - d
+    n_s, n_t = col(sdf_streams._K_CB) + ed, col(sdf_streams._K_AB) - ed
+    s_diag = torch.clamp(n_s * col(sdf_streams._K_INV_DEN), 0, 1)
+    t_diag = torch.clamp(n_t * col(sdf_streams._K_INV_DEN), 0, 1)
+    W, zero, inv_det = torch.where, torch.zeros_like(d), col(sdf_streams._K_INV_DET)
+    s_in = W(t_neg, s_edge, W(s_neg, zero, s_raw * inv_det))
+    t_in = W(t_neg, W(s_neg & (d >= 0), t_edge, zero), W(s_neg, t_edge, t_raw * inv_det))
+    r6 = t_neg & ~s_neg
+    s_out = W(r6, W(n_t > 0, 1 - t_diag, s_edge), s_diag)
+    t_out = W(r6, t_diag, W(s_neg & ~(n_s > 0), t_edge, 1 - s_diag))
+    s, t = W(inside, s_in, s_out), W(inside, t_in, t_out)
+    dk = [w[k] - t * E1[k] - s * E0[k] for k in range(3)]
+    return (dk[0] * dk[0] + dk[1] * dk[1]) + dk[2] * dk[2]
+
+
+def test_dist_kernel_table_holds_the_eberly_terms():
+    """The distance kernel's rows: the triangle constants as packed, and the
+    per-triangle terms of _eberly_st in its own expressions, bit for bit;
+    padding rows have no edges and v0.x = 1e20."""
+    mesh = make_icosphere(subdivisions=2, radius=RADIUS)  # 320 faces -> 2 chunks of 256
+    tables, F = sdf_exact._triangle_tables(mesh.vertices, mesh.faces, 256)
+    rows = torch.from_numpy(sdf_streams.pack_dist_kernel_table(tables, 256)).reshape(-1, sdf_streams._K_ROWS)
+    t = {k: torch.from_numpy(v).reshape(-1, *v.shape[2:]) for k, v in tables.items()}
+    live, pad = slice(0, F), slice(F, None)
+    a, b, c = t["a"][live], t["b"][live], t["c"][live]
+    det = torch.clamp_min(a * c - b * b, 1e-30)  # _eberly_st's expressions
+    inv_a, inv_c = 1.0 / torch.clamp_min(a, 1e-30), 1.0 / torch.clamp_min(c, 1e-30)
+    den = torch.clamp_min(a - 2.0 * b + c, 1e-30)
+    want = {sdf_streams._K_A: a, sdf_streams._K_B: b, sdf_streams._K_C: c,
+            sdf_streams._K_DET: det, sdf_streams._K_INV_DET: 1.0 / det,
+            sdf_streams._K_INV_A: inv_a, sdf_streams._K_INV_C: inv_c,
+            sdf_streams._K_INV_DEN: 1.0 / den, sdf_streams._K_CB: c - b,
+            sdf_streams._K_AB: a - b}
+    for k in range(3):
+        want[sdf_streams._K_E0 + k] = t["E0"][live, k]
+        want[sdf_streams._K_E1 + k] = t["E1"][live, k]
+        want[sdf_streams._K_V0 + k] = t["v0"][live, k]
+    for column, value in want.items():
+        assert torch.equal(rows[live, column], value), column
+    assert (rows[pad, sdf_streams._K_V0] == 1e20).all()
+    assert (rows[pad, sdf_streams._K_E0:sdf_streams._K_E0 + 3] == 0).all()
+    assert (rows[pad, sdf_streams._K_E1:sdf_streams._K_E1 + 3] == 0).all()
+    P = torch.from_numpy(np.random.default_rng(3).uniform(-1, 1, (64, 3)).astype(np.float32))
+    assert torch.isinf(_kernel_form_d2(P, rows[pad])).all()  # padding never wins
+
+
+@pytest.mark.parametrize("mesh_sub,tri_chunk", [(3, 256), (2, 200)])
+def test_dist_kernel_form_holds_the_stream_limits(mesh_sub, tri_chunk):
+    """dist_kernel's arithmetic (reciprocals, w = P - v0, its region selects),
+    here rounded step by step, against the plain distance tile on points in
+    the cube, on the surface and near it: d^2 rtol 1e-5 / atol 1e-7 and the
+    first minimal face wins but for f64-oracle ties (the kernel's limits on
+    the card)."""
+    mesh = make_icosphere(subdivisions=mesh_sub, radius=RADIUS)
+    rng = np.random.default_rng(mesh_sub)
+    tri = mesh.vertices[mesh.faces]
+    on = tri[rng.integers(0, len(tri), 256)]
+    u = rng.uniform(size=(256, 2))
+    u = np.where(u.sum(1, keepdims=True) > 1, 1 - u, u)
+    on = on[:, 0] + u[:, :1] * (on[:, 1] - on[:, 0]) + u[:, 1:] * (on[:, 2] - on[:, 0])
+    pts = np.concatenate([rng.uniform(-1, 1, (512, 3)), on, on * 1.01]).astype(np.float32)
+    P = torch.from_numpy(pts)
+    tables, F = sdf_exact._triangle_tables(mesh.vertices, mesh.faces, tri_chunk)
+    rows = torch.from_numpy(sdf_streams.pack_dist_kernel_table(tables, tri_chunk))
+    packed = torch.from_numpy(sdf_streams.pack_dist_table(tables, tri_chunk))
+    got = torch.cat([_kernel_form_d2(P, r) for r in rows], dim=1)
+    want = torch.cat([sdf_streams._dist_tile(P, r) for r in packed], dim=1)
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-7)
+    gb, wb = got.argmin(1).numpy(), want.argmin(1).numpy()  # argmin: the first minimum
+    differ = np.nonzero(gb != wb)[0]
+    q = pts[differ].astype(np.float64)
+    da = np.linalg.norm(q - sdf_exact.closest_point_on_triangles(q, tri[gb[differ]]), axis=1)
+    db = np.linalg.norm(q - sdf_exact.closest_point_on_triangles(q, tri[wb[differ]]), axis=1)
+    np.testing.assert_allclose(da, db, rtol=1e-5, atol=1e-6)
+
+
+def test_launch_order_covers_every_step_once_in_block_order():
+    """CTAs walk blocks in launch_order: the longest chunk lists first, ties
+    in block order; together they visit every live (block, chunk) step once,
+    each block's chunks in step order."""
+    rng = np.random.default_rng(4)
+    B, C = 37, 23
+    keep = rng.uniform(size=(B, C)) < rng.uniform(0, 1, (B, 1))
+    keep[[3, 17]] = False  # blocks no step visits
+    sb, sc, S = sdf_streams.stream_steps(keep, B)
+    offs, chunks = sdf_streams.block_ranges(sb, sc, B)
+    order = sdf_streams.launch_order(offs)
+    assert order.dtype == np.int32 and sorted(order.tolist()) == list(range(B))
+    counts = np.diff(offs)[order]
+    assert (np.diff(counts) <= 0).all()
+    for n in np.unique(counts):  # equal counts keep block order
+        same = order[counts == n]
+        assert (np.diff(same) > 0).all()
+    walked = [(int(b), int(c)) for b in order for c in chunks[offs[b]:offs[b + 1]]]
+    steps = [(int(b), int(c)) for b, c in zip(sb[:S], sc[:S])]
+    assert sorted(walked) == sorted(steps) and len(walked) == S
+    for b in range(B):
+        assert [c for bb, c in walked if bb == b] == [c for bb, c in steps if bb == b]
+    assert {3, 17} <= set(order[counts == 0].tolist())  # empty lists go last
+
+
+def test_atan2_poly_is_the_jax_kernels_bit_for_bit():
+    """The port's copy of the JAX winding kernel's atan2 against
+    pallas_streams._atan2 on the same float32 inputs: every quadrant, both
+    axes, zeros, magnitudes from 1e-8 to 1e8 (no subnormal steps: XLA flushes
+    them on the CPU, torch does not)."""
+    rng = np.random.default_rng(5)
+    n = 1 << 16
+    y = (rng.standard_normal(n) * 10.0 ** rng.integers(-8, 9, n)).astype(np.float32)
+    x = (rng.standard_normal(n) * 10.0 ** rng.integers(-8, 9, n)).astype(np.float32)
+    x[:64], y[64:128], x[128:160], y[128:160] = 0, 0, -1, 0
+    got = sdf_streams.atan2_poly(torch.from_numpy(y), torch.from_numpy(x)).numpy()
+    want = np.asarray(pallas_streams._atan2(y, x))
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_winding_with_the_polynomial_atan2_holds_the_limits_on_the_surface(monkeypatch):
+    """wind_kernel rounds numer and denom as the plain tile does and takes
+    the polynomial atan2: on points on the surface (where the table form
+    leaves numer and denom near edges at rounding noise) and off it, that
+    sum stays within rtol 1e-4 / atol 1e-3 of the plain one."""
+    mesh = make_icosphere(subdivisions=3, radius=RADIUS)
+    rng = np.random.default_rng(6)
+    tri = mesh.vertices[mesh.faces]
+    on = tri[rng.integers(0, len(tri), 1024)]
+    u = rng.uniform(size=(1024, 2))
+    u = np.where(u.sum(1, keepdims=True) > 1, 1 - u, u)
+    on = on[:, 0] + u[:, :1] * (on[:, 1] - on[:, 0]) + u[:, 1:] * (on[:, 2] - on[:, 0])
+    P = torch.from_numpy(np.concatenate([on, rng.uniform(-1, 1, (1024, 3))]).astype(np.float32))
+    tables, _ = sdf_exact._triangle_tables(mesh.vertices, mesh.faces, 256)
+    packed = torch.from_numpy(sdf_streams.pack_wind_table(tables, 256))
+    want = sum(sdf_streams._wind_tile(P, r) for r in packed)
+    monkeypatch.setattr(torch, "atan2", sdf_streams.atan2_poly)  # the tile, with the polynomial
+    got = sum(sdf_streams._wind_tile(P, r) for r in packed)
+    monkeypatch.undo()
+    assert not torch.equal(got, want)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+
+
+def test_csrc_reads_the_tables_as_they_are_packed():
+    """csrc/sdf_streams.cu's row widths are those the packers write."""
+    import re
+
+    from sdf_representation_tpu_torch import kernels
+
+    src = (kernels.CSRC / "sdf_streams.cu").read_text()
+    rows = {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+            for k in ("kDistRows", "kWindRows")}
+    mesh = make_icosphere(subdivisions=1, radius=RADIUS)
+    tables, _ = sdf_exact._triangle_tables(mesh.vertices, mesh.faces, 128)
+    assert rows["kDistRows"] == sdf_streams._K_ROWS == sdf_streams.pack_dist_kernel_table(
+        tables, 128).shape[-1]
+    assert rows["kWindRows"] == sdf_streams._W_ROWS == sdf_streams.pack_wind_table(
+        tables, 128).shape[-1]
+
+
+def test_a_build_that_reads_other_table_rows_is_refused():
+    layout = dict.fromkeys(sdf_streams._LAYOUT_KEYS, 1)
+    layout.update(dist_rows=sdf_streams._K_ROWS, wind_rows=sdf_streams._W_ROWS)
+    sdf_streams._check_layout(layout)
+    for key in ("dist_rows", "wind_rows"):
+        with pytest.raises(RuntimeError, match="floats a triangle"):
+            sdf_streams._check_layout({**layout, key: 16})
