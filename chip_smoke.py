@@ -53,12 +53,13 @@ Phases, none of which is allowed to fail quietly:
  4. The main path, `python -m sdf_representation_tpu_torch cfg.ini`
     (reconstruct from a checkpoint), once per route, the launch counts
     zeroed just before each run and read just after: cubesize 256 must
-    launch the sparse block kernel and nothing else (no dense fallback),
-    cubesize 128 the dense grid kernel and nothing else. Checks per run:
-    the STL exists, and the 99th percentile of |f| at its vertices under
-    the plain f32 forward is under one voxel plus the measured bf16 error.
-    The entry point's own stage times (reconstruct.LAST_STAGE_SECONDS) are
-    printed.
+    launch the sparse block kernel and nothing else (no dense fallback) and
+    march on the card (ops/marching_device.py, packed wire: a "decode"
+    stage), cubesize 128 the dense grid kernel and nothing else and march on
+    the host. Checks per run: the STL exists, and the 99th percentile of |f|
+    at its vertices under the plain f32 forward is under one voxel plus the
+    measured bf16 error. The entry point's own stage times
+    (reconstruct.LAST_STAGE_SECONDS) are printed.
  4b. The rest of the main path through the same entry point, at full width
     (8x512, batch 16384, configs/mesh_sdf.ini with only paths, epochs,
     min_epochs, checkpointing, the precision and the mode flags changed):
@@ -120,6 +121,32 @@ Phases, none of which is allowed to fail quietly:
     radius within 1% of 0.85). One f32 IGRLOSS gradient through
     make_fused_value_and_grad_sharded (x2, x4) against the single-device op:
     rtol 2e-4 / atol 2e-5 (tests/test_sharding.py).
+ 4f. Marching on the card and the slab-streamed extractor, counts zeroed
+    before each run: (a) on the seeded and the trained 8x512 nets' 256^3
+    sparse volumes, the device marcher's exact wire gives the host
+    marcher's triangle soup, the packed wire the exact wire's vertex ids
+    and faces with t within 1/65535; wire bytes against the exact payload,
+    and the host march, the device marches (host clock and CUDA events)
+    and the packed wire's host decode timed, with the decoder that ran
+    (native or numpy); (b) extract_mesh_giga at 512^3, slab 64, seeded net,
+    the card listed 1, 2 and 4 times: one sparse_blocks launch per slab and
+    nothing else, the merged mesh identical to one pass over the whole
+    512^3 sparse volume (tests/test_giga_extract.py's canonical soup);
+    (b2) kernel 3 at the 1024^3 giga route's shapes: every slab's active
+    blocks by global id at the route's shared budget, as the extractor
+    launches the blocks entry, against its plain version (f32 within
+    F32_TOL; bf16 the mean against exact sums, the max against the
+    kernel's own summation order), and the coarse sweep's peak device
+    memory; (b3) extract_mesh_giga at 1024^3 in bf16 over the exact and
+    the packed wire: the same faces, vertices within spacing/65535, both
+    stage sets printed; (c) the entry point at cubesize 1024 from the seeded checkpoint under
+    --compute-dtype float32 and bfloat16: the giga route (4 slabs: 4
+    sparse_blocks launches and nothing else), the STL exists, its faces,
+    the stages and the peak device memory are printed, and the 99th
+    percentile of |f| at the vertices under the plain f32 forward is under
+    one voxel plus the kernel's error, plus sqrt(3) * 2^-9 in bf16 (the
+    blocks entry rounds grid coordinates to bf16: 2^-9 is half their
+    spacing for 0.5 <= |x| < 1). The 1024 STLs are deleted after reading.
  5. Times with CUDA events at the main path's shapes: kernel, plain version,
     one library layer chain (torch addmm, never called by the port), and
     the bound: the larger of bytes over 3.35 TB/s and operations over the
@@ -144,7 +171,10 @@ Phases, none of which is allowed to fail quietly:
     library chain for the same points; the whole sharded evaluators, the
     labelled IGRLOSS step (8x512, 16,384 points) and the point-cloud step
     (8x256, 16,384 + 5,461 points) in bfloat16 at x1, x2, x4, each beside
-    kernels 8 and 9 launched once per shard on its rows.
+    kernels 8 and 9 launched once per shard on its rows. Each IGR call's
+    kernels are read from torch.profiler traces: a trace that lacks an
+    expected kernel is taken again (three tries), and the kernels found
+    must equal the expected ones.
  6. A `kernels` JSON line with eleven entries, then the contract line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -698,7 +728,6 @@ def drive_sharded(device, run_root, model, report):
     from sdf_representation_tpu_torch.losses.losses import IGRLOSS
     from sdf_representation_tpu_torch.ops import fused_igr as fi
     from sdf_representation_tpu_torch.ops import fused_mlp as fm
-    from sdf_representation_tpu_torch.ops import sdf_streams as ss
     from sdf_representation_tpu_torch.ops import sharded_eval as se
     from sdf_representation_tpu_torch.ops import sparse_grid as sg
     from sdf_representation_tpu_torch.parallel.mesh import gather
@@ -707,23 +736,6 @@ def drive_sharded(device, run_root, model, report):
 
     launches, out = {}, {}
     root = run_root / "pipeline"
-
-    @contextlib.contextmanager
-    def window(tag):
-        torch.cuda.synchronize()
-        for counters in (fm, ss, fi):
-            counters.reset_launches()
-        with counting_plain_calls((fm, ss, fi)) as plain:
-            yield
-            torch.cuda.synchronize()
-        launches[tag] = {**fm.LAUNCHES, **ss.LAUNCHES, **fi.LAUNCHES}
-        if any(plain.values()):
-            raise RuntimeError(f"{tag}: a plain version ran on the card's path: {plain}")
-
-    def only(tag, **expected):
-        want = {name: expected.get(name, 0) for name in launches[tag]}
-        if launches[tag] != want:
-            raise RuntimeError(f"{tag}: launches {launches[tag]}, expected {want}")
 
     trained = Trainer(Configuration(str(root / "train_float32.ini")))
     trained.load_model()
@@ -750,9 +762,9 @@ def drive_sharded(device, run_root, model, report):
         tag = str(dt).split(".")[1]
         one = fm.fused_grid_eval(model, 256, compute_dtype=dt)
         for k in (1, 2, 4):
-            with window(f"sharded_grid/{tag}/x{k}"):
+            with counted(launches, f"sharded_grid/{tag}/x{k}"):
                 vol = se.sharded_grid_eval(model, 256, (device,) * k, compute_dtype=dt)
-            only(f"sharded_grid/{tag}/x{k}", sharded_grid=k)
+            only_launched(launches, f"sharded_grid/{tag}/x{k}", sharded_grid=k)
             same = torch.equal(vol, one)
             print(f"check sharded_grid/{tag}/x{k} n256: bit-equal to one fused_grid launch: {same}",
                   flush=True)
@@ -792,7 +804,7 @@ def drive_sharded(device, run_root, model, report):
         dense = fm.fused_grid_eval(net_model, 256).reshape(32, 8, 32, 8, 32, 8).permute(0, 2, 4, 1, 3, 5)
         for k in (2, 4):
             tag = f"sparse_sharded/{name}/x{k}"
-            with window(tag):
+            with counted(launches, tag):
                 vol, count = se.sparse_sharded_grid_eval(net_model, 256, (device,) * k,
                                                          return_count=True)
             coarse = gather(se.coarse_slices(net_model, 256, 8, (device,) * k), device)
@@ -815,7 +827,7 @@ def drive_sharded(device, run_root, model, report):
                   f"{bit_equal}", flush=True)
             # one launch per shard and pass (a pass is repeated when the budget overflows)
             passes = launches[tag]["sparse_sharded_blocks"] // k
-            only(tag, sparse_sharded_blocks=k * max(passes, 1))
+            only_launched(launches, tag, sparse_sharded_blocks=k * max(passes, 1))
             if not (bit_equal and count == count1 == int(mask.sum())):
                 raise RuntimeError(f"{tag}: count or active blocks differ")
             out["sparse_sharded"][f"{name}/x{k}"] = row
@@ -823,7 +835,7 @@ def drive_sharded(device, run_root, model, report):
     # the budget overflows at k_max_frac 0.01 and the pass is retried
     se._KMAX_CACHE_SHARDED.clear()
     tag = "sparse_sharded/seeded/x4/retry"
-    with window(tag):
+    with counted(launches, tag):
         vol, count = se.sparse_sharded_grid_eval(model, 256, (device,) * 4, k_max_frac=0.01,
                                                  return_count=True)
     first = -(-max(8, int(32 ** 3 * 0.01)) // 8) * 8
@@ -877,10 +889,10 @@ def drive_sharded(device, run_root, model, report):
         path = root / f"{tag.split('/')[0]}.ini"
         path.write_text(text)
         trainer = cls(Configuration(str(path)), mesh=(device,) * k)
-        with window(tag):
+        with counted(launches, tag):
             result = trainer.train()
         steps = ((n_train if cls is Trainer else PCD_POINTS) // 16384) * epochs
-        only(tag, igr_fwd=k * steps, igr_bwd=k * steps)
+        only_launched(launches, tag, igr_fwd=k * steps, igr_bwd=k * steps)
         curve = result["train_losses"] if cls is Trainer else result["losses"]
         stats = dict(trainer_module.LAST_RUN)
         print(f"{tag}: {steps} steps, launches per step {launches[tag]['igr_fwd'] / steps:g} igr_fwd, "
@@ -892,10 +904,10 @@ def drive_sharded(device, run_root, model, report):
     # mesh the data-parallel point-cloud field through the entry point
     rec = root / "dp_pcd_reconstruct.ini"
     rec.write_text(with_keys(text, distributed=False, ppo=True, reconstruct=True, cubesize=128))
-    with window("dp_pcd_reconstruct/128"):
+    with counted(launches, "dp_pcd_reconstruct/128"):
         if cli.main([str(rec)]) != 0:
             raise RuntimeError("dp_pcd_reconstruct: the entry point failed")
-    only("dp_pcd_reconstruct/128", fused_grid=1)
+    only_launched(launches, "dp_pcd_reconstruct/128", fused_grid=1)
     mesh = load_mesh(str(pathlib.Path(trainer.postprocess_save_path)
                          / f"reconstructed_epoch{PCD_EPOCHS - 1}.stl"))
     radius = float(np.median(np.linalg.norm(mesh.vertices, axis=1)))
@@ -1075,30 +1087,37 @@ def check_igr_passes(net, x, a, c, tag, readings):
         raise RuntimeError(f"igr_bwd/{tag}: a pass of the backward disagrees with its plain version")
 
 
-def kernels_per_call(fn, traces=3):
+def kernels_per_call(fn, expected, traces=3):
     """{kernel: launches} of csrc/fused_igr.cu's kernels in one call of fn,
     read from torch.profiler's device events (fn has run before: built,
-    warmed, its plan on the card). A trace that holds no device event at
-    all (the profiler's device tracing now and then records nothing) is
-    taken again, up to ``traces`` times; a trace with device events counts
-    as it stands."""
+    warmed, its plan on the card). ``expected`` names the kernels the call
+    must launch. The profiler's device tracing now and then records only
+    part of a call, so a trace that lacks any expected kernel is taken
+    again, up to ``traces`` times; if none holds them all, this raises with
+    each trace's device-event names. A trace that holds them counts as it
+    stands: extra or repeated launches show in what it returns."""
     from torch.profiler import ProfilerActivity, profile
 
+    seen = []
     for trace in range(1, traces + 1):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         device = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        if device:
-            break
-        print(f"kernels_per_call: trace {trace} of {traces} holds no device event", flush=True)
-    found = {}
-    for name in device:
-        m = re.search(r"igr_(fwd|bwd|dw)_kernel", name)
-        if m:
-            found[m.group(0)] = found.get(m.group(0), 0) + 1
-    return found
+        found = {}
+        for name in device:
+            m = re.search(r"igr_(fwd|bwd|dw)_kernel", name)
+            if m:
+                found[m.group(0)] = found.get(m.group(0), 0) + 1
+        if all(name in found for name in expected):
+            return found
+        seen.append(device)
+        print(f"kernels_per_call: trace {trace} of {traces} lacks "
+              f"{sorted(set(expected) - set(found))}; its device events: {sorted(set(device))}",
+              flush=True)
+    raise RuntimeError(f"no trace of {traces} holds the kernels {sorted(expected)}; device events "
+                       f"per trace: {[sorted(set(d)) for d in seen]}")
 
 
 def check_igr(device, gen, report):
@@ -1236,6 +1255,304 @@ def with_keys(text, **values):
         if n != 1:
             raise RuntimeError(f"the config holds {n} lines for {key!r}")
     return text
+
+
+def canon_soup(verts, faces):
+    """The mesh as a sorted triangle soup, each face's vertices sorted
+    (tests/test_marching.py's _canon_soup): equal for two marchers that
+    emit the same triangles in another order."""
+    tris = verts[faces].reshape(len(faces), 3, 3)
+    order = np.lexsort((tris[:, :, 2], tris[:, :, 1], tris[:, :, 0]), axis=1)
+    arr = np.take_along_axis(tris, order[:, :, None], axis=1).reshape(-1, 9)
+    return arr[np.lexsort(arr.T[::-1])]
+
+
+def canon_mesh(verts, faces):
+    """The orientation-keeping canonical soup of tests/test_giga_extract.py
+    (_canon): each face rotated so that its lexicographically smallest
+    vertex comes first, the faces sorted."""
+    tri = verts[faces]
+    best = tri.reshape(len(tri), -1)
+    for r in (1, 2):
+        rot = np.roll(tri, -r, axis=1).reshape(len(tri), -1)
+        less, decided = np.zeros(len(tri), bool), np.zeros(len(tri), bool)
+        for c in range(rot.shape[1]):
+            lt, gt = rot[:, c] < best[:, c], rot[:, c] > best[:, c]
+            less |= ~decided & lt
+            decided |= lt | gt
+        best = np.where(less[:, None], rot, best)
+    return best[np.lexsort(best.T[::-1])]
+
+
+@contextlib.contextmanager
+def counted(launches, tag):
+    """Every launch count zeroed on entry and read into launches[tag] on
+    exit, the card synchronized at both ends; fails if a plain version ran."""
+    from sdf_representation_tpu_torch.ops import fused_igr as fi
+    from sdf_representation_tpu_torch.ops import fused_mlp as fm
+    from sdf_representation_tpu_torch.ops import sdf_streams as ss
+
+    torch.cuda.synchronize()
+    for counters in (fm, ss, fi):
+        counters.reset_launches()
+    with counting_plain_calls((fm, ss, fi)) as plain:
+        yield
+        torch.cuda.synchronize()
+    launches[tag] = {**fm.LAUNCHES, **ss.LAUNCHES, **fi.LAUNCHES}
+    if any(plain.values()):
+        raise RuntimeError(f"{tag}: a plain version ran on the card's path: {plain}")
+
+
+def only_launched(launches, tag, **expected):
+    want = {name: expected.get(name, 0) for name in launches[tag]}
+    if launches[tag] != want:
+        raise RuntimeError(f"{tag}: launches {launches[tag]}, expected {want}")
+
+
+def drive_marching(device, run_root, model, checks, report):
+    """Phase 4f: the device marcher and the slab-streamed extractor on the
+    seeded and the trained 8x512 nets, counts zeroed before each run.
+    Returns the launches per run."""
+    from sdf_representation_tpu_torch import cli
+    from sdf_representation_tpu_torch.configgen import Configuration
+    from sdf_representation_tpu_torch.evaluations import reconstruct
+    from sdf_representation_tpu_torch.geometry.mesh_io import load_mesh
+    from sdf_representation_tpu_torch.ops import fused_mlp as fm
+    from sdf_representation_tpu_torch.ops import giga_extract as ge
+    from sdf_representation_tpu_torch.ops import marching_device as md
+    from sdf_representation_tpu_torch.ops import sparse_grid as sg
+    from sdf_representation_tpu_torch.ops.marching import marching_cubes
+    from sdf_representation_tpu_torch.training import Trainer
+
+    launches, out = {}, {"decoder": md.wire_decoder()}
+    print(f"phase 4f: the packed wire decodes with the {out['decoder']} decoder", flush=True)
+    trained = Trainer(Configuration(str(run_root / "pipeline" / "train_float32.ini")))
+    trained.load_model()
+    nets = {"seeded": model, "trained": trained.model}
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    # -- (a) the device marcher against the host marcher, 256^3 sparse volume --
+    n = 256
+    grid = ((2.0 / (n - 1),) * 3, (-1.0,) * 3)
+    out["march_256"] = {}
+    for name, net in nets.items():
+        vol = sg.sparse_grid_eval(net, n)
+        md.marching_tets_device(vol)  # first call: the tables go to the card
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host_vol = vol.cpu().numpy()
+        t1 = time.perf_counter()
+        vh, fh = marching_cubes(host_vol, 0.0, *grid)
+        t2 = time.perf_counter()
+        start.record()
+        vs_e, t_e, f_e = md.marching_tets_device(vol)
+        stop.record()
+        t3 = time.perf_counter()
+        torch.cuda.synchronize()
+        exact_ms = start.elapsed_time(stop)
+        start.record()
+        words, t_q, bids = md.packed_wire(vol)
+        stop.record()
+        t4 = time.perf_counter()
+        torch.cuda.synchronize()
+        packed_ms = start.elapsed_time(stop)
+        vs_p, t_p, f_p = md.decode_packed_wire(words, t_q, bids, vol.shape)
+        t5 = time.perf_counter()
+        ve = md.decode_vertices(vs_e, t_e, vol.shape, *grid)
+        same_soup = np.array_equal(canon_soup(vh, fh), canon_soup(ve, md.drop_degenerate(f_e)))
+        same_ids = np.array_equal(vs_p, vs_e) and np.array_equal(f_p, f_e)
+        t_err = float(np.abs(t_p - t_e).max()) if len(t_e) else 0.0
+        wire = words.nbytes + t_q.nbytes + bids.nbytes
+        exact_payload = (vs_e.size + t_e.size + f_e.size) * 4
+        row = {"faces": len(f_e), "vertices": len(vs_e), "live_blocks": len(bids),
+               "wire_bytes": wire, "exact_payload_bytes": exact_payload,
+               "volume_to_host_s": t1 - t0, "host_march_s": t2 - t1,
+               "device_exact_s": t3 - t2, "device_exact_event_ms": exact_ms,
+               "device_packed_s": t4 - t3, "device_packed_event_ms": packed_ms,
+               "decode_s": t5 - t4, "soup_equal": same_soup, "packed_ids_equal": same_ids,
+               "packed_t_max_err": t_err}
+        out["march_256"][name] = row
+        print(f"phase 4f (a) {name} 256^3: " + json.dumps(row), flush=True)
+        if not (same_soup and same_ids and t_err <= 1.0 / 65535 and len(f_e) > 1000):
+            raise RuntimeError(f"phase 4f (a) {name}: the device marcher disagrees: {row}")
+        del vol, host_vol
+
+    # -- (b) the slab extractor at 512^3 against one pass over the whole volume --
+    n, slab = 512, 64
+    s = 2.0 / (n - 1)
+    vol = sg.sparse_grid_eval(model, n, on_violation="error")
+    one = md.marching_cubes_device(vol, 0.0, (s,) * 3, (-1.0,) * 3, wire="packed")
+    del vol
+    want = canon_mesh(*one)
+    slabs = len(ge._slab_plan(n, slab))
+    out["giga_512"] = {"faces": len(one[1]), "slabs": slabs}
+    for k in (1, 2, 4):
+        tag = f"giga/512/x{k}"
+        stages = {}
+        with counted(launches, tag):
+            t0 = time.perf_counter()
+            got = ge.extract_mesh_giga(model, n, slab=slab, wire="packed", on_violation="error",
+                                       devices=None if k == 1 else (device,) * k, stages=stages)
+            wall = time.perf_counter() - t0
+        only_launched(launches, tag, sparse_blocks=slabs)
+        same = len(got[1]) == len(one[1]) and np.array_equal(canon_mesh(*got), want)
+        out["giga_512"][f"x{k}"] = {"wall_s": wall, "stages_s": stages, "identical": same}
+        print(f"phase 4f (b) {tag}, slab {slab}: {slabs} sparse_blocks launches, wall {wall:.3f} s, "
+              f"stages (s) {stages}; {len(got[1])} faces, identical to one pass over the 512^3 "
+              f"volume: {same}", flush=True)
+        if not same:
+            raise RuntimeError(f"{tag}: the merged slab mesh differs from one pass")
+
+    # -- (b2) kernel 3 at the giga route's 1024^3 shapes ------------------------
+    # every slab's active blocks by global id (ids past 2^20 of 2^21) at the
+    # route's shared budget k_max, as _refine_slab launches the blocks entry,
+    # against its plain version on the same ids: f32 within F32_TOL; bf16
+    # the mean against the exact sums and, over these millions of points (as
+    # at 255^3, see BF16_TOL), the max against the kernel's own summation
+    # order, the max against the exact sums printed. The coarse sweep's own
+    # peak device memory is read on the way.
+    n = 1024
+    slab = ge.default_slab(n)
+    plan = ge._slab_plan(n, slab)
+    nxb = slab // 8 + 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _, mask, viol = sg.coarse_and_certificate(model, n, 8, 1.5, 0.01)
+    torch.cuda.synchronize()
+    row = {"coarse_sweep_peak_bytes": torch.cuda.max_memory_allocated() - base,
+           "violations": int(viol)}
+    if row["violations"]:
+        raise RuntimeError(f"phase 4f (b2): the seeded net's certificate fails at 1024: {row}")
+    counts, k_max = ge._slab_budget(mask, plan, n, 8, nxb, 2)  # extract_mesh_giga's tile_blocks
+    row.update(slab=slab, active_blocks=counts, k_max=k_max)
+    for dt in (torch.bfloat16, torch.float32):
+        tag = str(dt).split(".")[1]
+        net = fm.FusedNet(model, dt)
+        err = order_err = total = points = max_id = 0
+        for (x0, _), count in zip(plan, counts):
+            if count == 0:
+                continue
+            ids, count_d = ge._slab_blocks(mask, x0 // 8, nxb, n // 8, k_max)
+            got = fm.fused_blocks(net, ids, count_d, n, 8)[:count]
+            want = fm.fused_blocks_plain(net, ids, count_d, n, 8)[:count]
+            torch.cuda.synchronize()
+            if not (int(count_d) == count and torch.isfinite(got).all()):
+                raise RuntimeError(f"sparse_blocks/{tag}/n1024: a non-finite output or a wrong count")
+            diff = (got - want).abs()
+            err, total, points = max(err, diff.max().item()), total + diff.sum().item(), points + diff.numel()
+            max_id = max(max_id, int(ids[:count].max()))
+            if dt == torch.bfloat16:
+                order = plain_kernel_order(net, fm.block_points(ids[:count], n, 8))
+                order_err = max(order_err, (got.reshape(-1) - order).abs().max().item())
+            del got, want, diff
+        mean = total / points
+        held, limit, mean_limit = ((order_err, BF16_TOL, BF16_MEAN_TOL) if dt == torch.bfloat16
+                                   else (err, F32_TOL, math.inf))
+        row[tag] = {"max_abs_err": err, "mean_abs_err": mean, "points": points, "max_block_id": max_id}
+        if dt == torch.bfloat16:
+            row[tag]["max_abs_err_kernel_order"] = order_err
+        print(f"check sparse_blocks/{tag}/n1024 ({len([c for c in counts if c])} slabs of the giga "
+              f"route, {points} points, block ids up to {max_id}, k_max {k_max}): against plain "
+              f"max_abs_err {err:.3e}, mean_abs_err {mean:.3e} (tolerance {mean_limit:g})"
+              + (f"; against the kernel's summation order max_abs_err {order_err:.3e}"
+                 if dt == torch.bfloat16 else "") + f"; held max {held:.3e} (tolerance {limit:g})",
+              flush=True)
+        if not (held <= limit and mean <= mean_limit):
+            raise RuntimeError(f"sparse_blocks/{tag}/n1024: kernel and plain version disagree")
+        checks[f"sparse_blocks/{tag}/n1024"] = err
+    del mask
+    out["kernel3_1024"] = row
+
+    # -- (b3) the two wires at 1024^3, bf16: the same faces, vertices within
+    # the u16 quantum; their stages side by side
+    s = 2.0 / (n - 1)
+    meshes = {}
+    out["wires_1024"] = {}
+    for w in ("exact", "packed"):
+        tag, stages = f"giga/1024/{w}", {}
+        torch.cuda.reset_peak_memory_stats()
+        with counted(launches, tag):
+            t0 = time.perf_counter()
+            meshes[w] = ge.extract_mesh_giga(model, n, wire=w, on_violation="dense", stages=stages)
+            wall = time.perf_counter() - t0
+        only_launched(launches, tag, sparse_blocks=len(plan))
+        out["wires_1024"][w] = {"wall_s": wall, "stages_s": stages, "faces": len(meshes[w][1]),
+                                "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        print(f"phase 4f (b3) {tag}: " + json.dumps(out["wires_1024"][w]), flush=True)
+    (ve, fe), (vp, fp) = meshes["exact"], meshes["packed"]
+    v_err = float(np.abs(ve - vp).max()) if len(ve) == len(vp) and len(ve) else math.inf
+    out["wires_1024"]["vertex_max_diff"] = v_err
+    print(f"phase 4f (b3): the packed wire's faces equal the exact wire's: "
+          f"{np.array_equal(fe, fp)}, vertices within {v_err:.3e} (limit {s / 65535 + 1e-12:.3e})",
+          flush=True)
+    if not (np.array_equal(fe, fp) and len(fe) > 1000 and v_err <= s / 65535 + 1e-12):
+        raise RuntimeError("phase 4f (b3): the two wires disagree at 1024^3")
+    del meshes, ve, fe, vp, fp
+
+    # -- (c) the entry point at cubesize 1024: the giga route ------------------
+    # f32: p99 |f| at the vertices under the plain f32 forward below one voxel
+    # plus the f32 kernel error. bf16: the blocks entry rounds grid
+    # coordinates to bf16, whose spacing for 0.5 <= |x| < 1 is 2^-8 (two
+    # voxels at n = 1024); a point moves by up to 2^-9 per axis, so for a
+    # unit-Lipschitz field the bound grows by sqrt(3) * 2^-9.
+    cfg, stl = reconstruct_config(run_root, 1024)
+    plan = ge._slab_plan(1024, ge.default_slab(1024))
+    out["reconstruct_1024"] = {}
+    for dt in ("float32", "bfloat16"):
+        tag = f"reconstruct/1024/{dt}"
+        if stl.exists():
+            stl.unlink()
+        torch.cuda.reset_peak_memory_stats()
+        with counted(launches, tag):
+            t0 = time.perf_counter()
+            if cli.main([cfg, "--compute-dtype", dt]) != 0:
+                raise RuntimeError(f"{tag}: the entry point failed")
+            wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        stages = dict(reconstruct.LAST_STAGE_SECONDS)
+        only_launched(launches, tag, sparse_blocks=len(plan))
+        if list(stages) != ["load_checkpoint", "evaluate", "march", "decode", "write_stl"]:
+            raise RuntimeError(f"{tag}: not the giga route's stages: {stages}")
+        if not stl.exists():
+            raise RuntimeError(f"{tag}: the entry point wrote no STL")
+        mesh = load_mesh(str(stl))
+        stl.unlink()
+        verts = torch.as_tensor(mesh.vertices, dtype=torch.float32, device=device)
+        with torch.no_grad():
+            f = torch.cat([model(v).abs() for v in verts.split(1 << 20)])
+        p99 = float(np.quantile(f.cpu().numpy(), 0.99))
+        bound = 2.0 / 1023 + checks[f"fused_points/{dt}"]
+        if dt == "bfloat16":
+            bound += math.sqrt(3.0) * 2.0 ** -9
+        row = {"wall_s": wall, "stages_s": stages, "faces": len(mesh.faces),
+               "vertices": len(mesh.vertices), "slabs": len(plan),
+               "max_memory_allocated": peak, "p99_abs_f": p99, "p99_bound": bound}
+        out["reconstruct_1024"][dt] = row
+        print(f"phase 4f (c) {tag}: " + json.dumps(row), flush=True)
+        if not (len(mesh.faces) > 1000 and torch.isfinite(verts).all() and verts.abs().max() <= 1
+                and p99 < bound):
+            raise RuntimeError(f"{tag}: the 1024^3 mesh fails its checks: {row}")
+    report["phase_4f"] = out
+    return launches
+
+
+def reconstruct_config(run_root, cubesize):
+    """(config path, STL path) of a reconstruction of the seeded checkpoint
+    at ``cubesize``: configs/mesh_sdf.ini with its directory under
+    ``run_root``, ppo and reconstruct on."""
+    from sdf_representation_tpu_torch.configgen import Configuration
+    from sdf_representation_tpu_torch.training import Trainer
+
+    text = (REPO / "configs" / "mesh_sdf.ini").read_text()
+    text = (text.replace("directory = ./runs/", f"directory = {run_root}/")
+            .replace("ppo = False", "ppo = True").replace("reconstruct = False", "reconstruct = True")
+            .replace("cubesize = 256", f"cubesize = {cubesize}"))
+    path = run_root / f"mesh_sdf_{cubesize}.ini"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(text)
+    trainer = Trainer(Configuration(str(path)))
+    return str(path), pathlib.Path(trainer.postprocess_save_path) / "reconstructed_epoch0.stl"
 
 
 def drive_pipeline(device, run_root, report):
@@ -1413,22 +1730,22 @@ def drive_pipeline(device, run_root, report):
             raise RuntimeError(f"{tag}: no evaluation kernel was launched")
         mesh = load_mesh(str(stl))
         radii = np.linalg.norm(mesh.vertices, axis=1)
+        stages = dict(reconstruct.LAST_STAGE_SECONDS)
         print(f"mesh from the trained field, {cubesize}^3: {len(mesh.faces)} faces, vertex radius "
               f"median {np.median(radii):.4f} (the labelled sphere: 0.85), within 0.02 of it "
-              f"{np.mean(np.abs(radii - 0.85) < 0.02):.3f} of the vertices, stages (s) "
-              f"{dict(reconstruct.LAST_STAGE_SECONDS)}", flush=True)
+              f"{np.mean(np.abs(radii - 0.85) < 0.02):.3f} of the vertices, stages (s) {stages}"
+              + ("; with the host marcher (PERF.md §5): evaluate 0.200 s, march 1.657 s"
+                 if cubesize == 256 else ""), flush=True)
+        if ("decode" in stages) != (cubesize == 256):
+            raise RuntimeError(f"{tag}: marched on the wrong side: stages {stages}")
         if len(mesh.faces) < 1000 or not np.isfinite(mesh.vertices).all() \
                 or np.abs(mesh.vertices).max() > 1 or abs(np.median(radii) - 0.85) > 0.1:
             raise RuntimeError(f"{tag}: the mesh is not a sphere of radius ~0.85")
         out["reconstruct_trained"][cubesize] = {"wall_s": wall, "faces": len(mesh.faces),
-                                                "median_radius": float(np.median(radii))}
+                                                "median_radius": float(np.median(radii)),
+                                                "stages_s": stages}
 
     # -- 4c. the eikonal path: labelled IGRLOSS, then the point-cloud trainer ----
-    def only(tag, **expected):
-        want = {name: expected.get(name, 0) for name in launches[tag]}
-        if launches[tag] != want:
-            raise RuntimeError(f"{tag}: launches {launches[tag]}, expected {want}")
-
     igr_base = with_keys(base.replace("weight_factor = 0.5\n", ""), loss_function="IGRLOSS")
     n_train = sum(rows.values()) - math.ceil(0.1 * sum(rows.values()))
     out["igr"] = {}
@@ -1445,7 +1762,7 @@ def drive_pipeline(device, run_root, report):
         # the rule (training/trainer.py use_fused_igr): the kernels run under
         # bfloat16 on a card, once per step each; under the default precision
         # the fast path is the shared-matmul derivation with torch autograd
-        only(tag, **({"igr_fwd": steps, "igr_bwd": steps} if precision == "bfloat16" else {}))
+        only_launched(launches, tag, **({"igr_fwd": steps, "igr_bwd": steps} if precision == "bfloat16" else {}))
         curve = np.loadtxt(pathlib.Path(Trainer(Configuration(str(path))).train_path) / "train_loss.txt")
         stats = dict(trainer_module.LAST_RUN)
         print(f"igr_train {precision}: {steps} steps, launches per step "
@@ -1480,7 +1797,7 @@ def drive_pipeline(device, run_root, report):
         path.write_text(text)
         wall = run(tag, str(path))
         steps = (PCD_POINTS // 16384) * epochs
-        only(tag, **({"igr_fwd": steps, "igr_bwd": steps} if precision == "bfloat16" else {}))
+        only_launched(launches, tag, **({"igr_fwd": steps, "igr_bwd": steps} if precision == "bfloat16" else {}))
         t = PointCloudTrainer(Configuration(str(path)))
         log = (pathlib.Path(t.train_path) / "train_loss.txt").read_text().splitlines()
         curve = np.array([float(line.rsplit(" ", 1)[1]) for line in log])
@@ -1499,7 +1816,7 @@ def drive_pipeline(device, run_root, report):
         rec.write_text(with_keys(text, distributed=False, ppo=True, reconstruct=True, cubesize=128))
         tag = "pcd_reconstruct/128"
         wall = run(tag, str(rec))
-        only(tag, fused_grid=1)
+        only_launched(launches, tag, fused_grid=1)
         mesh = load_mesh(str(pathlib.Path(t.postprocess_save_path)
                              / f"reconstructed_epoch{PCD_EPOCHS - 1}.stl"))
         radii = np.linalg.norm(mesh.vertices, axis=1)
@@ -1641,19 +1958,13 @@ def main() -> int:
 
     # ---- 4. the main path, once per route -----------------------------------
     run_root = REPO / "build" / "chip_smoke_run"
-    text = (REPO / "configs" / "mesh_sdf.ini").read_text()
-    text = (text.replace("directory = ./runs/", f"directory = {run_root}/")
-            .replace("ppo = False", "ppo = True").replace("reconstruct = False", "reconstruct = True"))
-    # cubesize 256 takes the sparse evaluator (block kernel), 128 the dense one
+    # cubesize 256 takes the sparse evaluator (block kernel) and marches on
+    # the card, 128 the dense one and marches on the host
     route_kernel = {256: "sparse_blocks", 128: "fused_grid"}
     configs, stls = {}, {}
     for cubesize in route_kernel:
-        path = run_root / f"mesh_sdf_{cubesize}.ini"
-        path.parent.mkdir(parents=True, exist_ok=True)
-        path.write_text(text.replace("cubesize = 256", f"cubesize = {cubesize}"))
-        configs[cubesize] = str(path)
+        configs[cubesize], stls[cubesize] = reconstruct_config(run_root, cubesize)
         trainer = Trainer(Configuration(configs[cubesize]))
-        stls[cubesize] = pathlib.Path(trainer.postprocess_save_path) / "reconstructed_epoch0.stl"
     for old in pathlib.Path(trainer.model_save_path).glob("*.ckpt"):
         old.unlink()
     save_checkpoint(str(pathlib.Path(trainer.model_save_path) / "model_epoch0.ckpt"),
@@ -1676,11 +1987,15 @@ def main() -> int:
         stages = dict(reconstruct.LAST_STAGE_SECONDS)
         stages["other (arguments, config, Trainer)"] = wall - sum(stages.values())
         print(f"main path cubesize {cubesize}: launches {launches}, wall s {wall:.3f}, "
-              f"host clock per stage (s) {stages}", flush=True)
+              f"host clock per stage (s) {stages}"
+              + ("; with the host marcher (PERF.md §5): evaluate 0.106 s, whole ~0.5 s"
+                 if cubesize == 256 else ""), flush=True)
         others = [k for k in launches if k != kernel]
         if launches[kernel] < 1 or any(launches[k] for k in others):
             raise RuntimeError(f"cubesize {cubesize} should launch {kernel} and nothing else "
                                f"(a dense fallback launches fused_grid): {launches}")
+        if ("decode" in stages) != (cubesize == 256):
+            raise RuntimeError(f"cubesize {cubesize}: marched on the wrong side: stages {stages}")
         if not stl.exists():
             raise RuntimeError(f"cubesize {cubesize}: the entry point wrote no STL")
         mesh = load_mesh(str(stl))
@@ -1707,6 +2022,7 @@ def main() -> int:
     runs.update(drive_culled(device, report))
     sharded_runs, shard_eval = drive_sharded(device, run_root, model, report)
     runs.update(sharded_runs)
+    runs.update(drive_marching(device, run_root, model, checks, report))
 
     # ---- 5. times -----------------------------------------------------------
     mac = sum(fi * fo for fi, fo in model.layer_shapes())
@@ -1941,7 +2257,7 @@ def main() -> int:
                 t_bytes, t_ops = bytes_ / MEM_BW * 1e3, ops / PEAK[dt] * 1e3
                 ms = timed(run, 5)
                 workspace = fi.WORKSPACE_BYTES[name]  # what the timed calls allocated
-                launched = kernels_per_call(run)
+                launched = kernels_per_call(run, expect)
                 if launched != expect:
                     raise RuntimeError(f"{name}/{case}: one call ran {launched} on the card, not {expect}")
                 plain_ms, lib_ms = timed(plain, 2), timed(lib, 3)

@@ -2,15 +2,24 @@
 
 Counterpart of sdf_representation_tpu/evaluations/reconstruct.py (reference
 executor/executor.py:346-400): grid evaluation through the fused kernels ->
-marching tetrahedra on the host -> STL. The dispatch is the JAX package's
-for ImplicitNet: on a card the sparse evaluator when ``cubesize`` is a
-multiple of 8 and at least 256, the dense fused evaluator otherwise; on the
-CPU the module's own f32 forward on the dense grid, whatever
-``compute_dtype`` says (the JAX package's route on a CPU backend).
+marching tetrahedra -> STL. The dispatch is the JAX package's for
+ImplicitNet (``choose_route``):
 
-Not ported yet (ROADMAP.md): the slab-streamed giga extractor for grids past
-the single-pass index space, the on-device packed-wire marcher, and the GIF
-(matplotlib is absent on the card's machine).
+  "giga"    on a card, cubesize % 8 == 0 and cubesize^3 * 7 >= 2^31: the
+            slab-streamed extractor (ops/giga_extract.py: the sparse
+            evaluator's blocks kernel per slab, the device marcher, the
+            packed wire), over every visible card when there are several;
+  "sparse"  on a card, cubesize % 8 == 0 and >= 256: the sparse evaluator;
+            the volume stays on the card and is marched there over the
+            packed wire (ops/marching_device.py);
+  "dense"   on a card otherwise: the dense fused evaluator, marched on the
+            host;
+  "cpu"     a model on the CPU: the module's own f32 forward on the dense
+            grid, whatever ``compute_dtype`` says (the JAX package's route
+            on a CPU backend), marched on the host.
+
+Not ported yet (ROADMAP.md): the GIF (matplotlib is absent on the card's
+machine) and the other model families.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ import torch
 
 from ..geometry.mesh_io import Mesh, save_mesh
 from ..models.implicit_net import ImplicitNet
+from ..ops import giga_extract
 from ..ops.fused_mlp import fused_grid_eval
 from ..ops.grid_eval import evaluate_grid
 from ..ops.marching import marching_cubes
@@ -30,44 +40,72 @@ from ..ops.sparse_grid import sparse_grid_eval
 # smallest cubesize that takes the sparse evaluator
 SPARSE_MIN_CUBESIZE = 256
 
-# host-clock seconds of each stage of the last reconstruction. A stage ends
-# where the host waits for it anyway (the volume's copy to the host waits for
-# the card), so timing adds no synchronize.
+# host-clock seconds of each stage of the last reconstruction:
+# load_checkpoint, evaluate, march, decode (the packed wire's host rebuild;
+# the "sparse" and "giga" routes) and write_stl. A stage that leaves work on
+# the card ends with one torch.cuda.synchronize, so that the next stage is
+# not booked the card's time. On the "giga" route "evaluate" is the coarse
+# sweep, and each slab's evaluation runs while the host decodes the slab
+# before it: what of it the decode does not hide is booked under "march".
 LAST_STAGE_SECONDS: dict = {}
 
 
-def _lap(name: str, since: float) -> float:
+def _lap(name: str, since: float, device=None) -> float:
+    if device is not None and device.type == "cuda":
+        torch.cuda.synchronize(device)
     now = time.perf_counter()
     LAST_STAGE_SECONDS[name] = now - since
     return now
+
+
+def choose_route(cubesize: int, device_kind: str) -> str:
+    """The route of an ImplicitNet on a device of kind ``device_kind``
+    ("cuda" or "cpu"): "giga", "sparse", "dense" or "cpu" (module
+    docstring)."""
+    if device_kind == "cpu":
+        return "cpu"
+    if cubesize % 8 == 0 and cubesize ** 3 * 7 >= 2 ** 31:
+        return "giga"
+    if cubesize % 8 == 0 and cubesize >= SPARSE_MIN_CUBESIZE:
+        return "sparse"
+    return "dense"
 
 
 def reconstruct_mesh(model, cubesize: int, compute_dtype=torch.bfloat16,
                      level: float = 0.0) -> Mesh:
     """Evaluate the field on the cubesize^3 grid in [-1, 1]^3 and extract
     the ``level`` set. spacing = 2/(n-1) and origin -1, so vertices land in
-    [-1, 1]^3. Records the seconds of "evaluate" (up to the volume on the
-    host) and "march" in ``LAST_STAGE_SECONDS``."""
+    [-1, 1]^3. The stage times land in ``LAST_STAGE_SECONDS``."""
     if not isinstance(model, ImplicitNet):
         raise NotImplementedError(f"{type(model).__name__} reconstruction is not ported yet")
-    if cubesize % 8 == 0 and cubesize ** 3 * 7 >= 2 ** 31:
-        raise NotImplementedError(
-            f"cubesize {cubesize} needs the slab-streamed giga extractor "
-            "(ops/giga_extract.py), not ported yet: see ROADMAP.md"
-        )
+    device = next(model.parameters()).device
+    route = choose_route(cubesize, device.type)
+    spacing = 2.0 / (cubesize - 1)
     t = time.perf_counter()
-    if next(model.parameters()).device.type == "cpu":
-        vol = evaluate_grid(model, cubesize)
-    elif cubesize % 8 == 0 and cubesize >= SPARSE_MIN_CUBESIZE:
+    stages: dict = {}
+    if route == "giga":
+        n_cards = torch.cuda.device_count()
+        verts, faces = giga_extract.extract_mesh_giga(
+            model, cubesize, level=level, compute_dtype=compute_dtype, wire="packed",
+            on_violation="dense", stages=stages,
+            devices=tuple(torch.device("cuda", i) for i in range(n_cards)) if n_cards > 1 else None)
+        LAST_STAGE_SECONDS.update(stages)
+        return Mesh(verts, faces)
+    if route == "cpu":
+        vol = evaluate_grid(model, cubesize).cpu().numpy()
+    elif route == "sparse":
         vol = sparse_grid_eval(model, cubesize, compute_dtype=compute_dtype, level=level)
     else:
-        vol = fused_grid_eval(model, cubesize, compute_dtype=compute_dtype)
-    vol = vol.cpu().numpy()
-    t = _lap("evaluate", t)
-    spacing = 2.0 / (cubesize - 1)
+        vol = fused_grid_eval(model, cubesize, compute_dtype=compute_dtype).cpu().numpy()
+    t = _lap("evaluate", t, device)
+    # a card's volume rides the packed wire (sign bits + u16 t): identical
+    # topology, vertices within spacing/65535; a numpy one is marched here
     verts, faces = marching_cubes(vol, level=level, spacing=(spacing,) * 3,
-                                  origin=(-1.0, -1.0, -1.0))
-    _lap("march", t)
+                                  origin=(-1.0, -1.0, -1.0), wire="packed", stages=stages)
+    _lap("march", t, device)
+    if "decode" in stages:
+        LAST_STAGE_SECONDS["decode"] = stages["decode"]
+        LAST_STAGE_SECONDS["march"] -= stages["decode"]
     return Mesh(verts, faces)
 
 

@@ -18,16 +18,17 @@ within the decomposition, and vectorises cleanly:
 API mirrors skimage: marching_cubes(volume, level, spacing, origin) ->
 (vertices, faces).
 
-The port's own copy of sdf_representation_tpu/ops/marching.py (host core
-only). A torch volume, on the card or not, is copied to the host and
-marched here; the on-device packed-wire marcher is not ported yet.
+The port's own copy of sdf_representation_tpu/ops/marching.py. A numpy
+volume is marched here on the host; a torch volume is marched on its own
+device by ops/marching_device.py, which returns the same triangle soup.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 # corner offsets, bit order (x, y, z)
 _CORNERS = np.array(
@@ -109,15 +110,24 @@ def marching_cubes(
     level: float = 0.0,
     spacing: Tuple[float, float, float] = (1.0, 1.0, 1.0),
     origin: Tuple[float, float, float] = (0.0, 0.0, 0.0),
+    wire: str = "exact",
+    stages: Optional[dict] = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Extract the `level` isosurface of a (nx, ny, nz) scalar volume.
 
     Returns (vertices (V,3) float64 in world coords, faces (F,3) int64),
     faces oriented with normals pointing toward values > level. A torch
-    tensor is copied to the host first.
+    tensor is marched on its own device (ops/marching_device.py: the same
+    soup, in the device order); wire="packed" ships sign bits + u16 t
+    instead of the emitted mesh (identical topology, vertices within 1/65535
+    of a cell), and a dict given as ``stages`` receives the seconds of the
+    device half and of the host decode. ``wire`` and ``stages`` do not apply
+    to a numpy volume.
     """
-    if hasattr(volume, "detach"):
-        volume = volume.detach().cpu().numpy()
+    if isinstance(volume, torch.Tensor):
+        from .marching_device import marching_cubes_device
+
+        return marching_cubes_device(volume, level, spacing, origin, wire=wire, stages=stages)
     vol = np.asarray(volume, dtype=np.float32)
     level = np.float32(level)
     nx, ny, nz = vol.shape

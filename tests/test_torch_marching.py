@@ -1,6 +1,9 @@
 """The port's copy of the numpy marching tetrahedra gives output identical
-to the JAX package's on the same volume, numpy or torch."""
+to the JAX package's on the same volume; a torch volume takes the device
+marcher, whose output is identical to the JAX package's for a device
+(jax.Array) volume."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -29,9 +32,10 @@ def test_marching_identical_to_jax_package(name, level):
     assert len(fj) > 100
     np.testing.assert_array_equal(ft, fj)
     np.testing.assert_array_equal(vt, vj)
+    vjd, fjd = jax_marching_cubes(jnp.asarray(vol), level, (sp,) * 3, (-1.0,) * 3)
     vt2, ft2 = marching_cubes(torch.from_numpy(vol), level, (sp,) * 3, (-1.0,) * 3)
-    np.testing.assert_array_equal(ft2, fj)
-    np.testing.assert_array_equal(vt2, vj)
+    np.testing.assert_array_equal(ft2, fjd)
+    np.testing.assert_array_equal(vt2, vjd)
 
 
 def test_marching_empty_and_tiny_volumes():
