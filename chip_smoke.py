@@ -147,6 +147,29 @@ Phases, none of which is allowed to fail quietly:
     one voxel plus the kernel's error, plus sqrt(3) * 2^-9 in bf16 (the
     blocks entry rounds grid coordinates to bf16: 2^-9 is half their
     spacing for 0.5 <= |x| < 1). The 1024 STLs are deleted after reading.
+ 4g. The 2-D mode, the rest of the sampler and the export, counts zeroed
+    before each run and read after it: (a) configs/circle_2d.ini (ImplicitNet
+    4x64, skip at 2; its own 500 epochs, directory under chiprun_out/)
+    through the entry point: circle CSVs, training, the best checkpoint and
+    contour_distances.csv, whose median r lies within 0.01 of sqrt(2/pi)
+    (tests/test_pcd_and_2d.py's 0.2, tightened after the card read 1.9e-4);
+    no kernel launches (supervised training and
+    the f32 contour); points/s and the contour's seconds printed; (b)
+    generate_occupancy at 64^3 and 128^3 on phase 3's icosphere(5): must
+    launch dist_stream and wind_stream, signs equal the analytic sphere's
+    0.01 away from it; augment_mismatch_from_postprocess on phase 4b's 64^3
+    audit coordinates: launches both, mismatch.csv equals a direct
+    signed_distance of those points; (c) phase 4b's trained f32 8x512 net
+    through `python -m sdf_representation_tpu_torch.export` with
+    --quantize --torchscript --fixtures 4096 (no kernel launches: the
+    fixtures are the plain f32 forward, TF32 off), the lint clean; native/'s
+    parity_main, deeptrace and libsdfnet_c.so built with g++ (the release
+    flags of native/CMakeLists.txt, into build/chip_smoke_native/, started
+    at the phase's start): parity_main, onnx_eval, the TorchScript file and
+    NativeSDF (.sdfw, .onnx) against the fixtures within rtol 1e-4 / atol
+    1e-5 (values) and rtol 1e-3 / atol 1e-4 (gradients), NativeSDF on the
+    int8 file against the dequantized forward, deeptrace's leaf values
+    against the forward; each stage's seconds printed.
  5. Times with CUDA events at the main path's shapes: kernel, plain version,
     one library layer chain (torch addmm, never called by the port), and
     the bound: the larger of bytes over 3.35 TB/s and operations over the
@@ -290,6 +313,21 @@ IGR_RELU_CANDIDATES = 1 << 18  # uniform points "relu_clear" picks its points fr
 IGR_EPOCHS = 5        # labelled IGRLOSS run, bfloat16
 PCD_EPOCHS = 31       # point-cloud run, bfloat16; model_epoch30.ckpt holds the last weights
 PCD_POINTS = 307200
+# phase 4g: configs/circle_2d.ini's own 500 epochs (no cut); occupancy grids
+# on phase 3's icosphere(5) (20,480 faces, rescaled); the export's fixtures;
+# the native consumers built with native/CMakeLists.txt:14-15's release flags
+TWO_DIM_EPOCHS = 500
+# |median contour r - sqrt(2/pi)|: the JAX test's 0.2 (tests/test_pcd_and_2d.py),
+# tightened to 0.01 after the card's first run read 1.9e-4
+TWO_DIM_MEDIAN_TOL = 0.01
+OCC_SIZES = (64, 128)
+OCC_LEVEL = 5
+EXPORT_FIXTURES = 4096
+NATIVE_FLAGS = ("-O3", "-march=native", "-fno-trapping-math", "-fno-math-errno", "-std=c++17",
+                "-pthread")
+# the native runtime against the port's f32 fixtures (tests/test_export_native.py)
+NATIVE_VALUE_TOL = (1e-4, 1e-5)   # rtol, atol
+NATIVE_GRAD_TOL = (1e-3, 1e-4)
 
 
 def plain_dropping(net, x, drop, product=None):
@@ -1309,6 +1347,267 @@ def only_launched(launches, tag, **expected):
         raise RuntimeError(f"{tag}: launches {launches[tag]}, expected {want}")
 
 
+def need(launches, tag, *names):
+    missing = [n for n in names if launches[tag][n] < 1]
+    if missing:
+        raise RuntimeError(f"{tag} did not launch {missing}: {launches[tag]}")
+
+
+def start_native_build(out_dir):
+    """g++ on native/src's parity_main, deeptrace and libsdfnet_c.so (one
+    process each, started together) into out_dir: {name: Popen}."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: phase 4g builds the native consumers with it")
+    src = REPO / "native" / "src"
+    jobs = {"parity_main": ["parity_main.cpp"], "deeptrace": ["deeptrace.cpp"],
+            "libsdfnet_c.so": ["sdfnet_c.cpp", "wire_decode.cpp"]}
+    procs = {}
+    for name, sources in jobs.items():
+        extra = ["-shared", "-fPIC"] if name.endswith(".so") else []
+        cmd = [gxx, *NATIVE_FLAGS, *extra, *(str(src / f) for f in sources), "-o", str(out_dir / name)]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return procs
+
+
+def finish_native_build(procs):
+    for name, proc in procs.items():
+        log, _ = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ {name} failed ({proc.returncode}): {log[-3000:]}")
+
+
+def within(got, want, tol, what):
+    """max |got - want| of two host arrays; raises when an entry lies over
+    atol + rtol |want| (tol = (rtol, atol))."""
+    got, want = (torch.as_tensor(np.asarray(a, np.float64)) for a in (got, want))
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise RuntimeError(f"{what}: shape {tuple(got.shape)} (want {tuple(want.shape)}) "
+                           "or non-finite values")
+    over, err = exceeds(got, want, *tol)
+    if over > 0:
+        raise RuntimeError(f"{what}: max |diff| {err:.3e} over rtol {tol[0]:g} / atol {tol[1]:g}")
+    return err
+
+
+def drive_export_two_dim(device, run_root, report):
+    """Phase 4g: (a) the 2-D circle mode through the entry point; (b)
+    occupancy grids and the mismatch loop, whose labels launch kernels 4
+    and 5; (c) phase 4b's trained f32 flagship net through the export entry
+    point, held against the native consumers built here, onnx_eval and
+    the TorchScript file. Counts are zeroed before each run and read after
+    it. Returns the launches per run."""
+    from sdf_representation_tpu_torch import cli
+    from sdf_representation_tpu_torch.configgen import Configuration
+    from sdf_representation_tpu_torch.data.dataset import frame_from_csv
+    from sdf_representation_tpu_torch.evaluations import two_dim
+    from sdf_representation_tpu_torch.export import conversion, onnx_eval, quantize
+    from sdf_representation_tpu_torch.export import torchscript_export as ts
+    from sdf_representation_tpu_torch.export.__main__ import main as export_main
+    from sdf_representation_tpu_torch.export.native_runtime import NativeSDF
+    from sdf_representation_tpu_torch.export.onnx_lint import lint_onnx
+    from sdf_representation_tpu_torch.geometry.mesh_io import load_mesh
+    from sdf_representation_tpu_torch.geometry.primitives import make_icosphere
+    from sdf_representation_tpu_torch.geometry.rescale import rescale_mesh
+    from sdf_representation_tpu_torch.models import ImplicitNet
+    from sdf_representation_tpu_torch.ops.sdf_exact import signed_distance
+    from sdf_representation_tpu_torch.sampling import sampler
+    from sdf_representation_tpu_torch.training import Trainer
+    from sdf_representation_tpu_torch.training import trainer as trainer_module
+
+    card = report["card"]
+    launches, out = {}, {}
+    # a directory of its own: build/libsdfnet_c.so would switch phase 4f's
+    # wire decoder from numpy to native
+    native_dir = REPO / "build" / "chip_smoke_native"
+    shutil.rmtree(native_dir, ignore_errors=True)
+    native_dir.mkdir(parents=True)
+    t_build = time.perf_counter()
+    procs = start_native_build(native_dir)
+    try:
+        # -- (a) the 2-D circle mode: sample, train, contour -------------------
+        root = REPO / "chiprun_out" / "chip_smoke_2d"
+        shutil.rmtree(root, ignore_errors=True)
+        root.mkdir(parents=True)
+        cfg_path = root / "circle_2d.ini"
+        cfg_path.write_text(with_keys((REPO / "configs" / "circle_2d.ini").read_text(),
+                                      directory=f"{root}/", epochs=TWO_DIM_EPOCHS))
+        with counted(launches, "two_dim"):
+            t0 = time.perf_counter()
+            if cli.main([str(cfg_path)]) != 0:
+                raise RuntimeError("two_dim: the entry point failed")
+            wall = time.perf_counter() - t0
+        # supervised training and the f32 contour run no fused kernel
+        only_launched(launches, "two_dim")
+        stats = dict(trainer_module.LAST_RUN)
+        t = Trainer(Configuration(str(cfg_path)))
+        uniform = frame_from_csv(str(pathlib.Path(t.data_path) / "uniform.csv"))
+        radius = math.sqrt(2 / math.pi)
+        r = np.linalg.norm(uniform.values[:, :3], axis=1)
+        if not (len(uniform) == 20000 and np.all(uniform["z"] == 0)
+                and np.abs(uniform["S"] - (r - radius)).max() < 1e-12):
+            raise RuntimeError("two_dim: uniform.csv is not the circle's labelled points")
+        if not (pathlib.Path(t.model_save_path) / "best_model.ckpt").exists():
+            raise RuntimeError("two_dim: no best checkpoint")
+        contour_csv = pathlib.Path(t.postprocess_save_path) / "contour_distances.csv"
+        contour = np.loadtxt(contour_csv, delimiter=",", skiprows=1, ndmin=2)
+        median_r = float(np.median(contour[:, 2])) if len(contour) else math.nan
+        # the contour once more, alone, for its time
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dists = two_dim.two_dim_contour(t)
+        contour_s = time.perf_counter() - t0
+        row = {"wall_s": wall, "epochs_run": stats["epochs_run"], "train_s": stats["seconds"],
+               "points_per_s": stats["points_per_sec"], "contour_s": contour_s,
+               "contour_points": len(contour), "median_r": median_r,
+               "median_r_minus_radius": median_r - radius}
+        print(f"phase 4g (a) 2-D circle ({card}), configs/circle_2d.ini at 4x64, {TWO_DIM_EPOCHS} "
+              "epochs (no cut): " + json.dumps(row), flush=True)
+        if not (len(contour) > 10 and abs(median_r - radius) < TWO_DIM_MEDIAN_TOL
+                and np.array_equal(dists, contour[:, 2].astype(np.float32))):
+            raise RuntimeError(f"two_dim: the contour is not the circle's: {row}")
+        out["two_dim"] = row
+
+        # -- (b) occupancy grids and the mismatch loop: kernels 4 and 5 ---------
+        mesh = rescale_mesh(make_icosphere(OCC_LEVEL, 0.5))
+        sphere_r = float(np.linalg.norm(mesh.vertices, axis=1).mean())
+        out["occupancy"] = {}
+        for n in OCC_SIZES:
+            tag = f"occupancy/{n}"
+            with counted(launches, tag):
+                t0 = time.perf_counter()
+                occ = sampler.generate_occupancy(n, mesh)
+                sec = time.perf_counter() - t0
+            need(launches, tag, "dist_stream", "wind_stream")
+            rr = np.linalg.norm(occ.values[:, :3], axis=1)
+            away = np.abs(rr - sphere_r) > 0.01  # well past the facets' sag
+            wrong = int(np.sum(occ["occupancy"][away] != np.sign(rr[away] - sphere_r)))
+            row = {"seconds": sec, "points": len(occ), "faces": len(mesh.faces),
+                   "inside": int(np.sum(occ["occupancy"] < 0)), "checked": int(away.sum()),
+                   "wrong_signs": wrong, "launches": {k: v for k, v in launches[tag].items() if v}}
+            print(f"phase 4g (b) generate_occupancy {n}^3 ({card}): " + json.dumps(row), flush=True)
+            if len(occ) != n ** 3 or wrong:
+                raise RuntimeError(f"{tag}: signs disagree with the analytic sphere: {row}")
+            out["occupancy"][n] = row
+
+        audit = Trainer(Configuration(str(run_root / "pipeline" / "audit_64.ini")))
+        coords = frame_from_csv(str(pathlib.Path(audit.postprocess_save_path)
+                                    / "mismatching_co-ordinates1.csv"))
+        pts = np.column_stack([coords[c] for c in ("x", "y", "z")])
+        # the geometry the audit labelled against
+        mesh_path = str(pathlib.Path(audit.main_path) / f"{audit.geometry_name}_rescaled.stl")
+        with counted(launches, "mismatch"):
+            t0 = time.perf_counter()
+            path = sampler.augment_mismatch_from_postprocess(audit, mesh_path=mesh_path)
+            sec = time.perf_counter() - t0
+        need(launches, "mismatch", "dist_stream", "wind_stream")
+        got = frame_from_csv(path)
+        S, nrm = signed_distance(pts, load_mesh(mesh_path))
+        same = (len(pts) > 0 and np.array_equal(got.values[:, :3], pts)
+                and np.array_equal(got["S"], S) and np.array_equal(got.values[:, 4:], nrm))
+        row = {"points": len(pts), "seconds": sec, "equal_to_signed_distance": bool(same),
+               "launches": {k: v for k, v in launches["mismatch"].items() if v}}
+        print(f"phase 4g (b) mismatch loop on the 64^3 audit's coordinates ({card}): "
+              + json.dumps(row), flush=True)
+        if not same:
+            raise RuntimeError(f"mismatch.csv is not signed_distance of the audit's points: {row}")
+        out["mismatch"] = row
+
+        # -- (c) the trained flagship net through the export entry point --------
+        train_cfg = str(run_root / "pipeline" / "train_float32.ini")
+        export_dir = run_root / "export"
+        shutil.rmtree(export_dir, ignore_errors=True)
+        with counted(launches, "export"):
+            t0 = time.perf_counter()
+            if export_main([train_cfg, str(export_dir), "--quantize", "--torchscript",
+                            "--fixtures", str(EXPORT_FIXTURES)]) != 0:
+                raise RuntimeError("export: the entry point failed")
+            export_wall = time.perf_counter() - t0
+        # the fixtures are the module's own f32 forward: no kernel
+        only_launched(launches, "export")
+        stages = dict(conversion.LAST_STAGE_SECONDS)
+        files = {f: (export_dir / f).stat().st_size for f in (
+            "model.sdfw", "model_int8.sdfw", "model.onnx", "model_quant.onnx",
+            "implicit_model.pt", "input.csv", "output.csv", "gradient.csv")}
+        lint = {f: lint_onnx(str(export_dir / f)) for f in ("model.onnx", "model_quant.onnx")}
+        if any(lint.values()):
+            raise RuntimeError(f"export: the lint found problems: {lint}")
+        pts = np.loadtxt(export_dir / "input.csv", delimiter=",", dtype=np.float32)
+        ref_v = np.loadtxt(export_dir / "output.csv", delimiter=",")
+        ref_g = np.loadtxt(export_dir / "gradient.csv", delimiter=",")
+        trained = Trainer(Configuration(train_cfg))
+        trained.load_model(best=True)
+        model = trained.model
+        with torch.no_grad():
+            fwd = model(torch.from_numpy(pts).to(device)).cpu().numpy()
+        errors = {"fixtures_vs_forward": within(ref_v, fwd, (1e-5, 1e-6), "fixtures")}
+
+        t0 = time.perf_counter()
+        finish_native_build(procs)
+        stages["native_build_wait"] = time.perf_counter() - t0
+        stages["native_build_since_start"] = time.perf_counter() - t_build
+        t0 = time.perf_counter()
+        subprocess.run([str(native_dir / "parity_main"), str(export_dir / "model.sdfw"),
+                        str(export_dir / "input.csv"), str(export_dir / "cpp_output.csv"),
+                        str(export_dir / "cpp_gradient.csv")], check=True, capture_output=True,
+                       timeout=600)
+        stages["native_parity"] = time.perf_counter() - t0
+        errors["parity_main_values"] = within(np.loadtxt(export_dir / "cpp_output.csv", delimiter=","),
+                                              ref_v, NATIVE_VALUE_TOL, "parity_main values")
+        errors["parity_main_gradients"] = within(
+            np.loadtxt(export_dir / "cpp_gradient.csv", delimiter=","), ref_g, NATIVE_GRAD_TOL,
+            "parity_main gradients")
+        t0 = time.perf_counter()
+        onnx_v = onnx_eval.run_onnx(str(export_dir / "model.onnx"), {"points": pts})["sdf"][:, 0]
+        stages["onnx_eval"] = time.perf_counter() - t0
+        errors["onnx_eval_values"] = within(onnx_v, ref_v, NATIVE_VALUE_TOL, "onnx_eval")
+        t0 = time.perf_counter()
+        ts_v, ts_g = ts.eval_torchscript(str(export_dir / "implicit_model.pt"), pts, gradients=True)
+        stages["eval_torchscript"] = time.perf_counter() - t0
+        errors["torchscript_values"] = within(ts_v, ref_v, NATIVE_VALUE_TOL, "torchscript values")
+        errors["torchscript_gradients"] = within(ts_g, ref_g, NATIVE_GRAD_TOL, "torchscript gradients")
+        lib = str(native_dir / "libsdfnet_c.so")
+        for name in ("model.sdfw", "model.onnx"):
+            with NativeSDF(str(export_dir / name), lib_path=lib) as net:
+                vals, grads = net.evaluate(pts, gradients=True)
+            errors[f"NativeSDF_{name}_values"] = within(vals, ref_v, NATIVE_VALUE_TOL, f"NativeSDF {name}")
+            errors[f"NativeSDF_{name}_gradients"] = within(grads, ref_g, NATIVE_GRAD_TOL,
+                                                           f"NativeSDF {name} gradients")
+        arch, sd8 = quantize.load_sdfw_any(str(export_dir / "model_int8.sdfw"))
+        deq = ImplicitNet(**arch, device="cpu")
+        deq.load_state_dict(sd8)
+        with NativeSDF(str(export_dir / "model_int8.sdfw"), lib_path=lib) as net, torch.no_grad():
+            errors["NativeSDF_int8_vs_dequantized"] = within(
+                net(pts), deq(torch.from_numpy(pts)).numpy(), NATIVE_VALUE_TOL, "NativeSDF int8")
+        dt_dir = export_dir / "deeptrace"
+        dt_dir.mkdir()
+        (dt_dir / "config.txt").write_text(
+            "refine_lvl_uni = 2\nrefine_lvl_bd = 4\ncubeDomainMin = [-1.0, -1.0, -1.0]\n"
+            f"cubeDomainMax = [1.0, 1.0, 1.0]\nModelFileName = \"{export_dir}/model.onnx\"\n"
+            "useDeepLearning = true\n")
+        t0 = time.perf_counter()
+        res = subprocess.run([str(native_dir / "deeptrace"), str(dt_dir / "config.txt"), str(dt_dir)],
+                             check=True, capture_output=True, text=True, timeout=600)
+        stages["deeptrace"] = time.perf_counter() - t0
+        leaf = np.loadtxt(dt_dir / "points.csv", delimiter=",", ndmin=2)
+        with torch.no_grad():
+            leaf_f = model(torch.from_numpy(leaf[:, :3].astype(np.float32)).to(device)).cpu().numpy()
+        if "leaf cells" not in res.stdout:
+            raise RuntimeError(f"deeptrace: {res.stdout[-500:]}")
+        errors["deeptrace_leaf_values"] = within(leaf[:, 3], leaf_f, NATIVE_VALUE_TOL, "deeptrace")
+        row = {"wall_s": export_wall, "stages_s": stages, "files_bytes": files,
+               "fixtures": len(pts), "deeptrace_points": len(leaf), "max_abs_err": errors}
+        print(f"phase 4g (c) export of the trained 8x512 net ({card}): " + json.dumps(row), flush=True)
+        out["export"] = row
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    report["export_two_dim"] = out
+    return launches
+
+
 def drive_marching(device, run_root, model, checks, report):
     """Phase 4f: the device marcher and the slab-streamed extractor on the
     seeded and the trained 8x512 nets, counts zeroed before each run.
@@ -1622,14 +1921,9 @@ def drive_pipeline(device, run_root, report):
             raise RuntimeError(f"{tag}: a global precision switch was left changed")
         return wall
 
-    def need(tag, *names):
-        missing = [n for n in names if launches[tag][n] < 1]
-        if missing:
-            raise RuntimeError(f"{tag} did not launch {missing}: {launches[tag]}")
-
     # -- sample and label -------------------------------------------------------
     wall = run("sampling", config("sampling", samplingonly=True))
-    need("sampling", "dist_stream", "wind_stream")
+    need(launches, "sampling", "dist_stream", "wind_stream")
     trainer = Trainer(Configuration(config("sampling", samplingonly=True)))
     frames = {n: frame_from_csv(str(pathlib.Path(trainer.data_path) / f"{n}.csv"))
               for n in ("uniform", "surface", "narrow")}
@@ -1687,7 +1981,7 @@ def drive_pipeline(device, run_root, report):
         tag = f"audit/{cubesize}"
         sdf_culled.LAST_COUNTS.clear()
         wall = run(tag, config(f"audit_{cubesize}", ppo=True, cubesize=cubesize))
-        need(tag, "dist_stream", "wind_stream", "fused_grid")
+        need(launches, tag, "dist_stream", "wind_stream", "fused_grid")
         # 256^3 x 20,480 faces goes to the culled method by "auto", 64^3 stays dense
         culled = dict(sdf_culled.LAST_COUNTS)
         if bool(culled) != (cubesize == 256) or (culled and culled["points"] != cubesize ** 3):
@@ -2023,6 +2317,7 @@ def main() -> int:
     sharded_runs, shard_eval = drive_sharded(device, run_root, model, report)
     runs.update(sharded_runs)
     runs.update(drive_marching(device, run_root, model, checks, report))
+    runs.update(drive_export_two_dim(device, run_root, report))
 
     # ---- 5. times -----------------------------------------------------------
     mac = sum(fi * fo for fi, fo in model.layer_shapes())

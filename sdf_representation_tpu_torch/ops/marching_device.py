@@ -357,9 +357,10 @@ _WIRE_LIB = None  # None = untried; False = unavailable; else bound CDLL
 
 def _get_wire_lib():
     """The native packed-wire decoder (native/src/wire_decode.cpp) inside
-    build/libsdfnet_c.so, or None. The numpy decode below is the reference
-    implementation and the fallback; SDF_WIRE_DECODE=numpy forces it (the
-    parity tests A/B the two). SDF_WIRE_LIB overrides the library path."""
+    libsdfnet_c.so (``export.native_runtime.default_lib_path``), or None.
+    The numpy decode below is the reference implementation and the
+    fallback; SDF_WIRE_DECODE=numpy forces it (the parity tests A/B the
+    two). SDF_WIRE_LIB overrides the library path."""
     global _WIRE_LIB
     if _WIRE_LIB is not None:
         return _WIRE_LIB or None
@@ -368,11 +369,9 @@ def _get_wire_lib():
         return None
     import ctypes
 
-    path = os.environ.get("SDF_WIRE_LIB")
-    if path is None:
-        repo = os.path.dirname(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))))
-        path = os.path.join(repo, "build", "libsdfnet_c.so")
+    from ..export.native_runtime import default_lib_path
+
+    path = os.environ.get("SDF_WIRE_LIB", default_lib_path())
     try:
         lib = ctypes.CDLL(path)
         lib.sdfnet_wire_decode  # older builds lack the symbol

@@ -17,6 +17,11 @@ Distribution semantics kept:
     num_points_narrow_band widths, truncating to the min — same here
   * dataset columns x,y,z,S,nx,ny,nz; seed RANDOM_SEED_DATA_GENERATION = 100.
 
+Also the analytic fixtures (the sphere, the 2-D circle at z = 0: numpy only,
+bit-identical to the JAX package's), the dense occupancy grid and the
+mismatch loop (the audit's mismatching coordinates labelled into
+mismatch.csv), whose labels come from ``signed_distance`` on the device.
+
 Frames are a small numpy record (``Frame``), not pandas; ``Frame.to_csv``
 writes the layout pandas gives ``DataFrame.to_csv`` (a leading index column).
 """
@@ -24,6 +29,7 @@ writes the layout pandas gives ``DataFrame.to_csv`` (a leading index column).
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Optional, Tuple, Union
 
@@ -171,3 +177,134 @@ def generate_signed_distance(query_points: np.ndarray, geometry: Union[str, Mesh
                              device=None) -> Frame:
     """Label arbitrary query points (cf. data_generator.py:273-301)."""
     return _label(np.asarray(query_points, dtype=np.float64), _as_mesh(geometry), device)
+
+
+def generate_occupancy(cube_size: int, geometry: Union[str, Mesh], device=None) -> Frame:
+    """Dense-grid occupancy (sign of S) (cf. data_generator.py:307-350):
+    columns x, y, z, occupancy."""
+    axis = np.linspace(-1, 1, cube_size)
+    g = np.stack(np.meshgrid(axis, axis, axis, indexing="ij"), axis=-1).reshape(-1, 3)
+    S, _ = signed_distance(g, _as_mesh(geometry), device=device)
+    return Frame(("x", "y", "z", "occupancy"), np.column_stack([g, np.sign(S)]))
+
+
+# ---------------------------------------------------------------------------
+# Analytic fixtures (correctness oracles)
+# ---------------------------------------------------------------------------
+
+def _radial_frame(pts: np.ndarray, radius: float) -> Frame:
+    """Rows labelled with |p| - radius and the unit radial normal (0 at the
+    origin)."""
+    S = np.linalg.norm(pts, axis=1) - radius
+    norms = np.linalg.norm(pts, axis=1, keepdims=True)
+    n = np.divide(pts, norms, out=np.zeros_like(pts), where=norms > 0)
+    return Frame(COLUMNS, np.column_stack([pts, S, n]))
+
+
+def _save_frames(save_path: Optional[str], uniform: Frame, surface: Frame, narrow: Frame) -> None:
+    if save_path:
+        for name, frame in (("uniform", uniform), ("surface", surface), ("narrow", narrow)):
+            frame.to_csv(os.path.join(save_path, f"{name}.csv"))
+
+
+def generate_analytical_sphere(
+    uniform_points: int,
+    narrow_points: int,
+    on_surface_points: int,
+    save_path: Optional[str] = None,
+    seed: int = RANDOM_SEED_DATA_GENERATION,
+) -> Tuple[Frame, Frame, Frame]:
+    """Analytic sphere r = 0.5 dataset incl. extra pole/axis points
+    (cf. data_generator.py:392-466). Normals are unit (the reference stored
+    the un-normalised point as 'normal'; unit normals are what the losses
+    consume). Returns (uniform, narrow, surface)."""
+    radius = 0.5
+    rng = np.random.default_rng(seed)
+
+    def spherical(r):
+        n = len(r)
+        theta = rng.uniform(0, 2 * np.pi, n)
+        phi = rng.uniform(0, np.pi, n)
+        return np.column_stack(
+            [r * np.sin(phi) * np.cos(theta), r * np.sin(phi) * np.sin(theta), r * np.cos(phi)]
+        )
+
+    uniform = _radial_frame(spherical(rng.uniform(-1, 1, uniform_points)), radius)
+    narrow = _radial_frame(spherical(rng.uniform(0.846, 0.854, narrow_points)), radius)
+
+    surf = spherical(radius * np.ones(on_surface_points))
+    n_extra = int(0.1 * on_surface_points)
+    if n_extra > 0:
+        axes = np.array(
+            [[0, 0, 1], [0, 0, -1], [0, 1, 0], [0, -1, 0], [1, 0, 0], [-1, 0, 0]],
+            dtype=np.float64,
+        ) * radius
+        jitter = rng.normal(0, 0.001, size=(6, n_extra, 3))
+        near = axes[:, None, :] + jitter
+        near = near / np.linalg.norm(near, axis=-1, keepdims=True) * radius
+        surf = np.vstack([surf, near.reshape(-1, 3)])
+    surface = _radial_frame(surf, radius)
+    _save_frames(save_path, uniform, surface, narrow)
+    return uniform, narrow, surface
+
+
+def generate_points_circle(
+    uniform_points: int,
+    on_surface_points: int,
+    narrow_points: int,
+    width: float,
+    save_path: Optional[str] = None,
+    seed: int = RANDOM_SEED_DATA_GENERATION,
+) -> Tuple[Frame, Frame, Frame]:
+    """2D analytic circle r = sqrt(2/pi) at z = 0 (cf. data_generator.py:
+    468-536). Returns (uniform, narrow, surface)."""
+    radius = np.sqrt(2.0 / np.pi)
+    rng = np.random.default_rng(seed)
+
+    xy = rng.uniform(-1, 1, size=(uniform_points, 2))
+    uniform = _radial_frame(np.column_stack([xy, np.zeros(uniform_points)]), radius)
+
+    r = rng.uniform(radius - width, radius + width, narrow_points)
+    th = rng.uniform(0, 2 * np.pi, narrow_points)
+    narrow = _radial_frame(
+        np.column_stack([r * np.cos(th), r * np.sin(th), np.zeros(narrow_points)]), radius)
+
+    th = rng.uniform(0, 2 * np.pi, on_surface_points)
+    surface = _radial_frame(
+        np.column_stack([radius * np.cos(th), radius * np.sin(th), np.zeros(on_surface_points)]),
+        radius)
+    _save_frames(save_path, uniform, surface, narrow)
+    return uniform, narrow, surface
+
+
+def write_signed_distance_mismatch(
+    query_points: np.ndarray,
+    geometry: Union[str, Mesh],
+    save_directory: str,
+    device=None,
+) -> str:
+    """Label the post-process mismatching coordinates and write them as
+    mismatch.csv so the next training round (mismatchuse = True) focuses on
+    them (cf. reference data_generator.py:643-671 write_signed_distance_mismatch
+    + load_data.py:44-45)."""
+    frame = generate_signed_distance(query_points, geometry, device)
+    path = os.path.join(save_directory, "mismatch.csv")
+    frame.to_csv(path)
+    return path
+
+
+def augment_mismatch_from_postprocess(trainer, mesh_path: Optional[str] = None) -> str:
+    """Close the mismatch loop: read mismatching_co-ordinates1.csv written by
+    the audit (evaluations/post_process.py), label those points exactly on
+    the trainer's device, write mismatch.csv into the trainer's data path.
+    The mesh is ``mesh_path``, else the trainer's rescaled geometry where
+    this trainer rescaled it, else ``config.geometry`` (the JAX package's
+    rule)."""
+    from ..data.dataset import frame_from_csv
+
+    coords = frame_from_csv(os.path.join(trainer.postprocess_save_path,
+                                         "mismatching_co-ordinates1.csv"))
+    points = np.column_stack([coords[c] for c in ("x", "y", "z")])
+    if mesh_path is None:
+        mesh_path = getattr(trainer, "rescaled_path", None) or trainer.config.geometry
+    return write_signed_distance_mismatch(points, mesh_path, trainer.data_path, trainer.device)

@@ -63,7 +63,6 @@ a backward that makes a NaN raises.
 
 from __future__ import annotations
 
-import contextlib
 import math
 import os
 import time
@@ -76,7 +75,7 @@ from ..data.dataset import SDFDataset, load_data
 from ..ops.diffops import implicitnet_value_and_grad
 from ..ops.fused_igr import make_fused_value_and_grad, make_fused_value_and_grad_sharded
 from ..parallel.mesh import gather, get_mesh, replicate, shard_batch
-from ..utils.device import resolve_device
+from ..utils.device import matmul_precision, resolve_device
 from ..utils.files import create_directory
 from . import checkpoint as ckpt
 
@@ -93,21 +92,11 @@ PRECISIONS = (None, "bfloat16", *_TORCH_PRECISION)
 LAST_RUN: dict = {}
 
 
-@contextlib.contextmanager
 def _matmul_precision(precision: Optional[str]):
     """The float32 matmul precision a ``train_matmul_precision`` name asks
     for (``_TORCH_PRECISION``), restored on exit (the global switch is never
     left changed)."""
-    setting = _TORCH_PRECISION.get(precision)
-    if setting is None:
-        yield
-        return
-    before = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision(setting)
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(before)
+    return matmul_precision(_TORCH_PRECISION.get(precision))
 
 
 def use_fused_igr(model, precision: Optional[str]) -> bool:
@@ -328,11 +317,13 @@ class Trainer:
             for f in ("uniform.csv", "surface.csv", "narrow.csv")
         ):
             return
-        if c.two_dim:
-            raise NotImplementedError(
-                "the 2-D circle mode (two_dim = True) is not ported yet: see ROADMAP.md"
-            )
         from ..sampling import sampler
+
+        if c.two_dim:
+            # the analytic circle at z = 0 (JAX trainer.py:468-475)
+            sampler.generate_points_circle(c.uniform_points, c.surface, c.narrowband,
+                                           c.narrowband_width, save_path=self.data_path)
+            return
 
         t0 = time.perf_counter()
         geometry_path = self.rescale() if c.rescale else c.geometry
@@ -563,8 +554,9 @@ class Trainer:
             from ..evaluations.post_process import post_process
 
             return post_process(self)
+        result = self.train()
         if c.two_dim:
-            raise NotImplementedError(
-                "the 2-D circle mode (two_dim = True) is not ported yet: see ROADMAP.md"
-            )
-        return self.train()
+            from ..evaluations.two_dim import two_dim_contour
+
+            two_dim_contour(self)
+        return result

@@ -6,6 +6,9 @@ card and no device named they raise instead of quietly running on the CPU.
 
 from __future__ import annotations
 
+import contextlib
+from typing import Optional
+
 import torch
 
 
@@ -23,3 +26,19 @@ def resolve_device(device: torch.device | str | None = None) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return device
+
+
+@contextlib.contextmanager
+def matmul_precision(setting: Optional[str]):
+    """torch's float32 matrix-product precision set to ``setting`` for the
+    block and restored after it ("highest": full float32, TF32 off); None
+    leaves it as it is."""
+    if setting is None:
+        yield
+        return
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision(setting)
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(before)

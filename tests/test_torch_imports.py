@@ -35,6 +35,12 @@ def test_port_modules_load_no_jax_or_jax_package():
     assert "sdf_representation_tpu_torch.ops.sharded_eval" in mods
     assert "sdf_representation_tpu_torch.ops.marching_device" in mods
     assert "sdf_representation_tpu_torch.ops.giga_extract" in mods
+    for name in ("native_format", "quantize", "onnx_export", "onnx_eval", "onnx_lint",
+                 "protobuf_min", "torchscript_export", "torch_import", "native_runtime",
+                 "conversion", "__main__"):
+        assert f"sdf_representation_tpu_torch.export.{name}" in mods
+    assert "sdf_representation_tpu_torch.export" in mods
+    assert "sdf_representation_tpu_torch.evaluations.two_dim" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
