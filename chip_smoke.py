@@ -170,6 +170,26 @@ Phases, none of which is allowed to fail quietly:
     1e-5 (values) and rtol 1e-3 / atol 1e-4 (gradients), NativeSDF on the
     int8 file against the dequantized forward, deeptrace's leaf values
     against the forward; each stage's seconds printed.
+ 4h. Every model family through the entry point, counts zeroed before each
+    run and read after it: (a) configs/mesh_sdf_hash.ini at its full width
+    (HashMLP: 8 levels of 2^15 x 2 tables, 3x64 MLP, batch 16384, bfloat16;
+    only paths, epochs and mode flags changed) on phase 4b's icosphere(5,
+    0.5): samplingonly (the distance and winding streams launch), training
+    (the loss falls), the audit at 256^3 (hash_grid_eval; the streams), the
+    reconstruction at 256^3 (hash_grid_eval, marched on the card) and at
+    1024^3 (the giga route through the x-slab evaluator), each mesh's
+    median vertex radius within 1% of 0.85; no run launches kernels 1-3 or
+    any other kernel. Then hash_grid_eval at 256^3 within rtol 2e-5 / atol
+    2e-6 of the module's pointwise f32 forward, the first three 1024^3
+    x-slabs (three planes each) within the same limits and the plane two
+    slabs share bit-equal in both, and 131,072 points' corner indices
+    (x 8 corners x 8 levels) equal to numpy's uint32 hash. (b)
+    FeedForwardNetwork 8x512, Siren 5x256 (omega_0 30) and KAN (3, 64, 64,
+    1) at grid 256 on configs/mesh_sdf.ini (model and widths changed) and
+    (a)'s samples: training (finite, falling losses), the audit at 128^3
+    (evaluate_points; whether its chunk was quartered is printed) and the
+    reconstruction at 128^3 (evaluate_grid on the card). Wall time, points/s
+    and peak device memory per run.
  5. Times with CUDA events at the main path's shapes: kernel, plain version,
     one library layer chain (torch addmm, never called by the port), and
     the bound: the larger of bytes over 3.35 TB/s and operations over the
@@ -205,6 +225,7 @@ Details go to build/chip_smoke.json.
 """
 
 import contextlib
+import io
 import json
 import math
 import pathlib
@@ -328,6 +349,16 @@ NATIVE_FLAGS = ("-O3", "-march=native", "-fno-trapping-math", "-fno-math-errno",
 # the native runtime against the port's f32 fixtures (tests/test_export_native.py)
 NATIVE_VALUE_TOL = (1e-4, 1e-5)   # rtol, atol
 NATIVE_GRAD_TOL = (1e-3, 1e-4)
+# phase 4h: configs/mesh_sdf_hash.ini at its full width (its own 100 epochs
+# cut to HASH_EPOCHS); FFN, Siren and KAN at the JAX defaults on the same
+# samples, FAMILY_EPOCHS each; the separable evaluator against the pointwise
+# f32 forward at the JAX test's tolerance (tests/test_hash_grid.py)
+HASH_EPOCHS = 20
+FAMILY_EPOCHS = 4
+HASH_N, GIGA_N, FAMILY_N = 256, 1024, 128  # cubesizes: audit and mesh, the giga mesh, (b)
+HASH_TOL = (2e-5, 2e-6)   # rtol, atol
+HASH_RADIUS_TOL = 0.01    # |median vertex radius / 0.85 - 1|
+HASH_INDEX_POINTS = 131072  # x 8 corners: ~1M indices a level against numpy
 
 
 def plain_dropping(net, x, drop, product=None):
@@ -2126,6 +2157,235 @@ def drive_pipeline(device, run_root, report):
     return launches
 
 
+def numpy_corner_indices(model, x):
+    """(B, L, 8) corner rows of the stacked tables from numpy: float32 corner
+    positions and weights as the encoder computes them, the hash in uint32
+    with wraparound."""
+    offs = np.array([[dx, dy, dz] for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)])
+    x01 = np.clip((x + np.float32(1)) * np.float32(0.5), np.float32(0), np.float32(1))
+    T = model.table_size
+    out = []
+    for level in range(model.n_levels):
+        res = model.level_resolution(level)
+        p0 = np.floor(x01 * np.float32(res)).astype(np.int64)
+        c = np.clip(p0[:, None, :] + offs[None], 0, res)
+        if (res + 1) ** 3 <= T:
+            idx = c[..., 0] * (res + 1) ** 2 + c[..., 1] * (res + 1) + c[..., 2]
+        else:
+            cu = c.astype(np.uint32)
+            with np.errstate(over="ignore"):
+                h = (cu[..., 0] * np.uint32(1)) ^ (cu[..., 1] * np.uint32(2654435761)) \
+                    ^ (cu[..., 2] * np.uint32(805459861))
+            idx = (h % np.uint32(T)).astype(np.int64)
+        out.append(idx + level * T)
+    return np.stack(out, axis=1)
+
+
+def drive_families(device, run_root, report):
+    """Phase 4h: (a) configs/mesh_sdf_hash.ini at its full width through the
+    entry point (sample, train, audit at 256^3, reconstruct at 256^3 and on
+    the giga route at 1024^3), with the separable evaluator held against the
+    pointwise f32 forward, the x-slab seams and the hash against numpy;
+    (b) FeedForwardNetwork, Siren and KAN at the JAX defaults on (a)'s
+    samples: train, audit and reconstruct at 128^3. Counts are zeroed before
+    each run and read after it; labelling and the audits must launch the
+    distance and winding streams, and no run may launch kernels 1-3.
+    Returns the launches per run."""
+    from sdf_representation_tpu_torch import cli
+    from sdf_representation_tpu_torch.configgen import Configuration
+    from sdf_representation_tpu_torch.evaluations import post_process, reconstruct
+    from sdf_representation_tpu_torch.geometry.mesh_io import load_mesh, save_mesh
+    from sdf_representation_tpu_torch.geometry.primitives import make_icosphere
+    from sdf_representation_tpu_torch.ops import giga_extract
+    from sdf_representation_tpu_torch.ops import hash_grid_eval as hge
+    from sdf_representation_tpu_torch.ops.grid_eval import evaluate_grid
+    from sdf_representation_tpu_torch.sampling import sampler
+    from sdf_representation_tpu_torch.training import Trainer
+    from sdf_representation_tpu_torch.training import trainer as trainer_module
+
+    card = report["card"]
+    root = run_root / "families"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    save_mesh(make_icosphere(5, 0.5), str(root / "sphere.stl"))  # phase 4b's geometry
+    base = with_keys((REPO / "configs" / "mesh_sdf_hash.ini").read_text(),
+                     geometry=f"{root}/sphere.stl", directory=f"{root}/runs/", epochs=HASH_EPOCHS,
+                     min_epochs=HASH_EPOCHS, checkpointing=HASH_EPOCHS)
+    launches, out = {}, {}
+
+    def run(tag, text, *streams):
+        """The entry point on ``text`` (an INI), counts zeroed; returns
+        (wall s, peak device bytes, what it printed)."""
+        path = root / (tag.replace("/", "_") + ".ini")
+        path.write_text(text)
+        torch.cuda.reset_peak_memory_stats()
+        printed = io.StringIO()
+        with counted(launches, tag), contextlib.redirect_stdout(printed):
+            t0 = time.perf_counter()
+            if cli.main([str(path)]) != 0:
+                raise RuntimeError(f"{tag}: the entry point failed")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        print(printed.getvalue(), end="", flush=True)
+        peak = torch.cuda.max_memory_allocated()
+        # the streams where the labels need them, and nothing else
+        only_launched(launches, tag, **{k: v for k, v in launches[tag].items()
+                                        if k in ("dist_stream", "wind_stream")})
+        need(launches, tag, *streams)
+        return wall, peak, printed.getvalue()
+
+    # -- (a) HashMLP: sample, train, audit, reconstruct --------------------------
+    wall, peak, _ = run("hash/sampling", with_keys(base, samplingonly=True),
+                        "dist_stream", "wind_stream")
+    out["sampling"] = {"wall_s": wall, "peak_bytes": peak,
+                       "stages_s": dict(sampler.LAST_STAGE_SECONDS)}
+    wall, peak, _ = run("hash/train", base)
+    stats = dict(trainer_module.LAST_RUN)
+    trainer = Trainer(Configuration(str(root / "hash_train.ini")))
+    model = trainer.model
+    curve = np.loadtxt(pathlib.Path(trainer.train_path) / "train_loss.txt")
+    out["train"] = {"wall_s": wall, "peak_bytes": peak, **stats,
+                    "train_loss": curve[:, 1].tolist(), "val_loss": curve[:, 2].tolist()}
+    print(f"phase 4h (a) HashMLP train ({card}): 8 levels x 2^15 x 2, 3x64, batch 16384, "
+          f"bfloat16, {HASH_EPOCHS} epochs: {json.dumps(out['train'])}", flush=True)
+    if not (len(curve) == HASH_EPOCHS and np.isfinite(curve).all() and curve[-1, 1] < curve[0, 1]):
+        raise RuntimeError(f"hash/train: the loss did not fall: {curve[:, 1]}")
+    if (model.n_levels, model.table_size, model.n_features, model.num_layers, model.hidden_dim) \
+            != (8, 1 << 15, 2, 3, 64):
+        raise RuntimeError("hash/train: not the shipped width")
+    post = pathlib.Path(trainer.postprocess_save_path)
+
+    wall, peak, _ = run(f"hash/audit/{HASH_N}", with_keys(base, ppo=True, cubesize=HASH_N),
+                        "dist_stream", "wind_stream")
+    header, *rows = (post / "results.csv").read_text().splitlines()
+    result = dict(zip(header.split(","), map(float, rows[-1].split(","))))
+    out["audit"] = {"cubesize": HASH_N, "wall_s": wall, "peak_bytes": peak, "result": result,
+                    "stages_s": dict(post_process.LAST_STAGE_SECONDS)}
+    print(f"phase 4h (a) HashMLP audit {HASH_N}^3 ({card}): {json.dumps(out['audit'])}", flush=True)
+    if not (result["Resolution"] == HASH_N and np.isfinite(list(result.values())).all()
+            and result["Accuracy"] > 0.9):
+        raise RuntimeError(f"hash/audit/{HASH_N}: {result}")
+
+    for n in (HASH_N, GIGA_N):
+        tag = f"hash/reconstruct/{n}"
+        wall, peak, _ = run(tag, with_keys(base, ppo=True, reconstruct=True, cubesize=n))
+        stl = post / f"reconstructed_epoch{HASH_EPOCHS - 1}.stl"
+        mesh = load_mesh(str(stl))
+        radii = np.linalg.norm(mesh.vertices, axis=1)
+        row = {"wall_s": wall, "peak_bytes": peak, "faces": len(mesh.faces),
+               "median_radius": float(np.median(radii)),
+               "route": reconstruct.model_route(model, n),
+               "stages_s": dict(reconstruct.LAST_STAGE_SECONDS)}
+        stl.unlink()
+        out[f"reconstruct_{n}"] = row
+        print(f"phase 4h (a) HashMLP reconstruct {n}^3 ({card}): {json.dumps(row)}", flush=True)
+        if row["route"] != ("giga" if n == GIGA_N else "hash") or len(mesh.faces) < 1000 \
+                or abs(row["median_radius"] / 0.85 - 1) > HASH_RADIUS_TOL:
+            raise RuntimeError(f"{tag}: not a sphere of radius 0.85 within 1%: {row}")
+
+    # the separable evaluator against the pointwise f32 forward
+    trainer.load_model(best=False)
+    rtol, atol = HASH_TOL
+    with torch.no_grad():
+        hge.hash_grid_eval(model, HASH_N)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sep = hge.hash_grid_eval(model, HASH_N)
+        torch.cuda.synchronize()
+        sep_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pointwise = evaluate_grid(model, HASH_N)
+        torch.cuda.synchronize()
+        point_s = time.perf_counter() - t0
+        over, err = exceeds(sep, pointwise, rtol, atol)
+    out["separable"] = {"cubesize": HASH_N, "max_abs_err": err, "over_tol": over,
+                        "separable_s": sep_s, "pointwise_s": point_s}
+    print(f"phase 4h (a) hash_grid_eval {HASH_N}^3 against the pointwise f32 forward ({card}): "
+          + json.dumps(out["separable"]), flush=True)
+    if over > 0:
+        raise RuntimeError(f"hash_grid_eval at {HASH_N}^3 is off the pointwise forward: {over}")
+    del sep, pointwise
+
+    # the giga route's first three x-slabs as the extractor evaluates them:
+    # three planes of each against the pointwise forward, and the plane two
+    # adjacent slabs share bit-equal in both
+    n = GIGA_N
+    plan = giga_extract._slab_plan(n, giga_extract.default_slab(n))[:3]
+    planes = {}
+    with torch.no_grad():
+        step = torch.tensor(2.0 / (n - 1), dtype=torch.float32, device=device)
+        ax = -1.0 + step * torch.arange(n, dtype=torch.float32, device=device)
+        slabs = [hge.hash_grid_eval_x_slab(model, x0, sx, n) for x0, sx in plan]
+        seams = [bool(torch.equal(a[-1], b[0])) for a, b in zip(slabs, slabs[1:])]
+        for (x0, sx), vol in zip(plan, slabs):
+            for i in (x0, x0 + sx // 2, x0 + sx - 1):
+                pts = torch.stack(torch.broadcast_tensors(ax[i], ax[:, None], ax[None, :]),
+                                  dim=-1).reshape(-1, 3)
+                over, err = exceeds(vol[i - x0], model(pts).reshape(n, n), rtol, atol)
+                planes[i] = {"max_abs_err": err, "over_tol": over}
+        del slabs
+    out["x_slabs"] = {"cubesize": n, "plan": plan, "seams_bit_equal": seams, "planes": planes}
+    print(f"phase 4h (a) x-slabs at {n}^3 ({card}): " + json.dumps(out["x_slabs"]), flush=True)
+    if len(seams) != 2 or not all(seams) or any(p["over_tol"] > 0 for p in planes.values()):
+        raise RuntimeError(f"the {n}^3 x-slabs disagree: {out['x_slabs']}")
+
+    # the corner indices of the card against numpy's uint32 hash
+    x = (torch.rand(HASH_INDEX_POINTS, 3, generator=torch.Generator().manual_seed(SEED)) * 2.1
+         - 1.05)
+    idx, _ = model.corner_indices(x.to(device))
+    want = numpy_corner_indices(model, x.numpy())
+    hashed = [lv for lv in range(model.n_levels) if not model.is_dense(lv)]
+    out["indices"] = {"indices": int(want.size), "hashed_levels": hashed,
+                      "differ": int((idx.cpu().numpy() != want).sum())}
+    print(f"phase 4h (a) corner indices against numpy's uint32 hash: {json.dumps(out['indices'])}",
+          flush=True)
+    if out["indices"]["differ"] or not 0 < len(hashed) < model.n_levels:
+        raise RuntimeError(f"the corner indices differ from numpy's: {out['indices']}")
+
+    # -- (b) FFN, Siren and KAN at the JAX defaults, on (a)'s samples ------------
+    flagship = (REPO / "configs" / "mesh_sdf.ini").read_text()
+    for name, hidden, layers in (("FeedForwardNetwork", 512, 8), ("Siren", 256, 5),
+                                 ("KAN", 64, 2)):
+        text = with_keys(flagship, geometry=f"{root}/sphere.stl", directory=f"{root}/runs/",
+                         name="bunny_hash", model=name, hidden_dim=hidden, num_hidden_layers=layers,
+                         epochs=FAMILY_EPOCHS, min_epochs=FAMILY_EPOCHS,
+                         checkpointing=FAMILY_EPOCHS, cubesize=FAMILY_N)
+        row = {}
+        wall, peak, _ = run(f"{name}/train", text)
+        stats = dict(trainer_module.LAST_RUN)
+        t = Trainer(Configuration(str(root / f"{name}_train.ini")))
+        curve = np.loadtxt(pathlib.Path(t.train_path) / "train_loss.txt", ndmin=2)
+        row["train"] = {"wall_s": wall, "peak_bytes": peak, **stats,
+                        "train_loss": curve[:, 1].tolist()}
+        if not (len(curve) == FAMILY_EPOCHS and np.isfinite(curve).all()
+                and curve[-1, 1] < curve[0, 1]):
+            raise RuntimeError(f"{name}/train: the loss did not fall: {curve[:, 1]}")
+        wall, peak, said = run(f"{name}/audit/{FAMILY_N}", with_keys(text, ppo=True),
+                               "dist_stream", "wind_stream")
+        tpost = pathlib.Path(t.postprocess_save_path)
+        header, *rows = (tpost / "results.csv").read_text().splitlines()
+        result = dict(zip(header.split(","), map(float, rows[-1].split(","))))
+        row["audit"] = {"wall_s": wall, "peak_bytes": peak, "result": result,
+                            "stages_s": dict(post_process.LAST_STAGE_SECONDS),
+                            "quartered": "chunk OOM" in said}
+        if not (result["Resolution"] == FAMILY_N and 0 <= result["Accuracy"] <= 1):
+            raise RuntimeError(f"{name}/audit/{FAMILY_N}: {result}")
+        wall, peak, _ = run(f"{name}/reconstruct/{FAMILY_N}",
+                            with_keys(text, ppo=True, reconstruct=True))
+        stl = tpost / f"reconstructed_epoch{FAMILY_EPOCHS - 1}.stl"
+        faces, median = 0, math.nan
+        if stl.exists():
+            mesh = load_mesh(str(stl))
+            faces, median = len(mesh.faces), float(np.median(np.linalg.norm(mesh.vertices, axis=1)))
+        row["reconstruct"] = {"wall_s": wall, "peak_bytes": peak, "faces": faces,
+                                  "median_radius": median,
+                                  "stages_s": dict(reconstruct.LAST_STAGE_SECONDS)}
+        print(f"phase 4h (b) {name} {hidden}x{layers} ({card}): {json.dumps(row)}", flush=True)
+        out[name] = row
+    report["phase_4h"] = out
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2318,6 +2578,7 @@ def main() -> int:
     runs.update(sharded_runs)
     runs.update(drive_marching(device, run_root, model, checks, report))
     runs.update(drive_export_two_dim(device, run_root, report))
+    runs.update(drive_families(device, run_root, report))
 
     # ---- 5. times -----------------------------------------------------------
     mac = sum(fi * fo for fi, fo in model.layer_shapes())

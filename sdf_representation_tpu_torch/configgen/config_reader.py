@@ -19,7 +19,7 @@ from typing import Tuple
 import torch
 
 from ..losses.losses import get_loss_class
-from ..models.implicit_net import ImplicitNet
+from ..models import KAN, FeedForwardNetwork, HashMLP, ImplicitNet, Siren
 from ..models.registry import get_model_class
 
 
@@ -109,20 +109,36 @@ class Configuration:
 
     def make_model(self, generator: torch.Generator | None = None,
                    device: torch.device | str | None = None):
-        """Build the torch model from the parsed fields (weights from
-        ``generator``, seed 0 when none is given)."""
-        get_model_class(self.model_name)  # raises for the families not ported
-        return ImplicitNet(
-            d_in=self.input_dim,
-            hidden_dims=(self.hidden_dim,) * self.num_hidden_layers,
-            skip_in=self.skip_connection,
-            beta=self.beta,
-            geometric_init=self.geometric_init,
-            lipschitz=self.lipschitz,
-            lipschitz_weight=self.lipschitz_weight,
-            generator=generator,
-            device=device,
-        )
+        """Build the torch model from the parsed fields, as the JAX package's
+        ``make_model`` does per family (weights from ``generator``, seed 0
+        when none is given)."""
+        cls = get_model_class(self.model_name)
+        kw = dict(generator=generator, device=device)
+        if self.model_name in ("ImplicitNet", "ImplicitNetCompatible"):
+            return ImplicitNet(
+                d_in=self.input_dim,
+                hidden_dims=(self.hidden_dim,) * self.num_hidden_layers,
+                skip_in=self.skip_connection,
+                beta=self.beta,
+                geometric_init=self.geometric_init,
+                lipschitz=self.lipschitz,
+                lipschitz_weight=self.lipschitz_weight,
+                **kw,
+            )
+        if self.model_name == "FeedForwardNetwork":
+            return FeedForwardNetwork(d_in=self.input_dim, hidden_dim=self.hidden_dim,
+                                      num_layers=self.num_hidden_layers, **kw)
+        if self.model_name == "KAN":
+            layers = (self.input_dim,) + (self.hidden_dim,) * self.num_hidden_layers + (1,)
+            return KAN(layers_hidden=layers, **kw)
+        if self.model_name == "HashMLP":
+            return HashMLP(d_in=self.input_dim, hidden_dim=self.hidden_dim,
+                           num_layers=max(2, self.num_hidden_layers), **kw)
+        if self.model_name == "Siren":
+            return Siren(d_in=self.input_dim,
+                         hidden_dims=(self.hidden_dim,) * self.num_hidden_layers,
+                         omega_0=self.config.getfloat("Model", "omega_0", fallback=30.0), **kw)
+        return cls(**kw)
 
     def make_loss(self):
         """The configured loss, with the [Loss] section's other keys as its

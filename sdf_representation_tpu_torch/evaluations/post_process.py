@@ -2,9 +2,13 @@
 counterpart of sdf_representation_tpu/evaluations/post_process.py (reference
 evaluations/post_process.py:40-211).
 
-The model is evaluated over the cubesize^3 grid through the fused grid
-kernel (on the CPU: the module's own f32 forward on the dense grid, as the
-JAX package evaluates on a CPU backend), compared on the device against
+The model is evaluated over the cubesize^3 grid as the JAX package
+dispatches it (post_process.py:65-83): an ImplicitNet through the fused
+grid kernel (on the CPU: the module's own f32 forward on the dense grid, as
+the JAX package evaluates on a CPU backend), a HashMLP through the separable
+evaluator (ops/hash_grid_eval.py), any other family through
+``evaluate_points`` (chunks of min(postprocessbatchsize, 262144) points,
+quartered on the card's out-of-memory error), compared on the device against
 EXACT signed distances (``ops/sdf_exact.signed_distance`` through the
 distance and winding streams, sharded over the trainer's mesh when it has
 more than one device), and the same artifact set is written:
@@ -33,9 +37,11 @@ import numpy as np
 import torch
 
 from ..geometry.mesh_io import load_mesh
+from ..models.hash_mlp import HashMLP
 from ..models.implicit_net import ImplicitNet
 from ..ops.fused_mlp import fused_grid_eval
-from ..ops.grid_eval import evaluate_grid, grid_axis, grid_coords
+from ..ops.grid_eval import evaluate_grid, evaluate_points, grid_axis, grid_coords
+from ..ops.hash_grid_eval import hash_grid_eval
 from ..ops.sdf_exact import signed_distance
 from ..sampling.sampler import sample_surface_points
 from .metrics import (
@@ -59,8 +65,6 @@ LAST_STAGE_SECONDS: dict = {}
 
 def post_process(trainer, mesh_path: Optional[str] = None) -> Dict[str, float]:
     c = trainer.config
-    if not isinstance(trainer.model, ImplicitNet):
-        raise NotImplementedError(f"{type(trainer.model).__name__} is not ported yet")
     t0 = time.time()
     LAST_STAGE_SECONDS.clear()
     lap_start = [time.perf_counter()]
@@ -84,7 +88,13 @@ def post_process(trainer, mesh_path: Optional[str] = None) -> Dict[str, float]:
     lap("load")
 
     n = c.cubesize
-    if trainer.device.type == "cpu":
+    if isinstance(trainer.model, HashMLP):
+        pred = hash_grid_eval(trainer.model, n).reshape(-1)
+    elif not isinstance(trainer.model, ImplicitNet):
+        pred = torch.from_numpy(evaluate_points(trainer.model, grid_coords(n),
+                                                chunk=min(c.ppbatchsize, 262144)))
+        pred = pred.to(trainer.device)
+    elif trainer.device.type == "cpu":
         # the JAX package on a CPU backend: evaluate_points, dense and f32
         pred = evaluate_grid(trainer.model, n).reshape(-1)
     else:

@@ -19,23 +19,29 @@ entry of csrc/fused_mlp.cu (TPU kernel 3, ``fused_blocks``, counted under
 as the whole-grid sparse evaluator (ops/sparse_grid.py), so a block's values
 do not depend on the slab that evaluates it.
 
-The JAX module's ``interpret`` and ``mxu_precision`` arguments are Pallas /
-XLA switches with no counterpart here, and its HashMLP branch waits for the
-HashMLP port (ROADMAP.md): such a model raises NotImplementedError.
+A HashMLP's slabs come from the separable x-slab evaluator
+(ops/hash_grid_eval.hash_grid_eval_x_slab, JAX giga_extract.py:212-236):
+exact dense values in float32 whatever ``compute_dtype`` says, no activity
+selection and no certificate; a plane two slabs share evaluates to the same
+bits in both. The JAX module's ``interpret`` and ``mxu_precision`` arguments
+are Pallas / XLA switches with no counterpart here.
 """
 
 from __future__ import annotations
 
+import copy
 import time
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..models.hash_mlp import HashMLP
 from ..models.implicit_net import ImplicitNet
 from ..parallel.mesh import replicate
 from . import marching_device
 from .fused_mlp import FusedNet, fused_blocks
+from .hash_grid_eval import hash_grid_eval_x_slab
 from .marching_device import decode_vertices, drop_degenerate
 from .sparse_grid import coarse_and_certificate, first_active
 
@@ -109,7 +115,7 @@ def _refine_slab(net, coarse, mask, xb0, count, n, block, k_max, nxb):
 
 
 def extract_mesh_giga(
-    model: Optional[ImplicitNet],
+    model: Optional[torch.nn.Module],
     n: int,
     *,
     level: float = 0.0,
@@ -134,8 +140,9 @@ def extract_mesh_giga(
 
     vol_fn(x0, sx) -> (sx, n, n) field values on planes [x0, x0+sx) may be
     supplied to extract from any field (a tensor is marched on its own
-    device, a numpy array on the CPU). By default an ImplicitNet is
-    evaluated by the sparse evaluator: one global coarse sweep and
+    device, a numpy array on the CPU). By default a HashMLP is evaluated by
+    the separable x-slab evaluator (module docstring) and an ImplicitNet by
+    the sparse evaluator: one global coarse sweep and
     certificate (ops/sparse_grid.coarse_and_certificate), then per slab one
     blocks-entry launch over the slab's active blocks, in
     ``compute_dtype``; ``tile_blocks`` rounds the launches' shared block
@@ -180,15 +187,24 @@ def extract_mesh_giga(
     plan = _slab_plan(n, slab)
     internal_eval = vol_fn is None
     if internal_eval:
-        if type(model).__name__ == "HashMLP":
-            raise NotImplementedError(
-                "HashMLP is not ported to torch yet, nor its x-slab evaluator: "
-                "ROADMAP.md, queue 1, 'Other model families'"
-            )
+        entries = [next(model.parameters()).device] if devices is None else list(devices)
+    if internal_eval and isinstance(model, HashMLP):
+        replicas = {}
+        for dev in entries:
+            dev = torch.device(dev)
+            if dev not in replicas:
+                same = dev == next(model.parameters()).device
+                replicas[dev] = model if same else copy.deepcopy(model).to(dev)
+        hash_repl = [replicas[torch.device(dev)] for dev in entries]
+
+        def vol_fn(x0, sx, i):
+            """Slab i on mesh entry i % len(entries), in float32."""
+            return hash_grid_eval_x_slab(hash_repl[i % len(hash_repl)], x0, sx, n)
+    elif internal_eval:
         if not isinstance(model, ImplicitNet):
             raise ValueError(
-                "default slab evaluator requires an ImplicitNet; pass vol_fn "
-                "for other fields"
+                "default slab evaluator requires an ImplicitNet or a HashMLP; pass "
+                "vol_fn for other fields"
             )
         coarse, mask, viol = coarse_and_certificate(model, n, block, float(safety), float(eps),
                                                     float(level))
@@ -208,7 +224,6 @@ def extract_mesh_giga(
                 mask = torch.ones_like(mask)
         counts, k_max = _slab_budget(mask, plan, n, block, nxb, tile_blocks)
 
-        entries = [next(model.parameters()).device] if devices is None else list(devices)
         layers = model.effective_layers()
         flat = [t.detach() for pair in layers for t in pair] + [coarse, mask]
         nets: dict = {}

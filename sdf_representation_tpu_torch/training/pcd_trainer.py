@@ -25,7 +25,10 @@ epoch), every step reseeds it from (init_seed + 1, epoch, step); losses stay
 on the device within an epoch: one host read per epoch.
 
 The eikonal term's (f, grad_x f) runs through the fused kernels of
-ops/fused_igr.py under the labelled trainer's rule (``use_fused_igr``).
+ops/fused_igr.py under the labelled trainer's rule (``use_fused_igr``: an
+ImplicitNet); every other family (Siren, built for this loss, among them)
+takes the forward-mode passes of ``sdf_and_gradient_fwd``, as in JAX.
+The JAX trainer runs the model here with no rng, so FFN dropout is off.
 Unlike the labelled step, this one hands the float32 parameters to the
 kernel, which rounds them to its bfloat16 working type itself, and the
 manifold term mean |f| runs through the ordinary float32 module forward
@@ -61,7 +64,7 @@ def pcd_loss(apply, model, xb: torch.Tensor, idx: torch.Tensor, noise: torch.Ten
     _, grads = sdf_and_gradient_fwd(apply, xb[idx] + noise)
     grad_norm = torch.linalg.norm(grads[:, -3:], dim=-1)
     value = surface_loss + grad_lambda * torch.mean((grad_norm - 1.0) ** 2)
-    if model.lipschitz and model.lipschitz_weight > 0:
+    if getattr(model, "lipschitz", False) and model.lipschitz_weight > 0:
         # arXiv:2202.08345 eq. 7, as in make_train_step
         value = value + model.lipschitz_weight * model.lipschitz_bound()
     return value

@@ -28,23 +28,27 @@ Not carried over from the JAX trainer: its jitted multi-epoch block
 (``epochs_per_call``), which exists to amortise dispatch latency there; the
 key is read and ignored. The matrix products of the supervised step are
 library matmuls here as they are XLA's there: that step has no hand-written
-kernel in either package. The eikonal (IGR) step does: (f, grad_x f) and its
-parameter gradients run through the hand-written kernels of
-ops/fused_igr.py under the JAX package's rule (``use_fused_igr``):
-``train_matmul_precision = bfloat16``, not the Lipschitz variant, and the
-model on a card. There the fast path IS the kernel (a build or launch
-failure raises). In every other configuration it is
-``ops.diffops.implicitnet_value_and_grad`` under torch autograd, which is
+kernel in either package. The eikonal (IGR) step of an ImplicitNet does:
+(f, grad_x f) and its parameter gradients run through the hand-written
+kernels of ops/fused_igr.py under the JAX package's rule
+(``use_fused_igr``): ``train_matmul_precision = bfloat16``, not the
+Lipschitz variant, and the model on a card. There the fast path IS the
+kernel (a build or launch failure raises). In every other configuration it
+is ``ops.diffops.implicitnet_value_and_grad`` under torch autograd, which is
 what the JAX package leaves to XLA. Validation always takes the latter, in
-float32, as the JAX package's does.
+float32, as the JAX package's does. The other families (HashMLP,
+FeedForwardNetwork, Siren, KAN) have no fast path in either package: their
+(f, grad_x f) is forward-mode passes, as ``jax.jvp`` serves them there.
 
 ``train_matmul_precision``:
   None            float32 everywhere.
   "bfloat16"      float32 master weights and optimizer state; forward and
-                  backward run on bfloat16 copies of the parameters and
-                  inputs, the loss in float32. The forward noise of this mode
-                  can hold the clamp-family losses on their all-clipped
-                  plateau at lr >= 1e-4 (measured in the JAX package).
+                  backward run on bfloat16 copies of every float32 leaf of
+                  the model's state (parameters and buffers: hash tables,
+                  KAN knot grids) and of the inputs, the loss in float32.
+                  The forward noise of this mode can hold the clamp-family
+                  losses on their all-clipped plateau at lr >= 1e-4
+                  (measured in the JAX package).
   "bfloat16_mxu"  float32 tensors whose matrix products may use reduced-
                   precision tensor-core passes
                   (``torch.set_float32_matmul_precision("medium")``), set for
@@ -63,6 +67,7 @@ a backward that makes a NaN raises.
 
 from __future__ import annotations
 
+import inspect
 import math
 import os
 import time
@@ -72,6 +77,7 @@ import torch
 
 from ..configgen.config_reader import Configuration
 from ..data.dataset import SDFDataset, load_data
+from ..models.implicit_net import ImplicitNet
 from ..ops.diffops import implicitnet_value_and_grad
 from ..ops.fused_igr import make_fused_value_and_grad, make_fused_value_and_grad_sharded
 from ..parallel.mesh import gather, get_mesh, replicate, shard_batch
@@ -100,39 +106,96 @@ def _matmul_precision(precision: Optional[str]):
 
 
 def use_fused_igr(model, precision: Optional[str]) -> bool:
-    """Whether the eikonal fast path is the fused kernels: mixed precision
-    asked for, not the Lipschitz variant (the kernels' backward yields weight
-    and bias gradients only), and the model on a card (the JAX package's rule,
+    """Whether the eikonal fast path is the fused kernels: an ImplicitNet
+    (the kernels compute its forward), mixed precision asked for, not the
+    Lipschitz variant (the kernels' backward yields weight and bias
+    gradients only), and the model on a card (the JAX package's rule,
     trainer.py:147-153, with "on a card" for "the backend is not the CPU")."""
     device = next(model.parameters()).device
-    return precision == "bfloat16" and not model.lipschitz and device.type == "cuda"
+    return (isinstance(model, ImplicitNet) and precision == "bfloat16"
+            and not model.lipschitz and device.type == "cuda")
+
+
+def takes_train(model) -> bool:
+    """Whether the model's forward takes ``train`` (FFN dropout): the step
+    then runs it with ``train=True`` and the step's generator (JAX
+    trainer.py:69-70)."""
+    return "train" in inspect.signature(model.forward).parameters
 
 
 def bind_apply(model, precision: Optional[str] = None, fused_igr: bool = False,
-               mesh=None) -> Callable[[torch.Tensor], torch.Tensor]:
+               mesh=None, generator: Optional[torch.Generator] = None
+               ) -> Callable[[torch.Tensor], torch.Tensor]:
     """The forward a training step differentiates: the module, or for
-    "bfloat16" the module run on bfloat16 copies of its float32 master
-    parameters and of its input, its output widened back to float32.
+    "bfloat16" the module run on bfloat16 copies of every float32 leaf of
+    its state (parameters and buffers, as JAX's ``_cast_bf16`` casts every
+    float32 leaf: hash tables, KAN knot grids) and of its input, its output
+    widened back to float32. A model whose forward takes ``train`` (FFN
+    dropout) runs with ``train=True`` when a ``generator`` is given (the
+    step's; validation passes none, and the JAX apply drops nothing without
+    an rng): every call of the returned forward draws the same masks, as
+    the JAX step's apply is a function of its rng, so the value and the
+    forward-mode passes of an eikonal loss see one network.
 
-    The callable advertises the (f, grad_x f) fast path that
-    ``ops.diffops.sdf_and_gradient_fwd`` consumes as ``_implicitnet_fast``:
-    the fused kernels (``fused_igr``) or the shared-matmul derivation; for
-    "bfloat16" it too runs on bfloat16 copies of the parameters and of ``x``
-    and widens its outputs.
+    For an ImplicitNet the callable advertises the (f, grad_x f) fast path
+    that ``ops.diffops.sdf_and_gradient_fwd`` consumes as
+    ``_implicitnet_fast``: the fused kernels (``fused_igr``) or the
+    shared-matmul derivation; for "bfloat16" it too runs on bfloat16 copies
+    of the parameters and of ``x`` and widens its outputs. Other families
+    advertise none and take the forward-mode passes, as ``jax.jvp`` serves
+    them in the JAX package.
 
     Under a ``mesh`` of more than one entry (JAX trainer.py:51-94) the batch
     is cut over the mesh (``parallel.mesh.shard_batch``): each shard runs the
-    module through ``torch.func.functional_call`` on the parameters
-    replicated to its device, and the fast path per shard (the sharded fused
-    op, or the derivation on the replicated layers); the outputs gather on
+    module through ``torch.func.functional_call`` on the state replicated to
+    its device, and the fast path per shard (the sharded fused op, or the
+    derivation on the replicated layers); the outputs gather on
     ``mesh[0]``, and autograd sums the shards' parameter gradients there. A
     batch smaller than the mesh (a per-point transform's single row) runs
     whole on ``mesh[0]``."""
     mixed = precision == "bfloat16"
     sharded = mesh is not None and len(mesh) > 1
+    # every call of one step's forward draws the same masks (JAX's apply is a
+    # function of its rng), from a stream apart from the loss's draws: the
+    # step generator's seed with its top bit flipped
+    drop_seed = (generator.initial_seed() ^ (1 << 63)
+                 if generator is not None and takes_train(model) else None)
+
+    def kwargs() -> dict:
+        if drop_seed is None:
+            return {}
+        masks = torch.Generator(device=generator.device).manual_seed(drop_seed)
+        return {"generator": masks, "train": True}
 
     def cast(t: torch.Tensor) -> torch.Tensor:
         return t.to(torch.bfloat16) if mixed and t.dtype == torch.float32 else t
+
+    def state() -> Dict[str, torch.Tensor]:
+        return {k: cast(v) for k, v in (*model.named_parameters(), *model.named_buffers())}
+
+    def whole(x: torch.Tensor) -> torch.Tensor:
+        if not mixed:
+            return model(x, **kwargs())
+        return torch.func.functional_call(model, state(), (x,), kwargs())
+
+    forward = whole
+    if sharded:
+        def forward(x: torch.Tensor) -> torch.Tensor:
+            if x.shape[0] < len(mesh):
+                return whole(x)
+            leaves = state()
+            reps = replicate(list(leaves.values()), mesh)
+            return gather([torch.func.functional_call(model, dict(zip(leaves, ps)), (xs,),
+                                                      kwargs())
+                           for xs, ps in zip(shard_batch(x, mesh), reps)], mesh[0])
+
+    def apply(x: torch.Tensor) -> torch.Tensor:
+        if not mixed:
+            return forward(x)
+        return forward(x.to(torch.bfloat16)).to(torch.float32)
+
+    if not isinstance(model, ImplicitNet):
+        return apply
 
     if fused_igr:
         fast = (make_fused_value_and_grad_sharded(model, mesh) if sharded
@@ -148,31 +211,9 @@ def bind_apply(model, precision: Optional[str] = None, fused_igr: bool = False,
         def fast(x, layers=None):
             return implicitnet_value_and_grad(model, x, layers)
 
-    def whole(x: torch.Tensor) -> torch.Tensor:
-        if not mixed:
-            return model(x)
-        return torch.func.functional_call(
-            model, {k: cast(v) for k, v in model.named_parameters()}, (x,))
-
-    forward = whole
-    if sharded:
-        def forward(x: torch.Tensor) -> torch.Tensor:
-            if x.shape[0] < len(mesh):
-                return whole(x)
-            names = [name for name, _ in model.named_parameters()]
-            reps = replicate([cast(v) for _, v in model.named_parameters()], mesh)
-            return gather([torch.func.functional_call(model, dict(zip(names, ps)), (xs,))
-                           for xs, ps in zip(shard_batch(x, mesh), reps)], mesh[0])
-
     if not mixed:
-        def apply(x: torch.Tensor) -> torch.Tensor:
-            return forward(x)
-
         apply._implicitnet_fast = fast
         return apply
-
-    def apply(x: torch.Tensor) -> torch.Tensor:
-        return forward(x.to(torch.bfloat16)).to(torch.float32)
 
     def fast_mixed(x: torch.Tensor):
         layers = [(w.to(torch.bfloat16), b.to(torch.bfloat16))
@@ -188,20 +229,25 @@ def make_train_step(model, loss_fn, optimizer: torch.optim.Optimizer,
                     precision: Optional[str] = None, aux=None, mesh=None) -> Callable:
     """(x, y, epoch, generator=None) -> loss (a detached scalar tensor on the
     device): one optimizer update on the batch. ``aux``: the loss's learnable
-    scalars (the optimizer must hold them too). ``mesh``: the forward runs
+    scalars (the optimizer must hold them too). ``generator``: the step's
+    draws, for the loss (IGRLOSSPCD's points) and the model (FFN dropout),
+    as the JAX step hands both its ``rng``. ``mesh``: the forward runs
     sharded (``bind_apply``) while the loss is taken on ``mesh[0]`` over the
     whole gathered batch, with the step's one generator: a sharded step's
     loss, and any points the loss draws, are the single-device step's, as
     XLA's global-batch semantics make them in the JAX package."""
     if precision not in PRECISIONS:
         raise ValueError(f"train_matmul_precision must be one of {PRECISIONS}, got {precision!r}")
-    apply = bind_apply(model, precision, use_fused_igr(model, precision), mesh)
-    lipschitz = model.lipschitz and model.lipschitz_weight > 0
+    fused = use_fused_igr(model, precision)
+    apply = bind_apply(model, precision, fused, mesh)
+    per_step = takes_train(model)
+    lipschitz = getattr(model, "lipschitz", False) and model.lipschitz_weight > 0
 
     def step(xb: torch.Tensor, yb: torch.Tensor, epoch: int, generator=None) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
+        fn = bind_apply(model, precision, fused, mesh, generator) if per_step else apply
         with _matmul_precision(precision):
-            value = loss_fn(apply, xb, yb, epoch, generator=generator, aux=aux)
+            value = loss_fn(fn, xb, yb, epoch, generator=generator, aux=aux)
             if lipschitz:
                 # arXiv:2202.08345 eq. 7: alpha * prod softplus(c_i)
                 value = value + model.lipschitz_weight * model.lipschitz_bound()

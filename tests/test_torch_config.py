@@ -58,10 +58,18 @@ def test_make_model_builds_the_flagship_architecture():
     assert pcd.distributed and pcd.make_model().hidden_dims == (256,) * 8
 
 
-def test_unported_model_family_raises(tmp_path):
-    text = (REPO / "configs/mesh_sdf_hash.ini").read_text()
-    p = tmp_path / "h.ini"
-    p.write_text(text)
-    cfg = Configuration(str(p))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_hash_config_builds_the_jax_model(tmp_path):
+    """configs/mesh_sdf_hash.ini builds the HashMLP the JAX package builds
+    (num_layers = max(2, num_hidden_layers)); an unknown name raises as
+    there."""
+    cfg = Configuration(str(REPO / "configs/mesh_sdf_hash.ini"))
+    jax_model = JaxConfiguration(str(REPO / "configs/mesh_sdf_hash.ini")).make_model()
+    model = cfg.make_model(generator=torch.Generator().manual_seed(0))
+    assert type(model).__name__ == type(jax_model).__name__ == "HashMLP"
+    fields = ("d_in", "n_levels", "n_features", "log2_table_size", "base_resolution",
+              "max_resolution", "hidden_dim", "num_layers", "include_xyz")
+    assert [getattr(model, f) for f in fields] == [getattr(jax_model, f) for f in fields]
+    assert model.num_layers == 3 and cfg.train_matmul_precision == "bfloat16"
+    cfg.model_name = "NoSuchNet"
+    with pytest.raises(ValueError, match="Unknown model"):
         cfg.make_model()

@@ -21,12 +21,15 @@ from sdf_representation_tpu.models import ImplicitNet as JaxImplicitNet
 from sdf_representation_tpu.models.hash_mlp import HashMLP
 from sdf_representation_tpu.ops import giga_extract as jge
 from sdf_representation_tpu_torch.convert import params_from_jax
+from sdf_representation_tpu_torch.models import HashMLP as TorchHashMLP
 from sdf_representation_tpu_torch.models import ImplicitNet
 from sdf_representation_tpu_torch.ops import giga_extract as ge
 from sdf_representation_tpu_torch.ops import marching_device as md
 from sdf_representation_tpu_torch.ops import sparse_grid
 from sdf_representation_tpu_torch.ops.fused_mlp import LAUNCHES, fused_grid_eval
+from sdf_representation_tpu_torch.ops.hash_grid_eval import hash_grid_eval_x_slab
 from tests.test_giga_extract import _assert_same_mesh
+from tests.test_giga_extract import _canon as canon
 from tests.test_sparse_grid import _steep_plane_params
 
 torch.set_num_threads(2)
@@ -213,10 +216,26 @@ def test_validates_inputs():
         ge.extract_mesh_giga(torch.nn.Linear(3, 1), 32)
 
 
-def test_hash_mlp_is_not_ported():
-    model = HashMLP(n_levels=4, log2_table_size=9, base_resolution=4, max_resolution=32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ge.extract_mesh_giga(model, 32, slab=16)
+@pytest.mark.parametrize("wire", ["exact", "packed"])
+def test_hash_mlp_slabs_equal_one_pass_and_jax(wire):
+    """A HashMLP's default evaluator is the separable x-slab one (float32
+    whatever compute_dtype says): the merged mesh equals one pass over the
+    x-slab evaluator's whole volume (a plane's bits do not depend on the
+    slab), and the JAX extractor's on the same weights."""
+    kw = dict(n_levels=4, log2_table_size=9, base_resolution=4, max_resolution=32,
+              hidden_dim=16, num_layers=2)
+    jm = HashMLP(**kw)
+    params = jax.tree_util.tree_map(np.asarray, jm.init(jax.random.PRNGKey(5)))
+    tm = TorchHashMLP(**kw)
+    tm.load_state_dict(params_from_jax(params, tm))
+    n = 32
+    giga = ge.extract_mesh_giga(tm, n, slab=8, wire=wire, compute_dtype=torch.bfloat16)
+    ref = _one_shot(hash_grid_eval_x_slab(tm, 0, n, n), wire=wire)
+    assert len(ref[1]) > 0
+    _assert_same_mesh(giga, ref)
+    jax_giga = jge.extract_mesh_giga(jm, params, n, slab=8, wire=wire)
+    assert len(giga[1]) == len(jax_giga[1])
+    np.testing.assert_allclose(canon(*giga), canon(*jax_giga), atol=1e-5)
 
 
 def test_vertex_cap_overflow_retries_with_halved_slabs(monkeypatch, capsys):

@@ -41,6 +41,9 @@ def test_port_modules_load_no_jax_or_jax_package():
         assert f"sdf_representation_tpu_torch.export.{name}" in mods
     assert "sdf_representation_tpu_torch.export" in mods
     assert "sdf_representation_tpu_torch.evaluations.two_dim" in mods
+    for name in ("hash_mlp", "ffn", "siren", "kan", "registry"):
+        assert f"sdf_representation_tpu_torch.models.{name}" in mods
+    assert "sdf_representation_tpu_torch.ops.hash_grid_eval" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

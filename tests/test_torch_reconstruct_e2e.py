@@ -123,11 +123,11 @@ def test_unported_modes_and_missing_card_raise(tmp_path):
     assert type(cfg.make_loss()).__name__ == "IGRLOSS"
     cfg.loss_name = "WeightedSmoothL2Loss"
     cfg.loss_kwargs = {"weight_factor": 0.5, "delta": 0.1}
-    # what ROADMAP.md still queues raises: the HashMLP family (the 2-D mode
-    # is ported, tests/test_torch_two_dim.py)
-    cfg.model_name = "HashMLP"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(cfg, device="cpu").run()
+    # every model family is ported (tests/test_torch_model_families.py): the
+    # configured one is built
+    for name in ("HashMLP", "FeedForwardNetwork", "Siren", "KAN"):
+        cfg.model_name = name
+        assert type(Trainer(cfg, device="cpu").model).__name__ == name
     cfg.model_name = "ImplicitNet"
     # the audit and reconstruction need a checkpoint
     cfg.ppo = True
