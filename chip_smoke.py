@@ -190,6 +190,37 @@ Phases, none of which is allowed to fail quietly:
     (evaluate_points; whether its chunk was quartered is printed) and the
     reconstruction at 128^3 (evaluate_grid on the card). Wall time, points/s
     and peak device memory per run.
+ 4i. The host tools, counts zeroed before each run and read after it: (a)
+    `python -m sdf_representation_tpu_torch.sampling` at configs/mesh_sdf.ini's
+    sizes (100000 / 15 / 15 / 0.1) on phase 4b's rescaled icosphere(5), as a
+    subprocess on the card's default device and in-process (3 dist_stream and
+    3 wind_stream launches, nothing else): the three CSVs have no index
+    column, the two runs' files are byte-equal and equal, value for value,
+    to generate_signed_distance_data on the card, and the signs are the
+    sphere's 0.01 beyond the facets' sag; (b) compute_normal_for_model on
+    phase 4b's trained f32 8x512 net at the 64^3 grid's 262,144 points (one
+    launch of each stream): the five CSVs, rmse and cos_mean over the grid
+    and in the band |S| < 0.1 within NORMAL_* (stated before the first run),
+    and the tool's (f, grad f) on the first 16,384 points within F32_TOL of
+    kernel 8's f32 mode; (c) compare_octree_dl on phase 4g (c)'s deeptrace
+    leaves (no launch): every node within NATIVE_VALUE_TOL, signs equal
+    outside that margin, the same nodes as an ASCII VTU and a two-piece PVTU
+    give the same numbers; (d) write_signed_distance_distributed over 8
+    icosphere(5) .ply shards and a corrupt one (num_points_surface = 1): the
+    rows, a second call appends nothing, a shard added later is appended
+    alone, hosts 0 and 1 of 2 journal disjoint files that make up the whole;
+    (e) generate_signed_distance_2D_msh on a 200-gon as gmsh v2.2 and v4.1
+    at configs/circle_2d.ini's sizes: equal frames, surface |S| <= 1e-9,
+    narrow |S| <= the width; (f) in a process of its own (after such traces,
+    later torch.profiler traces in the same process held no device event),
+    utils/profiling.trace around one supervised bfloat16 epoch of the
+    flagship net (Trainer.train on (a)'s samples) and around 10 labelled
+    IGRLOSS steps (8x512, 16,384 points, bfloat16; 10 launches of kernels 8
+    and 9 in a counted run before), each also timed untraced: the Chrome
+    trace, read by this script, gives the window, the device-busy time (the
+    union of kernel intervals), the idle share, the top 5 kernels and
+    kernels 8-9's share (a trace with no kernel event is taken again, three
+    tries); StepTimer with force gives the per-step times beside them.
  5. Times with CUDA events at the main path's shapes: kernel, plain version,
     one library layer chain (torch addmm, never called by the port), and
     the bound: the larger of bytes over 3.35 TB/s and operations over the
@@ -359,6 +390,22 @@ HASH_N, GIGA_N, FAMILY_N = 256, 1024, 128  # cubesizes: audit and mesh, the giga
 HASH_TOL = (2e-5, 2e-6)   # rtol, atol
 HASH_RADIUS_TOL = 0.01    # |median vertex radius / 0.85 - 1|
 HASH_INDEX_POINTS = 131072  # x 8 corners: ~1M indices a level against numpy
+# phase 4i: the sampler CLI at configs/mesh_sdf.ini's sizes; the normal audit
+# on the 64^3 grid. Its limits, stated before the card's first run: the f32
+# net of phase 4b was fitted to values clamped to +-0.1 (WeightedSmoothL2Loss),
+# so only the band |S| < 0.1 is held tightly (phase 4b's best loss ~1e-6
+# gives an error of ~1e-3 there, sign accuracy 0.999 at 256^3); the rest of
+# the grid is held for a field that is roughly the distance with radial
+# gradients
+CLI_SIZES = (100000, 15, 15, 0.1)
+NORMAL_GRID = 64
+NORMAL_RMSE_MAX, NORMAL_COS_MIN = 0.5, 0.8             # every grid point
+NORMAL_BAND_RMSE_MAX, NORMAL_BAND_COS_MIN = 1e-2, 0.99  # |S| < 0.1
+NORMAL_KERNEL_POINTS = 16384
+SHARDS = 8           # .ply shards of icosphere(5) for the distributed sampler
+POLYGON_SIDES = 200  # the 2-D .msh polygon; configs/circle_2d.ini's sizes
+IGR_TRACE_STEPS = 10
+TRACE_BATCH = 16384  # configs/mesh_sdf.ini's batch_size
 
 
 def plain_dropping(net, x, drop, product=None):
@@ -2386,6 +2433,464 @@ def drive_families(device, run_root, report):
     return launches
 
 
+def write_msh_v41(path, points_2d):
+    """A closed polygon's nodes as a gmsh ASCII v4.1 file: two entity blocks,
+    the second half of the tags first (the reader sorts by tag), coordinates
+    written as write_msh_polygon writes them."""
+    pts = np.asarray(points_2d, np.float64)
+    n, h = len(pts), len(pts) // 2
+    lines = ["$MeshFormat", "4.1 0 8", "$EndMeshFormat", "$Nodes", f"2 {n} 1 {n}"]
+    for tags in (range(h + 1, n + 1), range(1, h + 1)):
+        lines.append(f"1 {tags[0]} 0 {len(tags)}")
+        lines += [str(t) for t in tags]
+        lines += [f"{pts[t - 1, 0]:.9g} {pts[t - 1, 1]:.9g} 0" for t in tags]
+    lines.append("$EndNodes")
+    pathlib.Path(path).write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
+def read_trace(log_dir):
+    """The Chrome trace that utils/profiling.trace wrote into log_dir: its
+    window (first to last event), the device-busy time (the union of kernel
+    intervals), the idle share, every device activity's union (kernels,
+    copies, sets), the top 5 kernels by summed time, and the summed time of
+    kernels 8-9 (igr_fwd / igr_bwd / igr_dw)."""
+    (path,) = pathlib.Path(log_dir).glob("*.pt.trace.json")
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+
+    def union(intervals):
+        total, end = 0.0, -math.inf
+        for a, b in sorted(intervals):
+            if b > end:
+                total += b - max(a, end)
+                end = b
+        return total
+
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    start = min(e["ts"] for e in events)
+    window = max(e["ts"] + e["dur"] for e in events) - start
+    busy = union((e["ts"], e["ts"] + e["dur"]) for e in kernels)
+    by_name = {}
+    for e in kernels:
+        row = by_name.setdefault(e["name"][:100], [0.0, 0])
+        row[0] += e["dur"]
+        row[1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    igr = sum(e["dur"] for e in kernels if re.search(r"igr_(fwd|bwd|dw)_kernel", e["name"]))
+    return {"trace_bytes": path.stat().st_size, "window_ms": window / 1e3,
+            "device_busy_ms": busy / 1e3, "idle_share": 1 - busy / window if window else math.nan,
+            "device_active_ms": union((e["ts"], e["ts"] + e["dur"]) for e in device) / 1e3,
+            "kernel_launches": len(kernels), "distinct_kernels": len(by_name),
+            "top5": [{"name": k, "ms": v[0] / 1e3, "launches": v[1],
+                      "share_of_busy": v[0] / busy} for k, v in top],
+            "igr_kernels_ms": igr / 1e3, "igr_share_of_busy": igr / busy if busy else 0.0,
+            "igr_share_of_window": igr / window if window else 0.0}
+
+
+def traced(log_dir, fn, what):
+    """fn() inside utils/profiling.trace, its trace read by read_trace; a
+    trace with no kernel event is taken again, up to three times. fn() runs
+    once untraced first, timed on the host clock to the card's end (what
+    the trace's window costs without the profiler)."""
+    from sdf_representation_tpu_torch.utils import profiling
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    untraced_ms = (time.perf_counter() - t0) * 1e3
+    for attempt in range(1, 4):
+        shutil.rmtree(log_dir, ignore_errors=True)
+        torch.cuda.synchronize()
+        with profiling.trace(str(log_dir)):
+            fn()
+            torch.cuda.synchronize()
+        reading = read_trace(log_dir)
+        if reading["kernel_launches"]:
+            reading.update(attempts=attempt, untraced_ms=untraced_ms)
+            return reading
+        print(f"phase 4i (f) {what}: trace {attempt} of 3 holds no kernel event", flush=True)
+    raise RuntimeError(f"phase 4i (f) {what}: no trace of 3 holds a kernel event")
+
+
+def trace_steps(run_root, data_dir):
+    """Phase 4i (f), run in a process of its own: utils/profiling.trace
+    around one supervised bfloat16 epoch of the flagship net
+    (Trainer.train on ``data_dir``'s CSVs, phase 4b's samples) and around
+    IGR_TRACE_STEPS labelled IGRLOSS steps (8x512, TRACE_BATCH points,
+    bfloat16; counted once before: one launch of kernels 8 and 9 a step),
+    each trace read by read_trace; StepTimer with force over the same
+    steps. Returns (traces, step times, the counted run's launches)."""
+    from sdf_representation_tpu_torch.configgen import Configuration
+    from sdf_representation_tpu_torch.data.dataset import load_data
+    from sdf_representation_tpu_torch.losses.losses import IGRLOSS
+    from sdf_representation_tpu_torch.models import ImplicitNet
+    from sdf_representation_tpu_torch.training import Trainer
+    from sdf_representation_tpu_torch.training import trainer as trainer_module
+    from sdf_representation_tpu_torch.training.trainer import make_train_step
+    from sdf_representation_tpu_torch.utils import profiling
+    from sdf_representation_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device()
+    root = run_root / "host_tools"
+    cfg_path = root / "trace_epoch.ini"
+    cfg_path.write_text(with_keys((run_root / "pipeline" / "train_bfloat16.ini").read_text(),
+                                  directory=f"{root}/trace_runs/", epochs=1, min_epochs=1))
+    cfg = Configuration(str(cfg_path))
+    dataset = load_data(data_dir, cfg)
+    traces, launches = {}, {}
+    epoch_trainer = Trainer(cfg)
+
+    def epoch():
+        with contextlib.redirect_stdout(io.StringIO()):
+            epoch_trainer.train(dataset)
+
+    traces["supervised_epoch"] = traced(root / "trace_epoch", epoch, "supervised epoch")
+    # the trainer's own clock of its last (traced) epoch: the loop, validation, checkpoint
+    traces["supervised_epoch"]["trainer_epoch_s"] = trainer_module.LAST_RUN["seconds"]
+    X = torch.from_numpy(dataset.train_x).to(device)
+    Y = torch.from_numpy(dataset.train_y).to(device)
+    steps = dataset.n_train // TRACE_BATCH  # an epoch's steps
+    batches = torch.arange(steps * TRACE_BATCH, device=device).reshape(steps, TRACE_BATCH)
+
+    def timer_steps(step, n):
+        timer = profiling.StepTimer()
+        for i in range(n):
+            with timer:
+                profiling.force(step(X[batches[i]], Y[batches[i]], 0))
+        return timer.summary()
+
+    sup_model = Trainer(cfg).model
+    sup_step = make_train_step(sup_model, cfg.make_loss(),
+                               torch.optim.Adam(sup_model.parameters(), 1e-3), "bfloat16")
+    timer_steps(sup_step, 2)
+    step_times = {"supervised": timer_steps(sup_step, steps)}
+    igr_model = ImplicitNet(hidden_dims=(512,) * 8, skip_in=(4,), beta=100.0, radius_init=0.5,
+                            generator=torch.Generator().manual_seed(SEED), device=device)
+    igr_step = make_train_step(igr_model, IGRLOSS(), torch.optim.Adam(igr_model.parameters(), 1e-4),
+                               "bfloat16")
+    timer_steps(igr_step, 2)
+
+    def igr_steps():
+        for i in range(IGR_TRACE_STEPS):
+            igr_step(X[batches[i]], Y[batches[i]], 0)
+
+    with counted(launches, "igr"):
+        igr_steps()
+    only_launched(launches, "igr", igr_fwd=IGR_TRACE_STEPS, igr_bwd=IGR_TRACE_STEPS)
+    traces["igr_steps"] = traced(root / "trace_igr", igr_steps, "IGR steps")
+    step_times["igr"] = timer_steps(igr_step, IGR_TRACE_STEPS)
+    return traces, step_times, launches["igr"]
+
+
+def drive_host_tools(device, run_root, report):
+    """Phase 4i: the host tools on the card, counts zeroed before each run
+    and read after it. (a) the sampler CLI as a subprocess and in-process;
+    (b) the normal audit of phase 4b's trained f32 net on the 64^3 grid,
+    tied to kernel 8's f32 mode; (c) the octree comparison on phase 4g's
+    deeptrace leaves, as CSV, VTU and PVTU; (d) the multi-file sampler over
+    .ply shards; (e) the 2-D .msh sampler; (f) utils/profiling.trace around
+    one supervised epoch and 10 labelled IGRLOSS steps (bfloat16) in a
+    process of its own (trace_steps), each trace read there by read_trace.
+    Returns the launches per run."""
+    from sdf_representation_tpu_torch.configgen import Configuration
+    from sdf_representation_tpu_torch.evaluations import compare_octree_dl as octree
+    from sdf_representation_tpu_torch.evaluations.normal_comparison import compute_normal_for_model
+    from sdf_representation_tpu_torch.geometry import msh_io
+    from sdf_representation_tpu_torch.geometry.mesh_io import save_mesh
+    from sdf_representation_tpu_torch.geometry.primitives import make_icosphere
+    from sdf_representation_tpu_torch.geometry.rescale import rescale_mesh
+    from sdf_representation_tpu_torch.ops import fused_igr as fi
+    from sdf_representation_tpu_torch.ops import fused_mlp as fm
+    from sdf_representation_tpu_torch.ops.diffops import sdf_and_gradient
+    from sdf_representation_tpu_torch.sampling import distributed, sampler, sampler2d
+    from sdf_representation_tpu_torch.sampling.__main__ import main as sampling_main
+    from sdf_representation_tpu_torch.training import Trainer
+    from sdf_representation_tpu_torch.utils.device import matmul_precision
+
+    card = report["card"]
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks: room for (a)'s subprocess
+    root = run_root / "host_tools"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    launches, out = {}, {}
+    t_phase = time.perf_counter()
+    # phase 4b's geometry as its trainer rescales it (configs/mesh_sdf.ini: rescale = True)
+    sphere = rescale_mesh(make_icosphere(5, 0.5))
+    radius = float(np.median(np.linalg.norm(sphere.vertices, axis=1)))
+    stl = root / "sphere.stl"
+    save_mesh(sphere, str(stl))
+
+    # -- (a) the sampler CLI ------------------------------------------------------
+    n_uni, n_surf, n_narrow, width = CLI_SIZES
+    args = [str(stl), "--num_uniform", str(n_uni), "--num_surface", str(n_surf),
+            "--num_narrow_band", str(n_narrow), "--dense_width", str(width)]
+    sub_dir, own_dir = root / "cli_subprocess", root / "cli_in_process"
+    sub_dir.mkdir()
+    own_dir.mkdir()
+    # the subprocess runs while the same command runs in this process, whose
+    # launches are counted
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "sdf_representation_tpu_torch.sampling", *args,
+                             "--out", str(sub_dir)], cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        with counted(launches, "host_tools/sampling_cli"), contextlib.redirect_stdout(io.StringIO()):
+            t1 = time.perf_counter()
+            if sampling_main([*args, "--out", str(own_dir)]) != 0:
+                raise RuntimeError("the sampler CLI failed in-process")
+            own_wall = time.perf_counter() - t1
+        _, err_text = proc.communicate(timeout=600)
+        sub_wall = time.perf_counter() - t0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise RuntimeError(f"the sampler CLI failed ({proc.returncode}): {err_text[-2000:]}")
+    only_launched(launches, "host_tools/sampling_cli", dist_stream=3, wind_stream=3)
+    stages = {k: sampler.LAST_STAGE_SECONDS[k] for k in ("sample", "label")}
+    frames = sampler.generate_signed_distance_data(str(stl), n_uni, n_surf, n_narrow, width,
+                                                   device=device)
+    rows = {}
+    for name, frame in zip(("uniform", "surface", "narrow"), frames):
+        text = (sub_dir / f"{name}.csv").read_text()
+        if text != (own_dir / f"{name}.csv").read_text():
+            raise RuntimeError(f"sampler CLI: {name}.csv differs between the two runs")
+        header = text[:text.index("\n")]
+        if header != ",".join(sampler.COLUMNS):
+            raise RuntimeError(f"sampler CLI: {name}.csv's header is {header!r} (an index column?)")
+        values = np.loadtxt(sub_dir / f"{name}.csv", delimiter=",", skiprows=1, ndmin=2)
+        if not np.array_equal(values, frame.values):
+            raise RuntimeError(f"sampler CLI: {name}.csv is not generate_signed_distance_data's")
+        rows[name] = len(values)
+    labels = np.concatenate([f.values for f in frames])
+    r = np.linalg.norm(labels[:, :3], axis=1)
+    # 0.01 off the sphere (phase 4g (b)), beyond the facets' sag
+    sag = radius - np.linalg.norm(sphere.vertices[sphere.faces].mean(axis=1), axis=1).min()
+    clear = np.abs(r - radius) > 0.01 + sag
+    wrong = int(np.sum(np.sign(labels[clear, 3]) != np.sign(r[clear] - radius)))
+    out["sampling_cli"] = {"subprocess_wall_s": sub_wall, "in_process_wall_s": own_wall,
+                           "in_process_stages_s": stages, "rows": rows,
+                           "signs_checked": int(clear.sum()), "signs_wrong": wrong}
+    print(f"phase 4i (a) sampler CLI ({card}): {json.dumps(out['sampling_cli'])}", flush=True)
+    n_faces = len(sphere.faces)
+    if rows != {"uniform": n_uni, "surface": n_faces * n_surf, "narrow": n_faces * n_narrow} or wrong:
+        raise RuntimeError(f"sampler CLI: wrong rows or signs: {out['sampling_cli']}")
+
+    # -- (b) the normal audit of the trained f32 net -------------------------------
+    trained = Trainer(Configuration(str(run_root / "pipeline" / "train_float32.ini")))
+    trained.load_model(best=True)
+    model = trained.model
+    normal_dir = root / "normals"
+    normal_dir.mkdir()
+    save_mesh(sphere, str(normal_dir / "sphere.stl"))
+    ax = np.linspace(-1, 1, NORMAL_GRID)
+    grid = np.stack(np.meshgrid(ax, ax, ax, indexing="ij"), axis=-1).reshape(-1, 3)
+    sampler.Frame(("x", "y", "z"), grid).to_csv(str(normal_dir / "nodes_coordinates.csv"))
+    printed = io.StringIO()
+    with counted(launches, "host_tools/normal_audit"), contextlib.redirect_stdout(printed):
+        t0 = time.perf_counter()
+        stats = compute_normal_for_model(model, str(normal_dir))
+        wall = time.perf_counter() - t0
+    print(printed.getvalue(), end="", flush=True)
+    only_launched(launches, "host_tools/normal_audit", dist_stream=1, wind_stream=1)
+    files = ("exact_wf.csv", "computed.csv", "error_points.csv", "similarity_points.csv",
+             "similarity.csv")
+    missing = [f for f in files if not (normal_dir / f).exists()]
+    truth = np.loadtxt(normal_dir / "exact_wf.csv", delimiter=",", skiprows=1)
+    sim = np.loadtxt(normal_dir / "similarity_points.csv", delimiter=",", skiprows=1)
+    err = np.loadtxt(normal_dir / "error_points.csv", delimiter=",", skiprows=1)
+    band = np.abs(truth[:, 4]) < 0.1
+    band_rmse = float(np.sqrt(np.mean(err[band, 4] ** 2)))
+    band_cos = float(np.mean(sim[band, 4]))
+    # the tool's (f, grad f) on its first points against kernel 8 in f32
+    head = np.loadtxt(normal_dir / "computed.csv", delimiter=",", skiprows=1,
+                      max_rows=NORMAL_KERNEL_POINTS)
+    x = torch.from_numpy(grid[:NORMAL_KERNEL_POINTS].astype(np.float32)).to(device)
+    f_k, g_k = fi.fused_value_and_grad(fm.FusedNet(model, torch.float32), x)
+    torch.cuda.synchronize()
+    df = float(np.abs(f_k.cpu().numpy() - head[:, 4]).max())
+    dg = float(np.abs(g_k.cpu().numpy() - head[:, 5:8]).max())
+    with matmul_precision("highest"):  # the tool's call on the same points alone
+        f_a, g_a = sdf_and_gradient(model, x)
+    df_alone = float((f_a.detach() - f_k).abs().max())
+    dg_alone = float((g_a.detach() - g_k).abs().max())
+    out["normal_audit"] = {
+        "wall_s": wall, "points": len(grid), **stats, "band_points": int(band.sum()),
+        "band_rmse": band_rmse, "band_cos_mean": band_cos, "missing_files": missing,
+        "kernel8_f32_vs_tool": {"points": NORMAL_KERNEL_POINTS, "f_max_abs_diff": df,
+                                "grad_max_abs_diff": dg, "f_vs_autograd_alone": df_alone,
+                                "grad_vs_autograd_alone": dg_alone}}
+    print(f"phase 4i (b) normal audit of the trained 8x512 net on {NORMAL_GRID}^3 ({card}): "
+          f"rmse {stats['rmse']:.4e} (limit {NORMAL_RMSE_MAX}), cos_mean {stats['cos_mean']:.5f} "
+          f"(limit {NORMAL_COS_MIN}); |S| < 0.1: rmse {band_rmse:.4e} (limit {NORMAL_BAND_RMSE_MAX}), "
+          f"cos_mean {band_cos:.5f} (limit {NORMAL_BAND_COS_MIN}); " + json.dumps(out["normal_audit"]),
+          flush=True)
+    if missing or not (np.isfinite([stats["rmse"], stats["cos_mean"]]).all()
+                       and stats["rmse"] <= NORMAL_RMSE_MAX and stats["cos_mean"] >= NORMAL_COS_MIN
+                       and band_rmse <= NORMAL_BAND_RMSE_MAX and band_cos >= NORMAL_BAND_COS_MIN):
+        raise RuntimeError(f"normal audit: over its limits or files missing: {out['normal_audit']}")
+    if not (df <= F32_TOL and dg <= F32_TOL):
+        raise RuntimeError(f"normal audit: kernel 8 (f32) and the tool's autograd disagree: "
+                           f"f {df:.3e}, grad f {dg:.3e} (limit {F32_TOL})")
+
+    # -- (c) the octree comparison on deeptrace's leaves ---------------------------
+    leaves = run_root / "export" / "deeptrace" / "points.csv"
+    octree_dir = root / "octree"
+    octree_dir.mkdir()
+    with counted(launches, "host_tools/octree_compare"):
+        t0 = time.perf_counter()
+        got = octree.compare_octree_dl(model, str(leaves), out_csv=str(octree_dir / "csv.csv"))
+        wall = time.perf_counter() - t0
+    only_launched(launches, "host_tools/octree_compare")
+    table = np.loadtxt(octree_dir / "csv.csv", delimiter=",", skiprows=1, ndmin=2)
+    header = (octree_dir / "csv.csv").read_text().split("\n", 1)[0]
+    if header != "x,y,z,model_sdf,octree_sdf,error":
+        raise RuntimeError(f"octree compare: the CSV's header is {header!r}")
+    err = within(table[:, 3], table[:, 4], NATIVE_VALUE_TOL, "octree compare")
+    margin = NATIVE_VALUE_TOL[1] + NATIVE_VALUE_TOL[0] * np.abs(table[:, 4])
+    clear = np.abs(table[:, 4]) > margin
+    signs = float(np.mean((table[clear, 3] < 0) == (table[clear, 4] < 0)))
+    pts, stored = octree.load_octree_nodes(str(leaves))
+    pieces = np.array_split(np.arange(len(pts)), 2)
+
+    def vtu(path, idx):
+        body = "\n".join(f"{a:.17g} {b:.17g} {c:.17g}" for a, b, c in pts[idx])
+        scal = " ".join(f"{v:.17g}" for v in stored[idx])
+        path.write_text(
+            f'<VTKFile type="UnstructuredGrid"><UnstructuredGrid><Piece NumberOfPoints="{len(idx)}">'
+            f'<Points><DataArray NumberOfComponents="3" format="ascii">\n{body}\n</DataArray></Points>'
+            f'<PointData><DataArray Name="sdf" format="ascii">{scal}</DataArray></PointData>'
+            "</Piece></UnstructuredGrid></VTKFile>")
+
+    vtu(octree_dir / "all.vtu", np.arange(len(pts)))
+    for k, idx in enumerate(pieces):
+        vtu(octree_dir / f"piece{k}.vtu", idx)
+    (octree_dir / "all.pvtu").write_text(
+        '<VTKFile type="PUnstructuredGrid"><PUnstructuredGrid>'
+        '<Piece Source="piece0.vtu"/><Piece Source="piece1.vtu"/></PUnstructuredGrid></VTKFile>')
+    same = {ext: octree.compare_octree_dl(model, str(octree_dir / f"all.{ext}")) == got
+            for ext in ("vtu", "pvtu")}
+    out["octree_compare"] = {"wall_s": wall, **got, "max_abs_err_within_tol": err,
+                             "sign_agreement_outside_margin": signs, "points_outside_margin":
+                             int(clear.sum()), "vtu_pvtu_equal": same}
+    print(f"phase 4i (c) octree compare on deeptrace's leaves ({card}): "
+          + json.dumps(out["octree_compare"]), flush=True)
+    if not (signs == 1.0 and all(same.values()) and got["n_nodes"] == len(table)):
+        raise RuntimeError(f"octree compare: {out['octree_compare']}")
+
+    # -- (d) the multi-file sampler ------------------------------------------------
+    geo = root / "shards"
+    for k in range(SHARDS):
+        sub = geo / f"part{k % 3}"
+        sub.mkdir(parents=True, exist_ok=True)
+        shard = make_icosphere(5, 0.2 + 0.1 * k)
+        save_mesh(shard, str(sub / f"sphere{k}.ply"))
+    per = len(shard.vertices) + len(shard.faces)  # the vertices, one surface point a triangle
+    (geo / "part0" / "corrupt.ply").write_text("ply\nformat ascii 1.0\nelement vertex 9\nend_header\n1\n")
+    dist_dir = root / "distributed"
+    timings = {}
+
+    def sample(tag, save, **kw):
+        printed = io.StringIO()
+        with counted(launches, f"host_tools/distributed/{tag}"), contextlib.redirect_stdout(printed):
+            t0 = time.perf_counter()
+            csv = distributed.write_signed_distance_distributed(str(geo), str(save),
+                                                                num_points_surface=1, **kw)
+            timings[tag] = time.perf_counter() - t0
+        only_launched(launches, f"host_tools/distributed/{tag}")
+        return pathlib.Path(csv), printed.getvalue()
+
+    csv, said = sample("first", dist_dir)
+    lines = csv.read_text().splitlines()
+    if len(lines) != 1 + SHARDS * per or "skipping corrupt mesh" not in said:
+        raise RuntimeError(f"distributed: {len(lines) - 1} rows, not {SHARDS * per}")
+    size = csv.stat().st_size
+    sample("again", dist_dir)
+    if csv.stat().st_size != size:
+        raise RuntimeError("distributed: a second call appended rows")
+    save_mesh(make_icosphere(5, 0.95), str(geo / "part1" / "sphere_new.ply"))
+    sample("new_shard", dist_dir)
+    added = csv.read_text().splitlines()[len(lines):]
+    if len(added) != per or not added[0].startswith("0,") or csv.read_text()[:size] != "\n".join(lines) + "\n":
+        raise RuntimeError(f"distributed: the new shard appended {len(added)} rows, not {per}")
+    journals = []
+    for host in (0, 1):
+        sample(f"host{host}_of_2", root / f"distributed_host{host}", host_id=host, num_hosts=2)
+        journals.append(set((root / f"distributed_host{host}" / "processed_files.log")
+                            .read_text().split()))
+    everything = {str(p.relative_to(geo)) for p in geo.rglob("*.ply")}
+    out["distributed"] = {"shards": SHARDS + 1, "rows": len(lines) - 1 + len(added),
+                          "seconds": timings, "host_files": [len(j) for j in journals],
+                          "min_max": distributed.compute_min_max(str(geo))}
+    print(f"phase 4i (d) multi-file sampler over {SHARDS} icosphere(5) shards + 1 corrupt + 1 "
+          f"added: {json.dumps(out['distributed'])}", flush=True)
+    if journals[0] & journals[1] or journals[0] | journals[1] != everything:
+        raise RuntimeError(f"distributed: the hosts' journals {journals} do not split {everything}")
+
+    # -- (e) the 2-D .msh sampler ---------------------------------------------------
+    th = np.linspace(0, 2 * np.pi, POLYGON_SIDES, endpoint=False)
+    rr = 0.6 * (1 + 0.2 * np.sin(5 * th))
+    poly = np.column_stack([rr * np.cos(th), rr * np.sin(th)])
+    v22 = msh_io.write_msh_polygon(str(root / "poly_v22.msh"), poly)
+    v41 = write_msh_v41(root / "poly_v41.msh", poly)
+    two_d = {}
+    for tag, path in (("v22", v22), ("v41", v41)):
+        save = root / f"two_d_{tag}"
+        save.mkdir()
+        t0 = time.perf_counter()
+        two_d[tag] = sampler2d.generate_signed_distance_2D_msh(20000, 5000, 5000, 0.1, path,
+                                                               save_path=str(save))
+        timings[f"2d_{tag}"] = time.perf_counter() - t0
+    uni, narrow, surf = two_d["v22"]
+    equal = all(np.array_equal(a.values, b.values) for a, b in zip(two_d["v22"], two_d["v41"]))
+    out["msh_2d"] = {"seconds": {k: v for k, v in timings.items() if k.startswith("2d")},
+                     "frames_equal": equal, "surface_max_abs_S": float(np.abs(surf["S"]).max()),
+                     "narrow_max_abs_S": float(np.abs(narrow["S"]).max()),
+                     "uniform_inside": float(np.mean(uni["S"] < 0))}
+    print(f"phase 4i (e) 2-D .msh sampler, a {POLYGON_SIDES}-gon: {json.dumps(out['msh_2d'])}",
+          flush=True)
+    if not (equal and out["msh_2d"]["surface_max_abs_S"] <= 1e-9
+            and out["msh_2d"]["narrow_max_abs_S"] <= 0.1 + 1e-12):
+        raise RuntimeError(f"2-D .msh sampler: {out['msh_2d']}")
+
+    # -- (f) traces: one supervised epoch, 10 labelled IGRLOSS steps (bfloat16) ---
+    # in a process of their own: after these two traces, torch.profiler's
+    # later traces in the same process held no device event (kernels_per_call,
+    # phase 5: three tries of three, in this script's first run with them)
+    code = ("import json, pathlib, chip_smoke\n"
+            f"out = chip_smoke.trace_steps(pathlib.Path({str(run_root)!r}), {str(own_dir)!r})\n"
+            "print('TRACE_STEPS ' + json.dumps(out))\n")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=600)
+    if res.returncode != 0:
+        raise RuntimeError(f"phase 4i (f) failed ({res.returncode}): {res.stderr[-3000:]}")
+    (line,) = [ln for ln in res.stdout.splitlines() if ln.startswith("TRACE_STEPS ")]
+    traces, step_times, child_launches = json.loads(line[len("TRACE_STEPS "):])
+    launches["host_tools/igr_trace_warm"] = child_launches
+    timings["trace_process"] = time.perf_counter() - t0
+    for tag, reading in traces.items():
+        print(f"phase 4i (f) trace of the {tag.replace('_', ' ')} ({card}): window "
+              f"{reading['window_ms']:.3f} ms (untraced {reading['untraced_ms']:.3f}), device busy "
+              f"{reading['device_busy_ms']:.3f} ms, idle share {reading['idle_share']:.4f}, "
+              f"{reading['kernel_launches']} kernel launches; top 5: " + json.dumps(reading["top5"])
+              + f"; kernels 8-9 {reading['igr_kernels_ms']:.3f} ms ({reading['igr_share_of_busy']:.4f} "
+              "of busy)", flush=True)
+    print(f"phase 4i (f) StepTimer with force ({card}): {json.dumps(step_times)}; the process "
+          f"{timings['trace_process']:.1f} s", flush=True)
+    if not traces["igr_steps"]["igr_kernels_ms"] > 0:
+        raise RuntimeError("phase 4i (f): the IGR trace holds no igr_* kernel")
+    out["traces"], out["step_times"] = traces, step_times
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 4i: {out['phase_s']:.1f} s", flush=True)
+    report["host_tools"] = out
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2579,6 +3084,7 @@ def main() -> int:
     runs.update(drive_marching(device, run_root, model, checks, report))
     runs.update(drive_export_two_dim(device, run_root, report))
     runs.update(drive_families(device, run_root, report))
+    runs.update(drive_host_tools(device, run_root, report))
 
     # ---- 5. times -----------------------------------------------------------
     mac = sum(fi * fo for fi, fo in model.layer_shapes())

@@ -140,14 +140,12 @@ def reconstruct_mesh(model, cubesize: int, compute_dtype=torch.bfloat16,
     return Mesh(verts, faces)
 
 
-def reconstruct_only(trainer, gif: bool = False, compute_dtype=torch.bfloat16) -> str:
-    """Load the newest checkpoint, reconstruct, export the STL; returns its
-    path (postprocess/reconstructed_epoch{E}.stl). The stage times land in
+def reconstruct_only(trainer, gif: bool = True, compute_dtype=torch.bfloat16) -> str:
+    """Load the newest checkpoint, reconstruct, export the STL (and with
+    ``gif`` a rotating GIF beside it, where matplotlib imports; a failure
+    to draw it is printed, not raised); returns the STL's path
+    (postprocess/reconstructed_epoch{E}.stl). The stage times land in
     ``LAST_STAGE_SECONDS``."""
-    if gif:
-        raise NotImplementedError(
-            "the GIF needs matplotlib, which the card's machine lacks: see ROADMAP.md"
-        )
     c = trainer.config
     LAST_STAGE_SECONDS.clear()
     t = time.perf_counter()
@@ -162,4 +160,11 @@ def reconstruct_only(trainer, gif: bool = False, compute_dtype=torch.bfloat16) -
     t = time.perf_counter()
     save_mesh(mesh, stl_path)
     _lap("write_stl", t)
+    if gif:
+        try:
+            from .generate_gif import plot_stl
+
+            plot_stl(stl_path, stl_path.replace(".stl", ".gif"))
+        except Exception as exc:
+            print(f"GIF generation failed: {exc}")
     return stl_path

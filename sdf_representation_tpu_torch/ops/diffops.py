@@ -57,6 +57,12 @@ def sdf_and_gradient(model: Apply, x: torch.Tensor) -> Tuple[torch.Tensor, torch
     return torch.func.vmap(value_and_grad)(x)
 
 
+def sdf_and_normal(model: Apply, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(f(x), the last three components of grad_x f(x))."""
+    vals, grads = sdf_and_gradient(model, x)
+    return vals, grads[:, -3:]
+
+
 def sdf_and_gradient_fwd(model: Apply, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(f, grad_x f) inside training losses.
 

@@ -9,3 +9,5 @@ from .sampler import (
     write_signed_distance_mismatch,
     augment_mismatch_from_postprocess,
 )
+from .sampler2d import generate_signed_distance_2D_msh, polygon_sdf
+from .distributed import write_signed_distance_distributed, compute_min_max

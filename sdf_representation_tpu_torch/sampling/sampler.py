@@ -59,14 +59,20 @@ class Frame:
     def __getitem__(self, column: str) -> np.ndarray:
         return self.values[:, self.columns.index(column)]
 
-    def to_csv(self, path: str) -> None:
-        """``,x,y,...`` header and a leading row-index column: the file
-        pandas writes. Values are written with 17 significant digits, so
-        they read back exactly."""
+    def to_csv(self, path: str, index: bool = True, mode: str = "w", header: bool = True) -> None:
+        """The rows pandas' ``DataFrame.to_csv(path, index=, mode=, header=)``
+        writes: a ``,x,y,...`` header line (``x,y,...`` without the index)
+        and, with ``index``, a leading row-index column from 0, also in a
+        block appended with ``mode="a"``. Values are written with 17
+        significant digits, so they read back exactly."""
         values = np.asarray(self.values, np.float64).reshape(len(self.values), len(self.columns))
-        values = np.column_stack([np.arange(len(values), dtype=np.float64), values])
-        np.savetxt(path, values, fmt=["%d"] + ["%.17g"] * len(self.columns), delimiter=",",
-                   header="," + ",".join(self.columns), comments="")
+        fmt, names = ["%.17g"] * len(self.columns), ",".join(self.columns)
+        if index:
+            values = np.column_stack([np.arange(len(values), dtype=np.float64), values])
+            fmt, names = ["%d"] + fmt, "," + names
+        with open(path, mode) as f:
+            np.savetxt(f, values, fmt=fmt, delimiter=",", header=names if header else "",
+                       comments="")
 
 
 def _as_mesh(geometry: Union[str, Mesh]) -> Mesh:

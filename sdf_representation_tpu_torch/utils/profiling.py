@@ -1,0 +1,90 @@
+"""Tracing and step timing — counterpart of
+sdf_representation_tpu/utils/profiling.py.
+
+  * trace(log_dir): a ``torch.profiler`` window around a code block; CPU
+    activity, and CUDA activity where a card is present. It writes one
+    Chrome trace (``*.pt.trace.json``) into log_dir, which Perfetto,
+    chrome://tracing and TensorBoard's profiler plugin open.
+  * force(x): waits for the device of the first tensor of a nested
+    dict / list / tuple (torch returns before the card finishes).
+  * StepTimer: per-step wall times; ``summary()`` gives mean/p50/p90/min.
+  * debug_nans(): anomaly detection in autograd (the JAX package's
+    jax_debug_nans switch; the reference called
+    torch.autograd.set_detect_anomaly unconditionally, executor.py:159).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """torch.profiler trace around a code block; yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+        yield prof
+
+
+def _leaves(x):
+    if isinstance(x, dict):
+        for v in x.values():
+            yield from _leaves(v)
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            yield from _leaves(v)
+    else:
+        yield x
+
+
+def force(x) -> None:
+    """Wait for the work behind the first tensor leaf of ``x`` (its device
+    synchronized; a CPU tensor is already computed)."""
+    for leaf in _leaves(x):
+        if isinstance(leaf, torch.Tensor):
+            if leaf.device.type == "cuda":
+                torch.cuda.synchronize(leaf.device)
+            return
+
+
+class StepTimer:
+    """Accumulates per-step wall times; `summary()` gives mean/p50/p90/min."""
+
+    def __init__(self):
+        self.times: List[float] = []
+        self._t0: Optional[float] = None
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.times.append(time.perf_counter() - self._t0)
+
+    def summary(self) -> Dict[str, float]:
+        if not self.times:
+            return {}
+        arr = np.asarray(self.times)
+        return {
+            "n": len(arr),
+            "mean_s": float(arr.mean()),
+            "p50_s": float(np.percentile(arr, 50)),
+            "p90_s": float(np.percentile(arr, 90)),
+            "min_s": float(arr.min()),
+            "total_s": float(arr.sum()),
+        }
+
+
+def debug_nans(enable: bool = True) -> None:
+    torch.autograd.set_detect_anomaly(enable)

@@ -1,4 +1,4 @@
-"""The port imports neither JAX (nor flax/optax/pandas/sklearn/matplotlib) nor any
+"""The port imports neither JAX (nor flax/optax/pandas/sklearn/matplotlib/PIL) nor any
 module of the JAX package — checked in a fresh interpreter, since this
 pytest process has already loaded JAX."""
 
@@ -44,12 +44,16 @@ def test_port_modules_load_no_jax_or_jax_package():
     for name in ("hash_mlp", "ffn", "siren", "kan", "registry"):
         assert f"sdf_representation_tpu_torch.models.{name}" in mods
     assert "sdf_representation_tpu_torch.ops.hash_grid_eval" in mods
+    for name in ("utils.profiling", "geometry.msh_io", "sampling.sampler2d", "sampling.distributed",
+                 "sampling.__main__", "evaluations.normal_comparison", "evaluations.compare_octree_dl",
+                 "evaluations.visualize_errors", "evaluations.generate_gif"):
+        assert f"sdf_representation_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'pandas', 'sklearn', 'matplotlib') "
+        "('jax', 'jaxlib', 'flax', 'optax', 'pandas', 'sklearn', 'matplotlib', 'PIL') "
         "or k == 'sdf_representation_tpu' or k.startswith('sdf_representation_tpu.')]\n"
         "print(sorted(bad))\n"
     )

@@ -135,11 +135,37 @@ def test_unported_modes_and_missing_card_raise(tmp_path):
         Trainer(cfg, device="cpu").run()
     with pytest.raises(FileNotFoundError):
         Trainer(cfg, device="cpu").load_model()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError):
         reconstruct.reconstruct_only(Trainer(cfg, device="cpu"), gif=True)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Trainer(cfg)
+
+
+@pytest.mark.parametrize("plot", ["fails", "draws"])
+def test_reconstruct_only_gif(tmp_path, monkeypatch, capsys, plot):
+    """The GIF beside the STL (JAX reconstruct.py:125-130): a failure to draw
+    it is printed and the STL is still returned."""
+    from sdf_representation_tpu_torch.evaluations import generate_gif
+
+    trainer = Trainer(Configuration(_config(tmp_path, 16)), device="cpu")
+    save_checkpoint(f"{trainer.model_save_path}/model_epoch3.ckpt",
+                    {"model": trainer.model.state_dict(), "epoch": 3})
+    if plot == "fails":
+        def broken(stl_path, gif_path, **kw):
+            raise RuntimeError("no matplotlib")
+
+        monkeypatch.setattr(generate_gif, "plot_stl", broken)
+    else:
+        pytest.importorskip("matplotlib")
+    stl = pathlib.Path(reconstruct.reconstruct_only(trainer))
+    assert stl.name == "reconstructed_epoch3.stl" and stl.stat().st_size > 84
+    gif = stl.with_suffix(".gif")
+    if plot == "fails":
+        assert "GIF generation failed: no matplotlib" in capsys.readouterr().out
+        assert not gif.exists()
+    else:
+        assert gif.read_bytes()[:6] == b"GIF89a"
 
 
 def test_routes_follow_the_jax_dispatch():
