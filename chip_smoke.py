@@ -221,6 +221,25 @@ Phases, none of which is allowed to fail quietly:
     union of kernel intervals), the idle share, the top 5 kernels and
     kernels 8-9's share (a trace with no kernel event is taken again, three
     tries); StepTimer with force gives the per-step times beside them.
+ 4j. One process per card (parallel/multihost.py), the ranks spawned by
+    this script (`python3 chip_smoke.py --rank R --spec FILE`) with a fixed
+    timeout, counts zeroed before each run in each rank: (a) NCCL, one rank
+    (initialize_multihost over tcp://127.0.0.1): phase 4c's labelled IGRLOSS
+    run (8x512, bfloat16, DP_IGR_EPOCHS epochs) through Trainer on the
+    group's data axis and one supervised epoch of configs/mesh_sdf.ini's
+    8x512 net through the entry point, losses and parameters bit-equal to
+    the same runs with no group (run here first), one igr_fwd and one
+    igr_bwd per step; (b) gloo, two ranks on the one card (device cuda:0 and
+    backend gloo asked for): the point-cloud run (8x256, bfloat16,
+    MH_PCD_EPOCHS epochs) and the labelled IGRLOSS run, the ranks' parameters
+    bit-equal to each other, one igr_fwd and one igr_bwd per rank and step,
+    losses within MH_LOSS_RTOL and parameters within MH_PARAM_RATIO (see
+    there) of the one-process mesh=(card,) * 2 (phase 4e's labelled run; the
+    point cloud's made here), and one supervised epoch through the entry
+    point in per-rank directories where only rank 0's gains files; each
+    rank's step times (labelled and point-cloud steps), the all-reduce's
+    share and kernels 8-9's share on its rows; (c) controls on the CPU: a
+    set with a rank that exits and one with a rank that hangs must fail.
  5. Times with CUDA events at the main path's shapes: kernel, plain version,
     one library layer chain (torch addmm, never called by the port), and
     the bound: the larger of bytes over 3.35 TB/s and operations over the
@@ -248,7 +267,8 @@ Phases, none of which is allowed to fail quietly:
     kernels 8 and 9 launched once per shard on its rows. Each IGR call's
     kernels are read from torch.profiler traces: a trace that lacks an
     expected kernel is taken again (three tries), and the kernels found
-    must equal the expected ones.
+    must equal the expected ones. Rows 8 and 9 of the kernels line carry
+    phase 4j's per-rank step times and its launches.
  6. A `kernels` JSON line with eleven entries, then the contract line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -259,6 +279,7 @@ import contextlib
 import io
 import json
 import math
+import os
 import pathlib
 import re
 import shutil
@@ -406,6 +427,27 @@ SHARDS = 8           # .ply shards of icosphere(5) for the distributed sampler
 POLYGON_SIDES = 200  # the 2-D .msh polygon; configs/circle_2d.ini's sizes
 IGR_TRACE_STEPS = 10
 TRACE_BATCH = 16384  # configs/mesh_sdf.ini's batch_size
+DP_IGR_EPOCHS = 2    # phase 4e's labelled IGRLOSS run over the card x2, and phase 4j's
+# phase 4j: one process per card (parallel/multihost.py), its ranks spawned by
+# this script. The point-cloud run's epochs; a set of ranks that outlives its
+# timeout (a hung collective) or a rank that exits non-zero fails the run.
+MH_PCD_EPOCHS = 3
+MH_TIMEOUT = 300          # seconds for a set of ranks
+MH_CONTROL_TIMEOUT = 20   # the control sets: a rank exits, a rank hangs
+MH_RESULT = "multihost rank result: "
+# Two gloo ranks on the card against the one-process mesh=(card,) * 2: the
+# gradient sums round in another order (the in-process shards' bf16
+# gradients add in bf16, the ranks' add in f32 in the all-reduce), so their
+# trajectories part as phase 4e's sharded and single-device runs part. Their
+# readings in an earlier run of this script (NVIDIA H100 80GB HBM3, 700 W):
+# labelled IGRLOSS x2 against x1, train loss rel 1.7e-3 and 2.9e-3 after
+# epochs 1 and 2; point cloud x4 against x1, rel 5e-6, 2.1e-5 and 3.7e-4
+# after epochs 1-3. Losses: rel MH_LOSS_RTOL per
+# epoch (3.4x the largest). Parameters: ||P_ranks - P_mesh|| over
+# ||P_mesh - P_init|| within MH_PARAM_RATIO times the same measure between
+# the single-device run and P_mesh, both read in this run.
+MH_LOSS_RTOL = 1e-2
+MH_PARAM_RATIO = 2.0
 
 
 def plain_dropping(net, x, drop, product=None):
@@ -993,7 +1035,7 @@ def drive_sharded(device, run_root, model, report):
     n_train = n_rows - math.ceil(0.1 * n_rows)
     out["data_parallel"] = {}
     for tag, cfg_name, cls, k, epochs in (
-            ("dp_igr_train/bfloat16/x2", "igr_bfloat16.ini", Trainer, 2, 2),
+            ("dp_igr_train/bfloat16/x2", "igr_bfloat16.ini", Trainer, 2, DP_IGR_EPOCHS),
             ("dp_pcd_train/bfloat16/x4", "pcd_bfloat16.ini", PointCloudTrainer, 4, PCD_EPOCHS)):
         work = root / tag.split("/")[0]
         shutil.rmtree(work, ignore_errors=True)
@@ -1017,6 +1059,9 @@ def drive_sharded(device, run_root, model, report):
         if not (len(curve) == epochs and np.isfinite(curve).all() and curve[-1] < curve[0]):
             raise RuntimeError(f"{tag}: the loss did not fall: {curve}")
         out["data_parallel"][tag] = {**stats, "steps": steps, "train_loss": list(curve)}
+        if cls is Trainer:  # phase 4j's reference for two ranks on the card
+            igr_x2 = {"train_loss": list(curve), "state": {
+                k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()}}
     # mesh the data-parallel point-cloud field through the entry point
     rec = root / "dp_pcd_reconstruct.ini"
     rec.write_text(with_keys(text, distributed=False, ppo=True, reconstruct=True, cubesize=128))
@@ -1063,7 +1108,7 @@ def drive_sharded(device, run_root, model, report):
         out.setdefault("sharded_igr_f32", {})[f"x{k}"] = {"max_abs_grad_diff": worst,
                                                           "loss": lk, "single_loss": l1}
     report["sharded_eval"] = out
-    return launches, {"ids": ids, "count": count, "errors": errors, "xy": (x, y)}
+    return launches, {"ids": ids, "count": count, "errors": errors, "xy": (x, y), "igr_x2": igr_x2}
 
 
 def gradient_errors(got, want):
@@ -2891,6 +2936,406 @@ def drive_host_tools(device, run_root, report):
     return launches
 
 
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_ranks(work, tag, specs):
+    """One process per spec, ``python3 chip_smoke.py --rank R --spec FILE``,
+    its output to work/<tag>_rank<R>.log."""
+    procs = []
+    for rank, spec in enumerate(specs):
+        spec_path = work / f"{tag}_rank{rank}.json"
+        spec_path.write_text(json.dumps(spec))
+        log_path = work / f"{tag}_rank{rank}.log"
+        log = open(log_path, "w")
+        procs.append((subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--rank",
+                                        str(rank), "--spec", str(spec_path)], cwd=str(REPO),
+                                       stdout=log, stderr=subprocess.STDOUT), log, log_path))
+    return tag, procs, time.perf_counter()
+
+
+def finish_ranks(handle, timeout):
+    """Every rank's result line. Raises if the set outlives ``timeout`` (a
+    hung collective: every rank is killed first) or a rank exits non-zero."""
+    tag, procs, t0 = handle
+    hung = False
+    try:
+        for p, _, _ in procs:
+            p.wait(timeout=max(0.1, timeout - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        hung = True
+    finally:
+        for p, log, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    texts = [path.read_text() for _, _, path in procs]
+    if hung:
+        raise RuntimeError(f"{tag}: the ranks did not finish within {timeout} s (a hung "
+                           f"collective?); rank 0's output ends:\n{texts[0][-2000:]}")
+    results = []
+    for rank, ((p, _, _), text) in enumerate(zip(procs, texts)):
+        if p.returncode != 0:
+            raise RuntimeError(f"{tag}: rank {rank} exited {p.returncode}:\n{text[-3000:]}")
+        lines = [ln for ln in text.splitlines() if ln.startswith(MH_RESULT)]
+        if not lines:
+            raise RuntimeError(f"{tag}: rank {rank} printed no result")
+        results.append(json.loads(lines[-1][len(MH_RESULT):]))
+    return results
+
+
+def param_checksum(state):
+    import hashlib
+
+    h = hashlib.sha256()
+    for key in sorted(state):
+        h.update(state[key].detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def param_distance(a, b, init):
+    """||a - b|| over ||b - init||, every tensor of the state dicts at once."""
+    num = sum(float(((a[k].double() - b[k].double()) ** 2).sum()) for k in b)
+    den = sum(float(((b[k].double() - init[k].double()) ** 2).sum()) for k in b)
+    return math.sqrt(num / den)
+
+
+def time_rank_steps(mesh, pcd_config):
+    """Per-rank times under the group: the labelled IGRLOSS step (8x512,
+    16,384 points) and the point-cloud step (8x256, 16,384 + 5,461 points),
+    bfloat16, each as the trainers make it; host clock around a
+    synchronized step, the ranks started together at a barrier. Then the
+    same steps with every all_reduce synchronized and timed (its share), and
+    kernels 8-9 alone on this rank's rows (CUDA events)."""
+    import torch.distributed as dist
+
+    from sdf_representation_tpu_torch.configgen import Configuration
+    from sdf_representation_tpu_torch.losses.losses import IGRLOSS
+    from sdf_representation_tpu_torch.models import ImplicitNet
+    from sdf_representation_tpu_torch.ops import fused_igr as fi
+    from sdf_representation_tpu_torch.ops import fused_mlp as fm
+    from sdf_representation_tpu_torch.training import PointCloudTrainer
+    from sdf_representation_tpu_torch.training.trainer import make_train_step
+
+    dev = mesh.device
+    gen = torch.Generator().manual_seed(SEED)
+    x = (torch.rand(16384, 3, generator=gen) * 2 - 1).to(dev)
+    r = x.norm(dim=1, keepdim=True)
+    y = torch.cat([r - 0.85, x / r], dim=1)
+    model = ImplicitNet(hidden_dims=(512,) * 8, skip_in=(4,), beta=100.0, radius_init=0.5,
+                        generator=torch.Generator().manual_seed(SEED), device=dev)
+    igr_step = make_train_step(model, IGRLOSS(), torch.optim.Adam(model.parameters(), lr=1e-4),
+                               "bfloat16", mesh=mesh)
+    pcd = PointCloudTrainer(Configuration(pcd_config), mesh=mesh)
+    pcd_step = pcd._make_step(torch.optim.Adam(pcd.model.parameters(), lr=1e-4), 16384)
+    cloud = torch.randn(16384, 3, generator=gen)
+    cloud = (0.85 * cloud / cloud.norm(dim=1, keepdim=True)).to(dev)
+    step_gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def host_ms(fn, reps=10):
+        dist.barrier()
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    spent = []
+    real_all_reduce = dist.all_reduce
+
+    def timed_all_reduce(tensor, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_all_reduce(tensor, *args, **kwargs)
+        torch.cuda.synchronize()
+        spent.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    out = {}
+    for name, step, net_model, n_rows in (
+            ("igr_step_8x512_n16384", lambda: igr_step(x, y, 0), model, 16384),
+            ("pcd_step_8x256_n16384", lambda: pcd_step(cloud, step_gen), pcd.model, 16384 // 3)):
+        step_ms = host_ms(step)
+        dist.all_reduce = timed_all_reduce
+        try:
+            spent.clear()
+            traced_ms = host_ms(step)
+            calls = len(spent) // 11  # the warm-up step and ten timed ones
+            reduce_ms = sum(spent[-10 * calls:]) / 10
+        finally:
+            dist.all_reduce = real_all_reduce
+        start, stop = mesh.rows(n_rows)
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        xs = (torch.rand(n_rows, 3, generator=g, device=dev) * 2 - 1)[start:stop]
+        a = torch.randn(n_rows, generator=g, device=dev)[start:stop] / n_rows
+        c = torch.randn(n_rows, 3, generator=g, device=dev)[start:stop] / n_rows
+        net = fm.FusedNet(net_model, torch.bfloat16)
+        dist.barrier()
+        kernel_ms = timed(lambda: (fi.fused_value_and_grad(net, xs), fi.fused_param_grads(net, xs, a, c)), 10)
+        out[name] = {"step_ms": step_ms, "step_ms_with_reduce_timed": traced_ms,
+                     "all_reduce_calls": calls, "all_reduce_ms": reduce_ms,
+                     "all_reduce_share": reduce_ms / traced_ms, "rank_rows": stop - start,
+                     "kernels_8_9_ms": kernel_ms, "kernels_8_9_share": kernel_ms / step_ms}
+    return out
+
+
+def rank_main(argv):
+    """One rank of phase 4j, spawned by drive_multihost: join the group the
+    spec names, drive its runs through the trainers and the entry point
+    (launch counts zeroed before each run), save each run's parameters,
+    time the steps, print one result line."""
+    import argparse
+
+    import torch.distributed as dist
+
+    from sdf_representation_tpu_torch.parallel.multihost import initialize_multihost
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--rank", type=int, required=True)
+    parser.add_argument("--spec", required=True)
+    args = parser.parse_args(argv)
+    spec = json.loads(pathlib.Path(args.spec).read_text())
+    initialize_multihost(spec["addr"], spec["world"], args.rank, backend=spec.get("backend"),
+                         device=spec.get("device"))
+    if spec.get("fault"):  # the controls: one rank exits or hangs, the others wait for it
+        if spec["fault"] == "exit":
+            os._exit(3)
+        if spec["fault"] == "hang":
+            time.sleep(3600)
+        dist.barrier()
+        return 0
+
+    from sdf_representation_tpu_torch import cli
+    from sdf_representation_tpu_torch.configgen import Configuration
+    from sdf_representation_tpu_torch.parallel.mesh import process_mesh
+    from sdf_representation_tpu_torch.training import PointCloudTrainer, Trainer
+    from sdf_representation_tpu_torch.training import trainer as trainer_module
+
+    mesh = process_mesh()
+    work = pathlib.Path(spec["work"])
+    out = {"rank": mesh.rank, "world": mesh.size, "backend": dist.get_backend(),
+           "device": str(mesh.device), "card": torch.cuda.get_device_name(mesh.device)}
+    print(f"rank {mesh.rank} of {mesh.size}: backend {out['backend']}, device {out['device']}",
+          flush=True)
+    launches = {}
+    for name, kind, cfg in spec["runs"]:
+        t0 = time.perf_counter()
+        with counted(launches, name):
+            if kind == "cli":
+                if cli.main([cfg]) != 0:
+                    raise RuntimeError(f"{name}: the entry point failed")
+                row = {}
+            else:
+                trainer = (Trainer if kind == "igr" else PointCloudTrainer)(Configuration(cfg),
+                                                                          mesh=mesh)
+                result = trainer.train()
+                state = {k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()}
+                torch.save(state, work / f"{name}_rank{mesh.rank}.pt")
+                row = {"train_loss": result.get("train_losses", result.get("losses")),
+                       "val_loss": result.get("val_losses"), "checksum": param_checksum(state)}
+        row.update(wall_s=time.perf_counter() - t0, launches=launches[name],
+                   **dict(trainer_module.LAST_RUN))
+        print(f"rank {mesh.rank} {name}: " + json.dumps(row), flush=True)
+        out[name] = row
+    out["times"] = time_rank_steps(mesh, spec["pcd_config"])
+    print(f"rank {mesh.rank} times (ms): {json.dumps(out['times'])}", flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+    print(MH_RESULT + json.dumps(out), flush=True)
+    return 0
+
+
+def drive_multihost(device, run_root, igr_x2, report):
+    """Phase 4j: one process per card over torch.distributed, the ranks
+    spawned with a fixed timeout. (a) NCCL, one rank: the labelled IGRLOSS
+    run and one supervised epoch through the entry point, bit-equal to the
+    same runs with no group (made here first). (b) gloo, two ranks on the
+    one card: the point-cloud run, the labelled IGRLOSS run (ranks bit-equal
+    to each other; losses and parameters against the one-process mesh of
+    two: MH_LOSS_RTOL, MH_PARAM_RATIO) and one supervised epoch in per-rank
+    directories, only rank 0's receiving files. (c) Controls, on the CPU:
+    a set with a rank that exits and one with a rank that hangs must fail.
+    Returns the launches per rank and run."""
+    t_phase = time.perf_counter()
+    root = run_root / "pipeline"
+    work = run_root / "multihost"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    data_root = root / "float32" / "r_sphere"
+    configs = {}
+
+    def config(name, base, labelled=True, **keys):
+        """``base`` with its directory under work/<name>/ (the labelled CSVs
+        hard-linked in) and ``keys`` changed."""
+        if labelled:
+            shutil.copytree(data_root, work / name / data_root.name, copy_function=os.link,
+                            ignore=shutil.ignore_patterns("ImplicitNet*", "info.txt"))
+        path = work / f"{name}.ini"
+        path.write_text(with_keys((root / base).read_text(), directory=f"{work / name}/", **keys))
+        configs[name] = str(path)
+        return str(path)
+
+    igr = dict(epochs=DP_IGR_EPOCHS, min_epochs=DP_IGR_EPOCHS, checkpointing=DP_IGR_EPOCHS)
+    pcd = dict(epochs=MH_PCD_EPOCHS, min_epochs=MH_PCD_EPOCHS)
+    sup = dict(epochs=1, min_epochs=1, checkpointing=1)
+    for prefix in ("ref", "nccl", "gloo"):
+        config(f"{prefix}_igr", "igr_bfloat16.ini", **igr)
+    for prefix in ("ref", "ref_x2", "gloo"):
+        config(f"{prefix}_pcd", "pcd_bfloat16.ini", labelled=False, **pcd)
+    for name in ("ref_sup", "nccl_sup", "gloo_sup_rank0", "gloo_sup_rank1"):
+        config(name, "train_bfloat16.ini", **sup)
+    sup_dirs = [work / f"gloo_sup_rank{r}" for r in range(2)]
+    sup_files = [files_under(d) for d in sup_dirs]
+
+    # (c) the controls start first, on the CPU, and run beside the rest
+    controls = [start_ranks(work, f"control_{fault}", [
+        {"addr": f"127.0.0.1:{port}", "world": 2, "device": "cpu"},
+        {"addr": f"127.0.0.1:{port}", "world": 2, "device": "cpu", "fault": fault}])
+        for fault, port in (("exit", free_port()), ("hang", free_port()))]
+    try:
+        out = multihost_runs(device, work, configs, igr_x2, report)
+    finally:
+        failed = {}
+        for handle in controls:
+            try:
+                finish_ranks(handle, MH_CONTROL_TIMEOUT)
+            except RuntimeError as exc:
+                failed[handle[0]] = str(exc).splitlines()[0]
+    for handle in controls:
+        if handle[0] not in failed:
+            raise RuntimeError(f"phase 4j (c) {handle[0]}: a failing rank did not fail the set")
+        print(f"phase 4j (c) {handle[0]}: the set fails as it must: {failed[handle[0]]}", flush=True)
+    out["controls"] = failed
+
+    gained = [sorted(set(files_under(d)) - set(before)) for d, before in zip(sup_dirs, sup_files)]
+    print(f"phase 4j (b) supervised epoch through the entry point in per-rank directories: rank 0 "
+          f"gained {[p.name for p in gained[0]]}, rank 1 {[p.name for p in gained[1]]}", flush=True)
+    if gained[1] or not {"train_loss.txt", "best_model.ckpt"} <= {p.name for p in gained[0]}:
+        raise RuntimeError("phase 4j (b): a rank other than 0 wrote files, or rank 0 wrote none")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 4j: {out['wall_s']:.1f} s", flush=True)
+    report["multihost"] = out
+    return {f"multihost/{tag}/{name}/rank{r['rank']}": r[name]["launches"]
+            for tag in ("nccl_x1", "gloo_x2") for r in out[tag]["ranks"]
+            for name in ("pcd", "igr", "sup") if name in r}
+
+
+def files_under(directory):
+    return sorted(p.relative_to(directory) for p in directory.rglob("*") if p.is_file())
+
+
+def multihost_runs(device, work, configs, igr_x2, report):
+    """Phase 4j's runs with no group, (a) and (b); see drive_multihost."""
+    from sdf_representation_tpu_torch import cli
+    from sdf_representation_tpu_torch.configgen import Configuration
+    from sdf_representation_tpu_torch.training import PointCloudTrainer, Trainer
+    from sdf_representation_tpu_torch.training import checkpoint as ckpt
+
+    def state_of(model):
+        return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+    t0 = time.perf_counter()
+    ref_trainer = Trainer(Configuration(configs["ref_igr"]))
+    init = state_of(ref_trainer.model)
+    ref_igr = ref_trainer.train()
+    ref_igr_state = state_of(ref_trainer.model)
+    if cli.main([configs["ref_sup"]]) != 0:
+        raise RuntimeError("phase 4j: the reference supervised epoch failed")
+    pcd_refs = {}
+    for name, mesh in (("ref_pcd", None), ("ref_x2_pcd", (device,) * 2)):
+        t = PointCloudTrainer(Configuration(configs[name]), mesh=mesh)
+        pcd_init = state_of(t.model)
+        pcd_refs[name] = (t.train()["losses"], state_of(t.model))
+    refs_s = time.perf_counter() - t0
+    print(f"phase 4j: the runs with no group (labelled IGRLOSS {DP_IGR_EPOCHS} epochs, a supervised "
+          f"epoch, the point cloud x1 and over the card x2, {MH_PCD_EPOCHS} epochs) in {refs_s:.1f} s",
+          flush=True)
+
+    base_spec = {"work": str(work), "pcd_config": configs["gloo_pcd"]}
+    t0 = time.perf_counter()
+    (nccl,) = finish_ranks(start_ranks(work, "nccl_x1", [{
+        **base_spec, "addr": f"tcp://127.0.0.1:{free_port()}", "world": 1,
+        "runs": [["igr", "igr", configs["nccl_igr"]], ["sup", "cli", configs["nccl_sup"]]]}]),
+        MH_TIMEOUT)
+    nccl_s = time.perf_counter() - t0
+    n_rows = sum(report["pipeline"]["sampling"]["rows"].values())
+    igr_steps = ((n_rows - math.ceil(0.1 * n_rows)) // 16384) * DP_IGR_EPOCHS
+    pcd_steps = (PCD_POINTS // 16384) * MH_PCD_EPOCHS
+    if nccl["backend"] != "nccl" or nccl["world"] != 1:
+        raise RuntimeError(f"phase 4j (a): ran on {nccl['backend']} x{nccl['world']}")
+    if nccl["igr"]["launches"]["igr_fwd"] != igr_steps or nccl["igr"]["launches"]["igr_bwd"] != igr_steps:
+        raise RuntimeError(f"phase 4j (a): launches {nccl['igr']['launches']}, {igr_steps} steps")
+    got = torch.load(work / "igr_rank0.pt")
+    same_igr = (nccl["igr"]["train_loss"] == ref_igr["train_losses"]
+                and nccl["igr"]["val_loss"] == ref_igr["val_losses"]
+                and all(torch.equal(got[k], ref_igr_state[k]) for k in ref_igr_state))
+    sup_paths = [pathlib.Path(Trainer(Configuration(configs[n])).train_path) for n in ("ref_sup", "nccl_sup")]
+    sup_states = [ckpt.load_checkpoint(str(p / "models" / "best_model.ckpt"))["model"] for p in sup_paths]
+    same_sup = ((sup_paths[0] / "train_loss.txt").read_text() == (sup_paths[1] / "train_loss.txt").read_text()
+                and all(torch.equal(sup_states[0][k], sup_states[1][k]) for k in sup_states[0]))
+    print(f"phase 4j (a) NCCL, one rank ({nccl['card']}): {nccl_s:.1f} s; labelled IGRLOSS "
+          f"{igr_steps} steps, launches {nccl['igr']['launches']}, bit-equal to no group: {same_igr} "
+          f"(checksum {nccl['igr']['checksum'][:16]}); supervised epoch through the entry point "
+          f"bit-equal: {same_sup}", flush=True)
+    if not (same_igr and same_sup):
+        raise RuntimeError("phase 4j (a): one rank over NCCL differs from no group")
+
+    # (b) gloo, two ranks on the one card
+    addr = f"tcp://127.0.0.1:{free_port()}"
+    t0 = time.perf_counter()
+    gloo = finish_ranks(start_ranks(work, "gloo_x2", [{
+        **base_spec, "addr": addr, "world": 2, "backend": "gloo", "device": "cuda:0",
+        "runs": [["pcd", "pcd", configs["gloo_pcd"]], ["igr", "igr", configs["gloo_igr"]],
+                 ["sup", "cli", configs[f"gloo_sup_rank{r}"]]]} for r in range(2)]), MH_TIMEOUT)
+    gloo_s = time.perf_counter() - t0
+    out = {"refs_s": refs_s, "nccl_x1": {"wall_s": nccl_s, "ranks": [nccl]},
+           "gloo_x2": {"wall_s": gloo_s, "ranks": gloo}}
+    for r in gloo:
+        if r["backend"] != "gloo" or r["device"] != "cuda:0" or r["world"] != 2:
+            raise RuntimeError(f"phase 4j (b): rank {r['rank']} on {r['backend']} {r['device']}")
+    for name, steps, want_curve, want_state, single_state, init_state in (
+            ("pcd", pcd_steps, pcd_refs["ref_x2_pcd"][0], pcd_refs["ref_x2_pcd"][1],
+             pcd_refs["ref_pcd"][1], pcd_init),
+            ("igr", igr_steps, igr_x2["train_loss"], igr_x2["state"], ref_igr_state, init)):
+        states = [torch.load(work / f"{name}_rank{r}.pt") for r in range(2)]
+        equal = (all(torch.equal(states[0][k], states[1][k]) for k in states[0])
+                 and gloo[0][name]["checksum"] == gloo[1][name]["checksum"]
+                 and gloo[0][name]["train_loss"] == gloo[1][name]["train_loss"])
+        launched = [r[name]["launches"] for r in gloo]
+        loss_rel = float(np.max(np.abs(np.array(gloo[0][name]["train_loss"]) / np.array(want_curve) - 1)))
+        reading = param_distance(single_state, want_state, init_state)
+        dist_ = param_distance(states[0], want_state, init_state)
+        row = {"ranks_bit_equal": equal, "launches_per_rank": launched, "steps": steps,
+               "train_loss": gloo[0][name]["train_loss"], "mesh_x2_train_loss": want_curve,
+               "loss_rel": loss_rel, "param_distance_to_mesh_x2": dist_,
+               "single_device_param_distance_to_mesh_x2": reading}
+        print(f"phase 4j (b) gloo, two ranks on the card, {name}: " + json.dumps(row), flush=True)
+        if not equal:
+            raise RuntimeError(f"phase 4j (b) {name}: the ranks' parameters differ")
+        if any(c["igr_fwd"] != steps or c["igr_bwd"] != steps for c in launched):
+            raise RuntimeError(f"phase 4j (b) {name}: not one igr_fwd and igr_bwd per rank and step")
+        if loss_rel > MH_LOSS_RTOL or dist_ > MH_PARAM_RATIO * reading:
+            raise RuntimeError(f"phase 4j (b) {name}: off the one-process mesh of two")
+        out["gloo_x2"][name] = row
+    times = {f"G={len(ranks)} {ranks[0]['backend']} rank {r['rank']}": r["times"]
+             for ranks in ([nccl], gloo) for r in ranks}
+    out["times"] = times
+    print(f"phase 4j per-rank step times ({report['card']}; gloo over one card says nothing of NCCL "
+          f"across cards): {json.dumps(times)}", flush=True)
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3085,6 +3530,7 @@ def main() -> int:
     runs.update(drive_export_two_dim(device, run_root, report))
     runs.update(drive_families(device, run_root, report))
     runs.update(drive_host_tools(device, run_root, report))
+    runs.update(drive_multihost(device, run_root, shard_eval["igr_x2"], report))
 
     # ---- 5. times -----------------------------------------------------------
     mac = sum(fi * fo for fi, fo in model.layer_shapes())
@@ -3336,6 +3782,8 @@ def main() -> int:
                     entry.update(numbers, dtype="bfloat16", shape=case)
                 else:
                     entry[f"{case}/{tag}"] = numbers
+        # phase 4j: each rank's step under a process group beside the kernels' time on its rows
+        entry["per_rank_steps_ms"] = report["multihost"]["times"]
         if entry["launches"] < 1:
             raise RuntimeError(f"{name} was launched on no run of the main path")
         kernels_line.append(entry)
@@ -3461,4 +3909,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(rank_main(sys.argv[1:]) if sys.argv[1:2] == ["--rank"] else main())

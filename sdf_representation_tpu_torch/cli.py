@@ -11,6 +11,14 @@ point-cloud (IGR) trainer, which fits the field to bare surface points
 (``<geometry>/surface.csv``). ``[TPU] mesh_devices = N > 1`` trains
 data-parallel over the first N cards (one on a one-card machine), or over
 the CPU listed N times with ``--device cpu``.
+
+Under a process group (one process per card: call
+``parallel.multihost.initialize_multihost()`` and then ``main``; see that
+module's docstring for a launcher) every mode trains over the group's ranks
+(``parallel.mesh.process_mesh``), ``--device`` names this rank's device,
+``mesh_devices``, where set, must equal the number of ranks, and rank 0
+writes the files and runs labelling, the audit and reconstruction. ``main``
+does not initialise a group itself, as the JAX package's does not.
 """
 
 from __future__ import annotations
@@ -34,12 +42,15 @@ def main(argv=None) -> int:
     print(f"Running with config file: {args.config}")
 
     from .configgen import Configuration
-    from .parallel.mesh import get_mesh
+    from .parallel.mesh import get_mesh, process_mesh
     from .training import PointCloudTrainer, Trainer
 
     config = Configuration(args.config)
     mesh = None
-    if config.mesh_devices and config.mesh_devices > 1:
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        # the data axis spans the group's ranks (JAX: jax.devices() after initialize)
+        mesh = process_mesh(args.device)
+    elif config.mesh_devices and config.mesh_devices > 1:
         # JAX cli.py:24-30; with --device cpu the CPU listed mesh_devices times
         cpu = args.device is not None and torch.device(args.device).type == "cpu"
         mesh = get_mesh(config.mesh_devices, devices=("cpu",) * config.mesh_devices if cpu else None)

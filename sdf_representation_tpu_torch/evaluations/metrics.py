@@ -1,15 +1,16 @@
 """Quantitative evaluation metrics — counterpart of
 sdf_representation_tpu/evaluations/metrics.py (the reference's
 post_process.py bookkeeping plus Chamfer distance), without pandas or
-sklearn: the classification report is a plain dict of rows."""
+sklearn: the classification report is the port's numpy ``Frame`` with the
+row labels and columns of the JAX package's DataFrame."""
 
 from __future__ import annotations
-
-from typing import Dict
 
 import numpy as np
 import torch
 from scipy.spatial import cKDTree
+
+from ..sampling.sampler import Frame
 
 REPORT_COLUMNS = ("precision", "recall", "f1-score", "support")
 
@@ -58,11 +59,18 @@ def sign_confusion_counts(pred_sdf: np.ndarray, true_sdf: np.ndarray) -> np.ndar
     return np.array([[n - t1 - p1 + tp, p1 - tp], [t1 - tp, tp]], dtype=np.int64)
 
 
-def _report_from_confusion(cm: np.ndarray) -> Dict[str, Dict[str, float]]:
+def classification_report_frame(pred_sdf: np.ndarray, true_sdf: np.ndarray) -> Frame:
+    """Per-class precision/recall/f1/support on the sign labels, with
+    sklearn's classification_report layout (cf. reference post_process.py
+    generate_classification_report :21-28), derived from the confusion
+    counts (JAX metrics.py:66-72)."""
+    return _report_from_confusion(sign_confusion_counts(pred_sdf, true_sdf))
+
+
+def _report_from_confusion(cm: np.ndarray) -> Frame:
     """Per-class precision/recall/f1/support plus accuracy and the macro and
-    weighted averages, in sklearn's classification_report layout: a dict of
-    rows ("0", "1", "accuracy", "macro avg", "weighted avg"), each a dict
-    over REPORT_COLUMNS."""
+    weighted averages: a Frame with rows "0", "1", "accuracy", "macro avg",
+    "weighted avg" over REPORT_COLUMNS, float64."""
     total = cm.sum()
     rows = {}
     f1s, precs, recs, supports = [], [], [], []
@@ -87,21 +95,8 @@ def _report_from_confusion(cm: np.ndarray) -> Dict[str, Dict[str, float]]:
     w = np.asarray(supports) / max(total, 1)
     rows["weighted avg"] = {"precision": float(np.dot(w, precs)), "recall": float(np.dot(w, recs)),
                             "f1-score": float(np.dot(w, f1s)), "support": float(total)}
-    return {name: {k: float(v) for k, v in row.items()} for name, row in rows.items()}
-
-
-def classification_report(pred_sdf: np.ndarray, true_sdf: np.ndarray):
-    """The sign labels' report derived from the confusion counts."""
-    return _report_from_confusion(sign_confusion_counts(pred_sdf, true_sdf))
-
-
-def write_report_csv(report: Dict[str, Dict[str, float]], path: str) -> None:
-    """The report as the CSV pandas writes for the JAX package's frame: a
-    ``,precision,recall,f1-score,support`` header, one row per entry."""
-    with open(path, "w") as f:
-        f.write("," + ",".join(REPORT_COLUMNS) + "\n")
-        for name, row in report.items():
-            f.write(name + "," + ",".join(repr(row[k]) for k in REPORT_COLUMNS) + "\n")
+    return Frame(REPORT_COLUMNS, np.array([[float(row[k]) for k in REPORT_COLUMNS]
+                                           for row in rows.values()]), index=tuple(rows))
 
 
 def confusion_matrix_png(cm: np.ndarray, path: str) -> bool:

@@ -49,7 +49,6 @@ from .metrics import (
     chamfer_distance,
     compute_grid_metrics,
     confusion_matrix_png,
-    write_report_csv,
 )
 from .reconstruct import reconstruct_mesh
 
@@ -102,8 +101,9 @@ def post_process(trainer, mesh_path: Optional[str] = None) -> Dict[str, float]:
     lap("predict")
     # exact distances stay on the device: the metrics reduce there. A
     # multi-device run shards the streams over the training mesh (JAX
-    # post_process.py:91-97)
-    mesh_devices = trainer.mesh if trainer.mesh is not None and len(trainer.mesh) > 1 else None
+    # post_process.py:91-97); under a process group rank 0 audits alone
+    mesh_devices = (trainer.mesh if isinstance(trainer.mesh, tuple) and len(trainer.mesh) > 1
+                    else None)
     true, _ = signed_distance(grid_coords(n), mesh, return_normals=False,
                               return_device=True, device=trainer.device, devices=mesh_devices)
     lap("exact_distance")
@@ -132,7 +132,7 @@ def post_process(trainer, mesh_path: Optional[str] = None) -> Dict[str, float]:
         ).reshape(-1, 3)
         np.savetxt(os.path.join(save, f"mismatching_co-ordinates{tag}.csv"), rows,
                    fmt="%.9g", delimiter=",", header="x,y,z", comments="")
-        write_report_csv(report, os.path.join(save, f"classification_report{tag}.csv"))
+        report.to_csv(os.path.join(save, f"classification_report{tag}.csv"))
     confusion_matrix_png(gm["confusion"], os.path.join(save, "confusion_matrix.png"))
     lap("write_artifacts")
 

@@ -60,7 +60,7 @@ import torch
 
 from .. import kernels
 from ..models.implicit_net import softplus_beta
-from ..parallel.mesh import gather, get_mesh, replicate, shard_batch
+from ..parallel.mesh import ProcessMesh, gather, get_mesh, over_ranks, replicate, shard_batch
 from .fused_mlp import INV_SQRT2, MAX_D_IN, MAX_WIDTH, FusedNet, _rounded, swizzle_128b
 
 # f32 (the SIMT routine of csrc/fused_igr.cu, namespace simt)
@@ -629,7 +629,20 @@ def make_fused_value_and_grad_sharded(model, mesh, compute_dtype: torch.dtype = 
     one ``igr_fwd`` launch per shard and, in backward, one ``igr_bwd``
     launch per shard; autograd sums the shards' parameter gradients (the
     psum of the JAX ``shard_map`` transpose). Each distinct device's weights
-    are packed once per call, not once per shard."""
+    are packed once per call, not once per shard.
+
+    Under a ``ProcessMesh`` (one process per card) each rank runs the fused
+    op on its rows of ``x`` (one ``igr_fwd`` and, in backward, one
+    ``igr_bwd`` launch per rank and call) and (f, grad f) are gathered on
+    every rank (``parallel.mesh.over_ranks``); the trainer's all-reduce sums
+    the ranks' parameter gradients."""
+    if isinstance(mesh, ProcessMesh):
+        def vag_ranks(x: torch.Tensor, layers=None):
+            flat = _flat(model, layers)
+            net = FusedNet(model, compute_dtype, layers=list(zip(flat[0::2], flat[1::2])))
+            return over_ranks(lambda xs, ps: FusedValueAndGrad.apply(xs, net, *ps), x, flat, mesh)
+
+        return vag_ranks
     mesh = get_mesh(devices=mesh)
 
     def vag(x: torch.Tensor, layers=None):

@@ -11,8 +11,17 @@ device, gathers the results on the mesh's first device, and leaves the sum
 of the shards' parameter gradients to autograd (``replicate``). This is not
 ``torch.distributed``: NCCL refuses a communicator that holds one card twice,
 and a card listed several times is how a one-card machine runs the sharded
-paths. Multi-process training is the counterpart of parallel/multihost.py,
-not of this module.
+paths.
+
+Under an initialised process group (parallel/multihost.py: one process per
+card) the trainers' data axis is a ``ProcessMesh``: the group's ranks, one
+device each, as ``Mesh(jax.devices())`` spans every host after
+``jax.distributed.initialize``. Each rank runs the forward on its rows of
+the batch (``tensor_split``'s pieces, as ``shard_batch`` cuts them) and
+``gather_rows`` hands every rank the whole batch's outputs, so each takes
+the one loss of the whole batch; ``allreduce_grads`` then sums the
+parameter gradients. A term that every rank computes whole would reach
+that sum once per rank: ``count_once`` keeps its gradient on rank 0 only.
 
 Users: the sharded streams (``ops/sdf_streams.py``), the sharded grid
 evaluators (``ops/sharded_eval.py``), the sharded fused eikonal op
@@ -22,9 +31,11 @@ evaluators (``ops/sharded_eval.py``), the sharded fused eikonal op
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+import dataclasses
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 Mesh = Tuple[torch.device, ...]
 
@@ -96,3 +107,106 @@ def gather(pieces: Sequence[torch.Tensor], device) -> torch.Tensor:
     """The pieces concatenated along the first axis on ``device``
     (differentiable: gradients flow back to each piece's device)."""
     return torch.cat([p.to(device) for p in pieces])
+
+
+# ---------------------------------------------------------------------------
+# the data axis over a process group
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ProcessMesh:
+    """The data axis over an initialised process group: ``size`` ranks, one
+    device each; ``device`` is this rank's, ``rank`` its place."""
+
+    device: torch.device
+    rank: int
+    size: int
+
+    def __len__(self) -> int:
+        return self.size
+
+    def rows(self, n: int) -> Tuple[int, int]:
+        return rank_rows(n, self.rank, self.size)
+
+
+def rank_rows(n: int, rank: int, size: int) -> Tuple[int, int]:
+    """[start, stop) of rank ``rank``'s rows of an n-row batch over ``size``
+    ranks: piece ``rank`` of ``torch.tensor_split(range(n), size)``."""
+    per, extra = divmod(n, size)
+    start = rank * per + min(rank, extra)
+    return start, start + per + (rank < extra)
+
+
+def process_mesh(device=None) -> ProcessMesh:
+    """The initialised group's data axis, this rank on ``device`` (default:
+    the one ``multihost.initialize_multihost`` chose)."""
+    from . import multihost
+
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("no process group: call multihost.initialize_multihost() first")
+    device = device if device is not None else multihost.LOCAL_DEVICE
+    if device is None:
+        raise RuntimeError("name this rank's device, or make the group with "
+                           "multihost.initialize_multihost()")
+    return ProcessMesh(_device(device), dist.get_rank(), dist.get_world_size())
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local, n_rows, start):
+        out = local.new_zeros((n_rows, *local.shape[1:]))
+        out[start:start + local.shape[0]] = local
+        dist.all_reduce(out)
+        ctx.rows = (start, start + local.shape[0])
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        start, stop = ctx.rows
+        return grad[start:stop], None, None
+
+
+def gather_rows(local: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """This rank's rows (``rank_rows``) of an (n_rows, ...) batch
+    gathered into the whole batch on every rank: a zero-filled buffer with
+    this rank's rows written in, summed over the ranks by one all_reduce
+    (adding exact zeros is exact, so every rank holds the same bits; gloo
+    has no all_gather of CUDA tensors). Backward hands this rank the
+    incoming gradient's rows of its own, with no reduction: every rank
+    holds the same loss, so the same cotangent."""
+    start, _ = rank_rows(n_rows, dist.get_rank(), dist.get_world_size())
+    return _GatherRows.apply(local, n_rows, start)
+
+
+def count_once(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``t``, a term every rank computes whole, with its gradient kept on
+    rank 0 only, so that ``allreduce_grads`` counts it once."""
+    return t.detach() if isinstance(mesh, ProcessMesh) and mesh.rank else t
+
+
+def over_ranks(fn: Callable, x: torch.Tensor, params: Sequence[torch.Tensor],
+               mesh: ProcessMesh):
+    """``fn(x, params)`` (a tensor or a tuple of them, row i from x[i]) over
+    the group: ``fn`` on this rank's rows, the output gathered
+    (``gather_rows``). A batch of fewer rows than max(2, ranks) runs whole
+    on every rank (a per-point transform's single row, which no collective
+    can take under vmap), its parameter gradient from rank 0's run only."""
+    n = x.shape[0]
+    if n < max(2, mesh.size):
+        return fn(x, [count_once(p, mesh) for p in params])
+    start, stop = mesh.rows(n)
+    out = fn(x[start:stop], params)
+    if isinstance(out, tuple):
+        return tuple(gather_rows(o, n) for o in out)
+    return gather_rows(out, n)
+
+
+def allreduce_grads(params: Sequence[torch.Tensor]) -> None:
+    """Sum the parameters' gradients over the ranks: one flat SUM
+    all_reduce. A parameter this rank did not differentiate adds zeros, and
+    every parameter leaves with a gradient."""
+    flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                      for p in params])
+    dist.all_reduce(flat)
+    for p, g in zip(params, torch.split(flat, [p.numel() for p in params])):
+        p.grad = g.view_as(p)

@@ -23,7 +23,8 @@ mismatch loop (the audit's mismatching coordinates labelled into
 mismatch.csv), whose labels come from ``signed_distance`` on the device.
 
 Frames are a small numpy record (``Frame``), not pandas; ``Frame.to_csv``
-writes the layout pandas gives ``DataFrame.to_csv`` (a leading index column).
+writes the layout pandas gives ``DataFrame.to_csv`` (a leading index column,
+or the row labels of a labelled frame such as the classification report).
 """
 
 from __future__ import annotations
@@ -48,10 +49,12 @@ LAST_STAGE_SECONDS: dict = {}
 
 @dataclasses.dataclass
 class Frame:
-    """A table of float64 rows under named columns."""
+    """A table of float64 rows under named columns, the rows labelled
+    (``index``) or numbered from 0."""
 
     columns: Tuple[str, ...]
     values: np.ndarray  # (N, len(columns)) float64
+    index: Optional[Tuple[str, ...]] = None
 
     def __len__(self) -> int:
         return len(self.values)
@@ -64,8 +67,17 @@ class Frame:
         writes: a ``,x,y,...`` header line (``x,y,...`` without the index)
         and, with ``index``, a leading row-index column from 0, also in a
         block appended with ``mode="a"``. Values are written with 17
-        significant digits, so they read back exactly."""
+        significant digits, so they read back exactly. A labelled frame
+        writes its labels and each value as ``repr`` of the float, as pandas
+        does for a float64 frame."""
         values = np.asarray(self.values, np.float64).reshape(len(self.values), len(self.columns))
+        if self.index is not None:
+            with open(path, mode) as f:
+                if header:
+                    f.write("," * index + ",".join(self.columns) + "\n")
+                for label, row in zip(self.index, values.tolist()):
+                    f.write((f"{label}," if index else "") + ",".join(map(repr, row)) + "\n")
+            return
         fmt, names = ["%.17g"] * len(self.columns), ",".join(self.columns)
         if index:
             values = np.column_stack([np.arange(len(values), dtype=np.float64), values])

@@ -17,7 +17,10 @@ it is not data-parallel training but the IGR point-cloud trainer that
 
 Under ``mesh`` the forward and the eikonal term's fast path run sharded
 (``bind_apply``; JAX pcd_trainer.py:53-98) while the subsample ``idx`` and
-the noise stay whole-batch draws on ``mesh[0]``.
+the noise stay whole-batch draws on ``mesh[0]``. Under a process group
+(``parallel.mesh.ProcessMesh``) every rank draws them whole from the same
+generator, runs the forward on its rows, and rank 0 writes the files, as
+in the labelled trainer.
 
 An eager loop like ``Trainer.train``: the cloud lives on the device, every
 epoch draws a permutation from a generator seeded from (init_seed + 1,
@@ -52,21 +55,23 @@ import numpy as np
 import torch
 
 from ..ops.diffops import sdf_and_gradient_fwd
+from ..parallel.mesh import ProcessMesh, allreduce_grads, count_once
 from . import checkpoint as ckpt
 from .trainer import LAST_RUN, Trainer, bind_apply, use_fused_igr
 
 
 def pcd_loss(apply, model, xb: torch.Tensor, idx: torch.Tensor, noise: torch.Tensor,
-             grad_lambda: float) -> torch.Tensor:
+             grad_lambda: float, mesh=None) -> torch.Tensor:
     """mean |f(xb)| + grad_lambda * mean (|grad f| - 1)^2 at xb[idx] + noise,
-    plus the Lipschitz bound's penalty for that variant."""
+    plus the Lipschitz bound's penalty for that variant (its gradient from
+    rank 0 only under a ``ProcessMesh``)."""
     surface_loss = torch.mean(torch.abs(apply(xb)))
     _, grads = sdf_and_gradient_fwd(apply, xb[idx] + noise)
     grad_norm = torch.linalg.norm(grads[:, -3:], dim=-1)
     value = surface_loss + grad_lambda * torch.mean((grad_norm - 1.0) ** 2)
     if getattr(model, "lipschitz", False) and model.lipschitz_weight > 0:
         # arXiv:2202.08345 eq. 7, as in make_train_step
-        value = value + model.lipschitz_weight * model.lipschitz_bound()
+        value = value + model.lipschitz_weight * count_once(model.lipschitz_bound(), mesh)
     return value
 
 
@@ -98,6 +103,7 @@ class PointCloudTrainer(Trainer):
         """(xb, generator) -> loss (a detached scalar tensor): one update."""
         model = self.model
         n_sub = max(1, batch // 3)
+        group = isinstance(self.mesh, ProcessMesh)
         apply = bind_apply(model, None,
                            use_fused_igr(model, self.config.train_matmul_precision), self.mesh)
 
@@ -106,8 +112,11 @@ class PointCloudTrainer(Trainer):
             idx = torch.randperm(xb.shape[0], **kw)[:n_sub]
             noise = self.local_sigma * torch.randn((n_sub, xb.shape[1]), dtype=xb.dtype, **kw)
             optimizer.zero_grad(set_to_none=True)
-            value = pcd_loss(apply, model, xb, idx, noise, self.grad_lambda)
-            value.backward()
+            value = pcd_loss(apply, model, xb, idx, noise, self.grad_lambda, self.mesh)
+            if value.requires_grad or not group:  # a rank whose terms all count on rank 0
+                value.backward()
+            if group:
+                allreduce_grads(list(model.parameters()))
             optimizer.step()
             return value.detach()
 
@@ -129,6 +138,7 @@ class PointCloudTrainer(Trainer):
         start_epoch = 0
         losses_hist: list = []
         best_path = os.path.join(self.model_save_path, "best_model.ckpt")
+        self._after_rank0()  # a checkpoint to resume from is read after rank 0
         if c.contd and os.path.exists(best_path):
             state = ckpt.load_checkpoint(best_path)
             self.model.load_state_dict(state["model"])
@@ -154,6 +164,8 @@ class PointCloudTrainer(Trainer):
                 losses.append(step(X[idx], gen))
             train_loss = float(torch.stack(losses).mean())  # the epoch's one host read
             losses_hist.append(train_loss)
+            if not self.writes:
+                continue
             with open(log, "a") as f:
                 f.write(f"Epoch {epoch + 1}/{c.epochs}: train loss {train_loss}\n")
             if epoch % int(1.5 * c.checkpointing) == 0:
@@ -162,8 +174,8 @@ class PointCloudTrainer(Trainer):
                 ckpt.save_checkpoint(
                     os.path.join(self.model_save_path, f"model_epoch{epoch}.ckpt"), state_at(epoch))
                 self._plot_losses(losses_hist, losses_hist)
-        # final save so short runs always leave a checkpoint
-        ckpt.save_checkpoint(best_path, state_at(final_epoch))
+        if self.writes:  # final save so short runs always leave a checkpoint
+            ckpt.save_checkpoint(best_path, state_at(final_epoch))
 
         elapsed = time.time() - t_start
         n_epochs_run = max(0, c.epochs - start_epoch)

@@ -80,7 +80,9 @@ from ..data.dataset import SDFDataset, load_data
 from ..models.implicit_net import ImplicitNet
 from ..ops.diffops import implicitnet_value_and_grad
 from ..ops.fused_igr import make_fused_value_and_grad, make_fused_value_and_grad_sharded
-from ..parallel.mesh import gather, get_mesh, replicate, shard_batch
+from ..parallel.mesh import (ProcessMesh, allreduce_grads, count_once, gather, get_mesh,
+                             over_ranks, replicate, shard_batch)
+from ..parallel.multihost import process_count
 from ..utils.device import matmul_precision, resolve_device
 from ..utils.files import create_directory
 from . import checkpoint as ckpt
@@ -152,9 +154,17 @@ def bind_apply(model, precision: Optional[str] = None, fused_igr: bool = False,
     derivation on the replicated layers); the outputs gather on
     ``mesh[0]``, and autograd sums the shards' parameter gradients there. A
     batch smaller than the mesh (a per-point transform's single row) runs
-    whole on ``mesh[0]``."""
+    whole on ``mesh[0]``.
+
+    Under a ``ProcessMesh`` (one process per card over a process group)
+    the module and the fast path run on this rank's rows of the batch and
+    their outputs are gathered on every rank (``parallel.mesh.over_ranks``);
+    a batch smaller than the group runs whole on every rank, its parameter
+    gradient counted from rank 0 only. Dropout draws its masks from the same
+    seed on every rank, as each shard does under a mesh of one process."""
     mixed = precision == "bfloat16"
-    sharded = mesh is not None and len(mesh) > 1
+    group = isinstance(mesh, ProcessMesh)
+    sharded = not group and mesh is not None and len(mesh) > 1
     # every call of one step's forward draws the same masks (JAX's apply is a
     # function of its rng), from a stream apart from the loss's draws: the
     # step generator's seed with its top bit flipped
@@ -179,7 +189,12 @@ def bind_apply(model, precision: Optional[str] = None, fused_igr: bool = False,
         return torch.func.functional_call(model, state(), (x,), kwargs())
 
     forward = whole
-    if sharded:
+    if group:
+        def forward(x: torch.Tensor) -> torch.Tensor:
+            leaves = state()
+            return over_ranks(lambda xs, ps: torch.func.functional_call(
+                model, dict(zip(leaves, ps)), (xs,), kwargs()), x, list(leaves.values()), mesh)
+    elif sharded:
         def forward(x: torch.Tensor) -> torch.Tensor:
             if x.shape[0] < len(mesh):
                 return whole(x)
@@ -198,8 +213,14 @@ def bind_apply(model, precision: Optional[str] = None, fused_igr: bool = False,
         return apply
 
     if fused_igr:
-        fast = (make_fused_value_and_grad_sharded(model, mesh) if sharded
+        fast = (make_fused_value_and_grad_sharded(model, mesh) if sharded or group
                 else make_fused_value_and_grad(model))
+    elif group:
+        def fast(x, layers=None):
+            flat = [t for pair in (model.effective_layers() if layers is None else layers)
+                    for t in pair]
+            return over_ranks(lambda xs, ps: implicitnet_value_and_grad(
+                model, xs, list(zip(ps[0::2], ps[1::2]))), x, flat, mesh)
     elif sharded:
         def fast(x, layers=None):
             flat = [t for pair in (model.effective_layers() if layers is None else layers)
@@ -235,23 +256,36 @@ def make_train_step(model, loss_fn, optimizer: torch.optim.Optimizer,
     sharded (``bind_apply``) while the loss is taken on ``mesh[0]`` over the
     whole gathered batch, with the step's one generator: a sharded step's
     loss, and any points the loss draws, are the single-device step's, as
-    XLA's global-batch semantics make them in the JAX package."""
+    XLA's global-batch semantics make them in the JAX package.
+
+    Under a ``ProcessMesh`` every rank takes that loss on the gathered
+    batch; the terms every rank computes whole (the Lipschitz bound, the
+    loss's ``aux`` scalars) keep their gradients on rank 0 only
+    (``count_once``), and one all-reduce sums the gradients before the
+    update, so every rank makes the same update."""
     if precision not in PRECISIONS:
         raise ValueError(f"train_matmul_precision must be one of {PRECISIONS}, got {precision!r}")
     fused = use_fused_igr(model, precision)
     apply = bind_apply(model, precision, fused, mesh)
     per_step = takes_train(model)
     lipschitz = getattr(model, "lipschitz", False) and model.lipschitz_weight > 0
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    group = isinstance(mesh, ProcessMesh)
 
     def step(xb: torch.Tensor, yb: torch.Tensor, epoch: int, generator=None) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
         fn = bind_apply(model, precision, fused, mesh, generator) if per_step else apply
         with _matmul_precision(precision):
-            value = loss_fn(fn, xb, yb, epoch, generator=generator, aux=aux)
+            value = loss_fn(fn, xb, yb, epoch, generator=generator,
+                            aux=None if aux is None else {k: count_once(v, mesh)
+                                                          for k, v in aux.items()})
             if lipschitz:
                 # arXiv:2202.08345 eq. 7: alpha * prod softplus(c_i)
-                value = value + model.lipschitz_weight * model.lipschitz_bound()
-            value.backward()
+                value = value + model.lipschitz_weight * count_once(model.lipschitz_bound(), mesh)
+            if value.requires_grad or not group:  # a rank whose terms all count on rank 0
+                value.backward()
+        if group:
+            allreduce_grads(params)
         optimizer.step()
         return value.detach()
 
@@ -267,7 +301,15 @@ class Trainer:
     (``parallel.mesh.get_mesh``) over which training and validation shard
     their batches (data-parallel, one process; JAX trainer.py:391-393); the
     master parameters, the optimizer state and the data live on ``mesh[0]``,
-    which ``device``, if given, must be. ``compute_dtype`` is the working
+    which ``device``, if given, must be. Under a process group ``mesh`` is
+    its ``ProcessMesh`` (``parallel.mesh.process_mesh``; one device per
+    rank, the rank's own): ``[TPU] mesh_devices``, where set, counts the
+    devices of every rank, as ``jax.devices()`` does after
+    ``jax.distributed.initialize``, so it must equal the group's size. Rank 0
+    then writes every file (info.txt, the sampled CSVs, the loss log,
+    checkpoints, the plot) and runs labelling, the audit and
+    reconstruction; the other ranks wait at a barrier before they read
+    what it wrote. ``compute_dtype`` is the working
     type of the fused evaluation kernels (bfloat16, as in the JAX package's
     TPU path, or float32); training precision is the config's
     ``train_matmul_precision``.
@@ -276,8 +318,19 @@ class Trainer:
     def __init__(self, config: Configuration, device=None, mesh=None, init_seed: int = 0,
                  compute_dtype: torch.dtype = torch.bfloat16):
         self.config = config
-        if mesh is not None:
+        if isinstance(mesh, ProcessMesh):
+            if device is not None and get_mesh(devices=[device])[0] != mesh.device:
+                raise ValueError(f"device {device} is not this rank's device {mesh.device}")
+            if config.mesh_devices and config.mesh_devices != len(mesh):
+                raise ValueError(
+                    f"mesh_devices = {config.mesh_devices} under a process group of "
+                    f"{len(mesh)} ranks: it counts the devices of every rank, one each")
+            device = mesh.device
+        elif mesh is not None:
             mesh = get_mesh(devices=mesh)
+            if len(mesh) > 1 and process_count() > 1:
+                raise ValueError("under a process group each rank drives one device: "
+                                 "pass parallel.mesh.process_mesh(), not a tuple of devices")
             if device is not None and get_mesh(devices=[device])[0] != mesh[0]:
                 raise ValueError(f"device {device} is not the mesh's first device {mesh[0]}")
             device = mesh[0]
@@ -305,11 +358,12 @@ class Trainer:
                 f"narrowband_{c.narrowband},narrowband_width_{c.narrowband_width}",
             )
         )
-        with open(os.path.join(self.data_path, "info.txt"), "w") as f:
-            f.write(
-                f"config_uniform{c.uniform_points},surface_{c.surface},"
-                f"narrowband_{c.narrowband},narrowband_width_{c.narrowband_width}"
-            )
+        if self.writes:
+            with open(os.path.join(self.data_path, "info.txt"), "w") as f:
+                f.write(
+                    f"config_uniform{c.uniform_points},surface_{c.surface},"
+                    f"narrowband_{c.narrowband},narrowband_width_{c.narrowband_width}"
+                )
         self.model_path = create_directory(
             os.path.join(
                 self.data_path,
@@ -341,6 +395,18 @@ class Trainer:
         self._plot_skip_said = False
         # the loss's learnable scalars (``needs_aux``), made by ``train``
         self.aux: Dict[str, torch.nn.Parameter] = {}
+
+    @property
+    def writes(self) -> bool:
+        """Whether this process writes the run's files: rank 0 under a
+        process group, always without one."""
+        return not isinstance(self.mesh, ProcessMesh) or self.mesh.rank == 0
+
+    def _after_rank0(self) -> None:
+        """Under a process group, wait until every rank (rank 0 done with
+        its writes) arrives; nothing without one."""
+        if isinstance(self.mesh, ProcessMesh):
+            torch.distributed.barrier()
 
     # -- sampling ----------------------------------------------------------
 
@@ -434,8 +500,11 @@ class Trainer:
         c = self.config
         loss_fn = c.make_loss()
         t_load = time.time()
-        if dataset is None:
+        if dataset is None and self.writes:
             self.sampling()
+        # the other ranks read the CSVs, and a checkpoint to resume from, after rank 0
+        self._after_rank0()
+        if dataset is None:
             dataset = load_data(self.data_path, c)
 
         dev = self.device
@@ -507,15 +576,17 @@ class Trainer:
                 [train_loss, train_loss if val_loss is None else val_loss]).tolist()
             train_losses.append(train_loss)
             val_losses.append(val_loss)
-            with open(loss_log, "a") as f:
-                f.write(f"{epoch} {train_loss} {val_loss}\n")
+            if self.writes:
+                with open(loss_log, "a") as f:
+                    f.write(f"{epoch} {train_loss} {val_loss}\n")
             if val_loss < best_val:
                 best_val = val_loss
                 epochs_no_improve = 0
-                ckpt.save_checkpoint(best_path, state_at(epoch))
+                if self.writes:
+                    ckpt.save_checkpoint(best_path, state_at(epoch))
             else:
                 epochs_no_improve += 1
-            if (epoch + 1) % c.checkpointing == 0:
+            if (epoch + 1) % c.checkpointing == 0 and self.writes:
                 ckpt.save_checkpoint(
                     os.path.join(self.model_save_path, f"model_epoch{epoch}.ckpt"),
                     state_at(epoch),
@@ -532,7 +603,8 @@ class Trainer:
             f"Training done: {n_epochs_run} epochs, {elapsed:.1f}s, "
             f"{throughput:,.0f} points/sec"
         )
-        self._plot_losses(train_losses, val_losses)
+        if self.writes:
+            self._plot_losses(train_losses, val_losses)
         LAST_RUN.update(load_seconds=t_start - t_load, epochs_run=n_epochs_run, seconds=elapsed,
                         points_per_sec=throughput)
         return {
@@ -589,20 +661,30 @@ class Trainer:
     # -- mode dispatch (cf. Executor.run, executor.py:481-499) -------------
 
     def run(self):
+        """Under a process group, labelling, the audit, reconstruction and
+        the 2-D contour run on rank 0 while the other ranks wait."""
         c = self.config
-        if c.samplingonly:
-            return self.sampling()
-        if c.ppo:
-            if c.reconstruct:
-                from ..evaluations.reconstruct import reconstruct_only
-
-                return reconstruct_only(self, compute_dtype=self.compute_dtype)
-            from ..evaluations.post_process import post_process
-
-            return post_process(self)
+        if c.samplingonly or c.ppo:
+            result = self._rank0_mode() if self.writes else None
+            self._after_rank0()
+            return result
         result = self.train()
         if c.two_dim:
             from ..evaluations.two_dim import two_dim_contour
 
-            two_dim_contour(self)
+            if self.writes:
+                two_dim_contour(self)
+            self._after_rank0()
         return result
+
+    def _rank0_mode(self):
+        c = self.config
+        if c.samplingonly:
+            return self.sampling()
+        if c.reconstruct:
+            from ..evaluations.reconstruct import reconstruct_only
+
+            return reconstruct_only(self, compute_dtype=self.compute_dtype)
+        from ..evaluations.post_process import post_process
+
+        return post_process(self)

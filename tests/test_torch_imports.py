@@ -32,6 +32,7 @@ def test_port_modules_load_no_jax_or_jax_package():
     assert "sdf_representation_tpu_torch.training.pcd_trainer" in mods
     assert "sdf_representation_tpu_torch.ops.sdf_culled" in mods
     assert "sdf_representation_tpu_torch.parallel.mesh" in mods
+    assert "sdf_representation_tpu_torch.parallel.multihost" in mods
     assert "sdf_representation_tpu_torch.ops.sharded_eval" in mods
     assert "sdf_representation_tpu_torch.ops.marching_device" in mods
     assert "sdf_representation_tpu_torch.ops.giga_extract" in mods

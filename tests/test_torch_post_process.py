@@ -77,19 +77,39 @@ def test_host_metrics_and_report_match_jax(tmp_path):
     assert metrics.chamfer_distance(a, b) == jax_metrics.chamfer_distance(a, b)
 
     frame = jax_metrics.classification_report_frame(pred, true)
-    report = metrics.classification_report(pred, true)
-    assert list(report) == list(frame.index)
-    for name, row in report.items():
-        for col in metrics.REPORT_COLUMNS:
-            assert row[col] == pytest.approx(frame.loc[name, col], rel=1e-12)
+    report = metrics.classification_report_frame(pred, true)
+    assert list(report.index) == list(frame.index)
+    np.testing.assert_array_equal(report.values, frame.to_numpy(np.float64))
     # the CSV reads back as the frame pandas would have written
     path = tmp_path / "report.csv"
-    metrics.write_report_csv(report, str(path))
+    report.to_csv(str(path))
     back = pd.read_csv(path, index_col=0)
     pd.testing.assert_frame_equal(back, frame, check_names=False, rtol=1e-12)
     # a degenerate field (nothing inside) divides by nothing
-    empty = metrics.classification_report(np.ones(8), np.ones(8))
-    assert empty["1"] == {"precision": 0.0, "recall": 0.0, "f1-score": 0.0, "support": 0.0}
+    empty = metrics.classification_report_frame(np.ones(8), np.ones(8))
+    assert empty.values[empty.index.index("1")].tolist() == [0.0, 0.0, 0.0, 0.0]
+
+
+@pytest.mark.parametrize("case", ["balanced", "one_class", "empty"])
+def test_classification_report_frame_equals_jax(tmp_path, case):
+    """The report as the port's Frame against the JAX package's DataFrame:
+    row labels, columns and float64 values exactly; the CSV text pandas
+    writes for it, and what pandas reads back from the port's."""
+    rng = np.random.default_rng(7)
+    true = {"balanced": rng.normal(size=4000), "one_class": np.abs(rng.normal(size=300)),
+            "empty": np.zeros(0)}[case]
+    pred = true + 0.3 * rng.normal(size=true.shape)
+    want = jax_metrics.classification_report_frame(pred, true)
+    got = metrics.classification_report_frame(pred, true)
+    assert got.index == ("0", "1", "accuracy", "macro avg", "weighted avg")
+    assert list(want.index) == list(got.index) and list(want.columns) == list(got.columns)
+    assert got.values.dtype == np.float64
+    np.testing.assert_array_equal(got.values, want.to_numpy(np.float64))
+    got.to_csv(str(tmp_path / "port.csv"))
+    want.to_csv(tmp_path / "jax.csv")
+    assert (tmp_path / "port.csv").read_text() == (tmp_path / "jax.csv").read_text()
+    pd.testing.assert_frame_equal(pd.read_csv(tmp_path / "port.csv", index_col=0),
+                                  pd.read_csv(tmp_path / "jax.csv", index_col=0))
 
 
 def _config(root, **changes):
