@@ -8,10 +8,11 @@ Phases, none of which is allowed to fail quietly:
  1. Card name and power limit (nvidia-smi); TF32 off, checked.
  2. Build csrc/fused_mlp.cu, csrc/sdf_streams.cu and csrc/fused_igr.cu with
     nvcc for sm_90a, all at once, printing ptxas's report; then each bf16
-    entry of fused_mlp.cu (the tensor-core routine, at widths 128-512: 12)
-    and of fused_igr.cu (igr_fwd and igr_bwd at widths 128-512, softplus and
-    ReLU, and the dW pass igr_dw: 17) must issue HGMMA and use no local
-    memory, and the two FP32 stream kernels of sdf_streams.cu (dist_kernel,
+    entry of fused_mlp.cu (the tensor-core routine, at widths 128-512: 12),
+    each f32 one (the split-TF32 routine: 12, whose HGMMA must all take
+    TF32 operands) and each bf16 entry of fused_igr.cu (igr_fwd and igr_bwd
+    at widths 128-512, softplus and ReLU, and the dW pass igr_dw: 17) must
+    issue HGMMA and use no local memory, and the two FP32 stream kernels of sdf_streams.cu (dist_kernel,
     wind_kernel) no local memory (cuobjdump's SASS and resource usage,
     printed per entry, with the streams' CTA shape).
  3. Kernels against their plain PyTorch versions on the flagship net
@@ -21,7 +22,10 @@ Phases, none of which is allowed to fail quietly:
     sparse block kernel on the active blocks at n = 256 — which must also
     equal the dense grid kernel at n = 256 bit for bit — and a ReLU/tanh
     (beta = 0) points case. Controls: the plain bf16 forward with one
-    rounding point left out must fail the bf16 limits on the same inputs.
+    rounding point left out must fail the bf16 limits on the same inputs;
+    in f32 the split-TF32 emulation (the kernels' operand roundings, f64
+    sums) is printed beside each kernel and must hold F32_TOL, and its
+    one-pass form (a single TF32 pass) must fail it on the same inputs.
     The bf16 plain version (and the controls' forward) sums each layer
     exactly, in f64: it follows no kernel's summation order.
     The exact-SDF streams (distance, winding) against their plain versions
@@ -66,14 +70,16 @@ Phases, none of which is allowed to fail quietly:
     samplingonly -> three labelled CSVs; training for 30 epochs in f32 (gated:
     the loss falls, and ends below the all-clipped plateau), in bfloat16_mxu
     and in the config's bfloat16 (both reported, not gated); the audit
-    (ppo, no reconstruct) at cubesize 256 and 64; reconstruction from the
-    trained checkpoint at 256 and 128. Launch counts are zeroed before each
+    (ppo, no reconstruct) at cubesize 256 and 64, and at 256 again under
+    --compute-dtype float32 (the split-TF32 kernels); reconstruction from
+    the trained checkpoint at 256 and 128, and at 256 in float32. Launch
+    counts are zeroed before each
     run and read after it: labelling and each audit must launch the
     distance and winding streams (the audit the dense grid kernel too), and
     no plain version may run. The 256^3 audit takes the culled method (by
     "auto": 1.7e7 points x 20,480 faces), the 64^3 one the dense sweep; the
     culled stages, sum_kd, sum_kw and their share of the dense pairs are
-    printed, and the sign accuracy at 256 must be >= 0.999.
+    printed, and the sign accuracy at 256 must be >= 0.999 in both types.
  4c. The eikonal path through the same entry point, counts zeroed before
     each run: (a) labelled training with loss_function = IGRLOSS on 4b's
     CSVs at 8x512, batch 16384, train_matmul_precision = bfloat16: igr_fwd
@@ -244,7 +250,11 @@ Phases, none of which is allowed to fail quietly:
     one library layer chain (torch addmm, never called by the port), and
     the bound: the larger of bytes over 3.35 TB/s and operations over the
     card's peak (989 TFLOP/s bf16 tensor cores for bf16, 67 TFLOP/s FP32
-    for f32), published figures at a 700 W limit. For the streams the
+    for f32), published figures at a 700 W limit. The f32 rows of kernels
+    1-3 and 10-11 take three TF32 products per multiply-add at 495 TFLOP/s
+    (the split-TF32 kernels), with the FP32-pipe bound and the weight bytes
+    the launch reads from L2 (computed from its CTAs) beside it. For the
+    streams the
     operations are a fixed count per point-triangle pair (the work of the
     function; each kernel's SASS instruction count, registers, local memory,
     points per thread and stage bytes stand beside its time).
@@ -292,6 +302,9 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parent
 PEAK = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense FLOP/s, H100 SXM
+# the f32 fused forward (kernels 1-3, 10-11) runs each product as three TF32
+# products (split operands: hi.hi + hi.lo + lo.hi) on the tensor cores
+PEAK_TF32, TF32_PASSES = 495e12, 3
 MEM_BW = 3.35e12  # bytes/s
 F32_TOL = 2e-5    # kernel vs plain in f32: summation order only (tests/test_pallas_mlp.py)
 # bf16: the plain version sums exactly (f64). Any f32 sum differs from it
@@ -513,12 +526,13 @@ def plain_kernel_order(net, x):
     return plain_dropping(net, x, (), product)
 
 
-def check_sass(library, entry, expected, tensor_cores=True):
+def check_sass(library, entry, expected, tensor_cores=True, tf32=False):
     """The entries of a source whose mangled names the regular expression
     ``entry`` finds (``expected`` of them) use no local memory (spills or
-    stack), and with ``tensor_cores`` (the bf16 entries) each issues
-    tensor-core products (HGMMA): counts from cuobjdump's SASS and resource
-    usage, printed per function."""
+    stack), and with ``tensor_cores`` each issues tensor-core products
+    (HGMMA), with ``tf32`` (the f32 entries) on TF32 operands only and
+    otherwise on none: counts from cuobjdump's SASS and resource usage,
+    printed per function."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
                           check=True).stdout
@@ -529,10 +543,13 @@ def check_sass(library, entry, expected, tensor_cores=True):
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            counts[fn] = {"instructions": 0, "HGMMA": 0}
+            counts[fn] = {"instructions": 0, "HGMMA": 0, "HGMMA_TF32": 0}
         elif fn and re.search(r"/\*[0-9a-f]{4,}\*/\s+[@A-Z]", line):
             counts[fn]["instructions"] += 1
             counts[fn]["HGMMA"] += "HGMMA" in line
+            counts[fn]["HGMMA_TF32"] += "HGMMA" in line and "TF32" in line
+            if "HGMMA" in line and "sample" not in counts[fn]:
+                counts[fn]["sample"] = re.sub(r"\s+", " ", line.split("*/", 1)[-1]).strip()[:80]
     for m in re.finditer(r"Function (\S+):\s*REG:(\d+) STACK:(\d+) SHARED:(\d+) LOCAL:(\d+)", usage):
         if m.group(1) in counts:
             counts[m.group(1)].update(registers=int(m.group(2)), stack=int(m.group(3)),
@@ -546,6 +563,9 @@ def check_sass(library, entry, expected, tensor_cores=True):
     for name, c in entries.items():
         if tensor_cores and c["HGMMA"] == 0:
             raise RuntimeError(f"{name} issues no HGMMA")
+        if tensor_cores and c["HGMMA_TF32"] != (c["HGMMA"] if tf32 else 0):
+            raise RuntimeError(f"{name}: {c['HGMMA_TF32']} of its {c['HGMMA']} HGMMA take TF32 operands"
+                               f" ({'all' if tf32 else 'none'} should)")
         if c.get("local", 1) or c.get("stack", 1):
             raise RuntimeError(f"{name}: local memory (spills or stack) or no resource usage: {c}")
     return counts
@@ -2024,14 +2044,14 @@ def drive_pipeline(device, run_root, report):
 
     launches, out = {}, {}
 
-    def run(tag, cfg_path):
+    def run(tag, cfg_path, *options):
         torch.cuda.synchronize()
         fm.reset_launches()
         ss.reset_launches()
         fi.reset_launches()
         with counting_plain_calls((fm, ss, fi)) as plain:
             t0 = time.perf_counter()
-            if cli.main([cfg_path]) != 0:
+            if cli.main([cfg_path, *options]) != 0:
                 raise RuntimeError(f"{tag}: the entry point failed")
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
@@ -2100,10 +2120,12 @@ def drive_pipeline(device, run_root, report):
     t = Trainer(Configuration(config("train_float32")))
     post = pathlib.Path(t.postprocess_save_path)
     out["audit"] = {}
-    for cubesize in (256, 64):
-        tag = f"audit/{cubesize}"
+    # the kernels' working type: the entry point's default bfloat16, and the
+    # 256^3 audit again under --compute-dtype float32 (the split-TF32 kernels)
+    for runs_before, (cubesize, dtype) in enumerate(((256, "bfloat16"), (256, "float32"), (64, "bfloat16"))):
+        tag = f"audit/{cubesize}" + ("/float32" if dtype == "float32" else "")
         sdf_culled.LAST_COUNTS.clear()
-        wall = run(tag, config(f"audit_{cubesize}", ppo=True, cubesize=cubesize))
+        wall = run(tag, config(f"audit_{cubesize}", ppo=True, cubesize=cubesize), "--compute-dtype", dtype)
         need(launches, tag, "dist_stream", "wind_stream", "fused_grid")
         # 256^3 x 20,480 faces goes to the culled method by "auto", 64^3 stays dense
         culled = dict(sdf_culled.LAST_COUNTS)
@@ -2124,31 +2146,34 @@ def drive_pipeline(device, run_root, report):
         header, last = row[0].split(","), [float(v) for v in row[-1].split(",")]
         result = dict(zip(header, last))
         stages = dict(post_process.LAST_STAGE_SECONDS)
-        print(f"audit {cubesize}^3: {result}, outside-fraction baseline {baseline:.4f}, "
+        print(f"audit {cubesize}^3 ({dtype}): {result}, outside-fraction baseline {baseline:.4f}, "
               f"stages (s) {stages}", flush=True)
         if not (result["Resolution"] == cubesize and result["Accuracy"] > baseline
-                and len(row) == 2 + (cubesize == 64) and np.isfinite(last).all()):
+                and len(row) == 2 + runs_before and np.isfinite(last).all()):
             raise RuntimeError(f"audit {cubesize}: no better than calling every point outside")
         if cubesize == 256 and result["Accuracy"] < 0.999:
             raise RuntimeError(f"audit 256: sign accuracy {result['Accuracy']} under 0.999")
         for name in ("mismatching_co-ordinates1.csv", "classification_report2.csv"):
             if not (post / name).exists():
                 raise RuntimeError(f"audit {cubesize}: {name} is missing")
-        out["audit"][cubesize] = {"wall_s": wall, "stages_s": stages, "result": result,
-                                  "baseline": baseline, "culled": culled}
+        out["audit"][tag.split("/", 1)[1]] = {"wall_s": wall, "stages_s": stages, "result": result,
+                                              "baseline": baseline, "culled": culled,
+                                              "launches": launches[tag]}
     out["reconstruct_trained"] = {}
-    for cubesize in (256, 128):
-        tag = f"reconstruct_trained/{cubesize}"
+    for cubesize, dtype in ((256, "bfloat16"), (256, "float32"), (128, "bfloat16")):
+        tag = f"reconstruct_trained/{cubesize}" + ("/float32" if dtype == "float32" else "")
         stl = post / f"reconstructed_epoch{EPOCHS - 1}.stl"
         if stl.exists():
             stl.unlink()
-        wall = run(tag, config(f"rec_{cubesize}", ppo=True, reconstruct=True, cubesize=cubesize))
+        wall = run(tag, config(f"rec_{cubesize}", ppo=True, reconstruct=True, cubesize=cubesize),
+                   "--compute-dtype", dtype)
         if launches[tag]["sparse_blocks"] + launches[tag]["fused_grid"] < 1:
             raise RuntimeError(f"{tag}: no evaluation kernel was launched")
         mesh = load_mesh(str(stl))
         radii = np.linalg.norm(mesh.vertices, axis=1)
         stages = dict(reconstruct.LAST_STAGE_SECONDS)
-        print(f"mesh from the trained field, {cubesize}^3: {len(mesh.faces)} faces, vertex radius "
+        print(f"mesh from the trained field, {cubesize}^3 ({dtype}; launches {launches[tag]}): "
+              f"{len(mesh.faces)} faces, vertex radius "
               f"median {np.median(radii):.4f} (the labelled sphere: 0.85), within 0.02 of it "
               f"{np.mean(np.abs(radii - 0.85) < 0.02):.3f} of the vertices, stages (s) {stages}"
               + ("; with the host marcher (PERF.md §5): evaluate 0.200 s, march 1.657 s"
@@ -2158,9 +2183,9 @@ def drive_pipeline(device, run_root, report):
         if len(mesh.faces) < 1000 or not np.isfinite(mesh.vertices).all() \
                 or np.abs(mesh.vertices).max() > 1 or abs(np.median(radii) - 0.85) > 0.1:
             raise RuntimeError(f"{tag}: the mesh is not a sphere of radius ~0.85")
-        out["reconstruct_trained"][cubesize] = {"wall_s": wall, "faces": len(mesh.faces),
-                                                "median_radius": float(np.median(radii)),
-                                                "stages_s": stages}
+        out["reconstruct_trained"][tag.split("/", 1)[1]] = {
+            "wall_s": wall, "faces": len(mesh.faces), "median_radius": float(np.median(radii)),
+            "stages_s": stages, "launches": launches[tag]}
 
     # -- 4c. the eikonal path: labelled IGRLOSS, then the point-cloud trainer ----
     igr_base = with_keys(base.replace("weight_factor = 0.5\n", ""), loss_function="IGRLOSS")
@@ -3368,9 +3393,11 @@ def main() -> int:
     report["build_s"] = kernels.build_all(["fused_mlp", "sdf_streams", "fused_igr"], verbose=True)
     print(f"build: {report['build_s']} s per source, {time.perf_counter() - t0:.1f} s in all "
           "(one nvcc each, started together)", flush=True)
-    # fused_mlp: points, grid, blocks x widths 128-512; fused_igr (namespace
-    # tc): igr_fwd and igr_bwd x widths x softplus / ReLU, and igr_dw
+    # fused_mlp: points, grid, blocks x widths 128-512, bf16 and f32 (split
+    # TF32); fused_igr (namespace tc): igr_fwd and igr_bwd x widths x
+    # softplus / ReLU, and igr_dw
     report["sass"] = {**check_sass(kernels.library_path("fused_mlp"), "wgmma_", 12),
+                      **check_sass(kernels.library_path("fused_mlp"), "tf32_", 12, tf32=True),
                       **check_sass(kernels.library_path("fused_igr"), r"2tc\d+igr_", 17),
                       **check_sass(kernels.library_path("sdf_streams"), r"(dist|wind)_kernel", 2,
                                    tensor_cores=False)}
@@ -3417,6 +3444,25 @@ def main() -> int:
             if err <= BF16_TOL and mean <= BF16_MEAN_TOL:
                 raise RuntimeError(f"control {key}: the bf16 tolerances would pass it")
 
+    def tf32_control(name, net, x, want):
+        """f32: the split-TF32 emulation of the same inputs beside the
+        kernel (fused_mlp.forward_tf32_model: the kernels' operand
+        roundings, f64 sums), which must hold F32_TOL, and its one-pass
+        form (hi.hi only: a single TF32 pass), the control, which must fail
+        it."""
+        want = want.reshape(-1)
+        row = {}
+        for passes in (3, 1):
+            diff = (fm.forward_tf32_model(net, x, passes) - want).abs()
+            row[f"emulated_{passes}_pass"] = {"max_abs_err": diff.max().item(),
+                                              "mean_abs_err": diff.mean().item()}
+        controls[f"{name}/tf32"] = row
+        print(f"control {name}/tf32 (tolerance {F32_TOL:g}): {json.dumps(row)}", flush=True)
+        if row["emulated_3_pass"]["max_abs_err"] > F32_TOL:
+            raise RuntimeError(f"control {name}: the three-pass emulation fails F32_TOL")
+        if row["emulated_1_pass"]["max_abs_err"] <= F32_TOL:
+            raise RuntimeError(f"control {name}: F32_TOL would pass a single TF32 pass")
+
     _, mask, _ = sg.coarse_and_certificate(model, 256, 8, 1.5, 0.01)
     ids = torch.nonzero(mask).flatten().to(torch.int32)
     count = torch.tensor([ids.numel()], dtype=torch.int32, device=device)
@@ -3427,16 +3473,22 @@ def main() -> int:
         check(f"fused_points/{tag}", fm.fused_points(net, pts), want, dt)
         if dt == torch.bfloat16:
             control("fused_points", net, pts, want, softplus_drops)
+        else:
+            tf32_control("fused_points", net, pts, want)
         want = fm.fused_grid_plain(net, 128)
         check(f"fused_grid/{tag}/n128", fm.fused_grid(net, 128), want, dt)
         if dt == torch.bfloat16:
             control("fused_grid/n128", net, fm.grid_points(128, 0, 128 ** 3, device), want,
                     softplus_drops)
+        else:
+            tf32_control("fused_grid/n128", net, fm.grid_points(128, 0, 128 ** 3, device), want)
         blocks = fm.fused_blocks(net, ids, count, 256, 8)
         want = fm.fused_blocks_plain(net, ids, count, 256, 8)
         check(f"sparse_blocks/{tag}/n256", blocks, want, dt)
         if dt == torch.bfloat16:
             control("sparse_blocks/n256", net, fm.block_points(ids, 256, 8), want, softplus_drops)
+        else:
+            tf32_control("sparse_blocks/n256", net, fm.block_points(ids, 256, 8), want)
         dense = fm.fused_grid(net, 256).reshape(32, 8, 32, 8, 32, 8).permute(0, 2, 4, 1, 3, 5)
         dense = dense.reshape(-1, 512)[ids.long()]
         if not torch.equal(blocks, dense):
@@ -3451,6 +3503,8 @@ def main() -> int:
         if dt == torch.bfloat16:
             # under ReLU, rounding the accumulator and the activation is one rounding
             control("fused_points/relu", relu_net, pts, want, (("coords",), ("acc", "act")))
+        else:
+            tf32_control("fused_points/relu", relu_net, pts, want)
     del want, blocks, dense
     (stream_P, (stream_sb, stream_sc), stream_tables, tri_chunk, stream_errors, stream_mesh,
      stream_pts) = check_streams(device, report)
@@ -3549,6 +3603,18 @@ def main() -> int:
                 if i < len(layers) - 1:
                     h = torch.nn.functional.softplus(h, beta=model.beta)
 
+    def tf32_bound(flops, t_bytes, t_ops, ctas, net):
+        """The f32 rows' bound: the split-TF32 kernels issue TF32_PASSES
+        tensor-core products per multiply-add, at PEAK_TF32; beside it the
+        FP32 pipes' bound (the same operations once at 67 TFLOP/s), and the
+        weight stages the launch reads from L2 (each CTA reads all of
+        FusedNet.tf32_tiles once; CTAs past a blocks launch's count read
+        nothing): computed from the launch, not measured."""
+        t_tf32 = TF32_PASSES * flops / PEAK_TF32 * 1e3
+        return {"bound_ms": max(t_bytes, t_tf32), "bound_by": "operations" if t_tf32 >= t_bytes else "bytes",
+                "bound_ms_fp32_pipes": max(t_bytes, t_ops), "ctas": ctas,
+                "l2_weight_bytes": ctas * net.tf32_tiles.numel() * 4}
+
     grid_pts = {n: fm.grid_points(n, 0, n ** 3, device) for n in (256,)}
     kernels_line = []
     for name, replaces in (
@@ -3594,6 +3660,10 @@ def main() -> int:
                        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                        "library_ms": lib_ms, "points": npts,
                        "tflops": flops / ms / 1e9, "points_per_s": npts / ms * 1e3}
+            if dt == torch.float32:
+                numbers.update(tf32_bound(flops, t_bytes, t_ops, -(-npts // fm.TILE_P), net))
+                if not ms < lib_ms:
+                    print(f"time {name}/{tag}: the kernel is not faster than its library chain", flush=True)
             print(f"time {name}/{tag}: " + json.dumps(numbers), flush=True)
             if dt == torch.bfloat16:
                 entry.update(numbers, dtype="bfloat16")
@@ -3839,6 +3909,9 @@ def main() -> int:
                        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                        "library_ms": lib_ms, "points": npts, "shards": 4,
                        "ms_by_shards": ms_by, "tflops": flops / ms_by[4] / 1e9}
+            if dt == torch.float32:
+                ctas = 4 * se.slab_tiles(256, 4, 1024) if name == "sharded_grid" else npts // fm.TILE_P
+                numbers.update(tf32_bound(flops, t_bytes, t_ops, ctas, net))
             print(f"time {name}/{tag}: " + json.dumps(numbers), flush=True)
             if dt == torch.bfloat16:
                 entry.update(numbers, dtype="bfloat16")

@@ -13,8 +13,9 @@
 // ops/sharded_eval.py.
 // Three __global__ entries per working type differ only in where a tile's
 // coordinates come from and where its results go; in each type one
-// __device__ routine runs the whole network. The C interface counts in
-// tiles of 64 points.
+// __device__ routine runs the whole network on the tensor cores (wgmma):
+// bf16 products in bf16, f32 ones as three TF32 products of split
+// operands. The C interface counts in tiles of 64 points.
 //
 // bf16: tensor cores (wgmma_forward). At 8x512 a point costs ~1.84 M
 // multiply-adds against 12-16 bytes of input and output, so the bound is
@@ -58,14 +59,52 @@
 // d_in FMAs per output; the skip layer's scale and bias come after both
 // sums. The last layer (one output) is an m64n8k16 product.
 //
-// f32: the SIMT routine (simt_tile_forward), a design choice for this
-// type, not a fallback: a TF32 tensor-core pass would not hold the f32
-// results to 2e-5 of the plain version. Activations never leave shared
-// memory (64 points x 512 f32 = 128 KB, updated in place: a layer's outputs
-// are held in registers until every warp has read its inputs); weights are
-// streamed per layer in 16-row stages through a cp.async double buffer;
-// each thread accumulates an 8-point x (4*NQ)-output register tile with f32
-// FMA. It is bound by the FP32 pipes (67 TFLOP/s).
+// f32: split-TF32 products (tf32_forward). A TF32 operand keeps 10 mantissa
+// bits, so one TF32 pass moves the f32 field by far more than 2e-5; each
+// operand v is split into hi = rna(v) and lo = rna(v - hi), so that
+// |v - hi - lo| <= 2^-22 |v|, and every product is issued three times,
+// hi.hi + hi.lo + lo.hi (lo.lo, ~2^-22 of it, is dropped). At 8x512 a point
+// costs 3 x 1.84 M multiply-adds, so the bound is the tensor cores' TF32
+// rate: 373 ms for a 256^3 sweep at 495 TFLOP/s (the FP32 pipes' 919 ms).
+//   * shared memory: a 64-point tile's f32 activations take 128 KB, so a CTA
+//     holds one tile. Its two consumer warpgroups split each layer's output
+//     columns (256 each at 512); each has a ring of kF32Stages weight
+//     stages of 64 output columns x 32 K (the hi image, then the lo image:
+//     16 KB), filled by its own thread of the producer warpgroup.
+//   * operands: the weights are split once on the host (FusedNet.tf32_tiles,
+//     W^T rows in the 128-byte swizzle, 32 f32 a row), the activations on
+//     the fly: A comes from registers, one 16-byte shared-memory load per K
+//     step and two roundings per value on the integer pipe (hopper::tf32_rna:
+//     the sweep takes 9% less than with cvt.rna.tf32). The activations stay
+//     f32 in the order the A fragments take them (H below, conflict-free),
+//     which is the order the accumulators hold them in; the weight images'
+//     K axis is permuted within each 8 to match, so no value moves between
+//     threads.
+//   * accumulation: the tensor cores truncate inside a sum, so the products
+//     are summed in groups kF32SumK deep and each group's sum is added to
+//     the f32 accumulator with round-to-nearest. A group sums its
+//     correction products first, at their own scale (~2^-11 of the main
+//     products), then the hi.hi products onto them, so every truncation at
+//     the main sum's scale is one that the hi.hi sum alone would make.
+//     One chained sum over all of K read up to 3.9e-5 against the plain
+//     version (over F32_TOL = 2e-5); groups 8, 16 and 32 deep at most
+//     3.1e-6, and 32 is the fastest (tools/tf32_sum_study.py, PERF.md).
+//   * the in-place hazard: a consumer holds its finished 64-column chunks in
+//     registers (up to 3 x 32 a thread) until both consumers' products have
+//     read the layer's inputs, then writes them back.
+//   * L2: each CTA reads every stage once, 14.7 MB per 64-point tile at
+//     8x512: 3.86 TB for a 256^3 sweep (the bf16 routine ~0.5 TB). Neither
+//     a 2-CTA cluster multicast nor an on-chip split of one f32 stage, which
+//     would each halve it, is taken: a build that copies only the hi images
+//     (half the bytes) is 2% faster, and a third ring stage 0.5%
+//     (tools/tf32_time_study.py, PERF.md).
+//     Measured on an H100, the sweep takes 2.1x the bound: each consumer
+//     waits for its group's products before it adds them, and the
+//     epilogue's softplus (12% of the time) runs with the tensor cores idle
+//     for that consumer.
+//   * the epilogue's softplus is the f32 library's expf and log1pf, scaled
+//     by RN(1 / beta): within an ulp of the division by beta, whose slow
+//     path spilled registers and made the sweep 31% slower.
 //
 // Numerics kept from the JAX kernel:
 //   * f32 mode: everything f32.
@@ -127,204 +166,305 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 }
 
 // =============================================================================
-// f32: the SIMT routine
+// f32: the split-TF32 wgmma routine
 // =============================================================================
 
-constexpr int kSimtThreads = 256;  // 8 warps; warp w owns points 8w .. 8w+7
-constexpr int kPts = 8;            // points per thread
-constexpr int kKT = 16;            // weight rows per shared-memory stage
+constexpr int kF32KBlock = 32;                            // K per stage: one 128-byte row of f32
+constexpr int kF32Steps = kF32KBlock / 8;                 // K steps (m64nNk8) per stage
+constexpr int kF32Stages = 3;                             // stages in each consumer's ring
+constexpr int kF32ImageBytes = kChunkN * kF32KBlock * 4;  // one W^T image of a stage: 8 KB
+constexpr int kF32StageBytes = 2 * kF32ImageBytes;        // the hi image, then the lo image
+constexpr int kF32LastImage = kLastRows * kF32KBlock * 4; // the last layer's images: 1 KB
+// K per tensor-core group sum (8, 16 or 32) and products per K step (3:
+// hi.hi + hi.lo + lo.hi; 1: hi.hi only, a single TF32 pass);
+// tools/tf32_sum_study.py builds the variants
+constexpr int kF32SumK = 32;
+constexpr int kF32Passes = 3;
+constexpr int kF32Threads = 3 * kWgThreads;               // producer + two consumers
+// setmaxnreg: the launch gives each thread 168 registers (384 threads); the
+// producers' warpgroup hands 128 of its 168 to the consumers (a consumer
+// holds up to 3 finished chunks, its chunk's sums and the group's fragments)
+constexpr int kF32ProducerRegs = 40;
+constexpr int kF32ConsumerRegs = 232;
+static_assert(kWgThreads * (168 - kF32ProducerRegs) >= 2 * kWgThreads * (kF32ConsumerRegs - 168), "registers");
+constexpr size_t kF32HBytes = size_t(kTileP) * kHMax * 4; // the tile's f32 activations: 128 KB
+constexpr size_t kF32OffRing = kF32HBytes;
+constexpr size_t kF32OffX = kF32OffRing + 2 * size_t(kF32Stages) * kF32StageBytes;
+constexpr size_t kF32OffBar = kF32OffX + size_t(kTileP) * 4 * sizeof(float);
+constexpr size_t kF32Smem = kF32OffBar + 4 * kF32Stages * sizeof(uint64_t) + 1024;  // + alignment slack
+static_assert(kF32Smem <= 232448, "the f32 routine's shared memory");
+static_assert(kF32SumK % 8 == 0 && kF32KBlock % kF32SumK == 0, "group depth");
 
-__host__ __device__ constexpr size_t simt_smem_floats() {
-  return size_t(kTileP) * kHMax + kTileP * 4 + kTileP;  // H, coords, results
-}
-constexpr size_t kSimtSmem = simt_smem_floats() * sizeof(float) + 2 * size_t(kKT) * kHMax * sizeof(float);
+using F32Ring = hopper::StageRing<kF32Stages, kF32StageBytes>;
+using F32Layer = hopper::LayerArgsT<float>;
 
-__device__ __forceinline__ void load4(const float* p, float* w) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+// Shared memory (from a 1024-byte aligned base):
+//   H        the tile's 64 x kHMax f32 activations as float4 H[g][t]: column
+//            group g (columns 8 g .. 8 g + 7) of thread slot t (warp w =
+//            t / 32, lane l; rows r0 = 16 w + l / 4 and r0 + 8; q = l % 4)
+//            holds (r0, 8 g + 2 q), (r0 + 8, 8 g + 2 q), (r0, 8 g + 2 q + 1),
+//            (r0 + 8, 8 g + 2 q + 1): the four values of K step g of a TF32
+//            A fragment if the K slots q and q + 4 of the step stand for
+//            columns 2 q and 2 q + 1, and the four values thread t of either
+//            consumer finds in its accumulator for group g. A thread reads
+//            and writes only its slot, which the same thread of the other
+//            consumer shares, 16 bytes at a time: a warp 512 contiguous
+//            bytes.
+//   rings    two rings (one per consumer) of kF32Stages stages: the hi and
+//            the lo image of 64 W^T rows x 32 K, K permuted within each 8 as
+//            above, in the 128-byte swizzle (FusedNet.tf32_tiles)
+//   xs       64 x 4 f32 coordinates
+//   full, empty  the rings' mbarriers
+
+using hopper::split_tf32;
+
+// the hi and lo A fragments of K step s from the thread's slot of H
+__device__ __forceinline__ void a_fragments(const float4* H4, int s, int lt, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const float4 a = H4[s * kWgThreads + lt];
+  split_tf32(a.x, hi[0], lo[0]);
+  split_tf32(a.y, hi[1], lo[1]);
+  split_tf32(a.z, hi[2], lo[2]);
+  split_tf32(a.w, hi[3], lo[3]);
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// acc = A(64 x 32 kbs, the tile's activations) * B(the next kbs stages of
+// the ring, `lo_off` bytes from the hi image to the lo image), every K step
+// as its kF32Passes products, summed on the tensor cores in groups kF32SumK
+// deep that are added to acc in f32; the stages are handed back once read.
 template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-// One linear layer (+ activation) over the tile. NQ = n / 128: each lane
-// owns outputs 128*q + 4*lane + c (q < NQ, c < 4), so a warp's shared-memory
-// reads and writes of a row are contiguous.
-template <int NQ>
-__device__ __forceinline__ void simt_layer_forward(
-    const long long* __restrict__ d, int d_in, float beta, bool last,
-    const float* __restrict__ W, const float* __restrict__ B,
-    float* H, const float* xs, float* res, float* Ws) {
-  const int k = static_cast<int>(d[0]);
-  const int n = static_cast<int>(d[1]);
-  const bool skip = d[2] != 0;
-  const long long b_off = d[3], w_off = d[4], wx_off = d[5];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-
-  float acc[kPts][4 * NQ];
+__device__ __forceinline__ void tf32_stream(float (&acc)[N], const float4* H4, int kbs, F32Ring& ring, int lt,
+                                            int lo_off) {
+  using hopper::desc_k_sw128;
 #pragma unroll
-  for (int i = 0; i < kPts; ++i)
+  for (int i = 0; i < N; ++i) acc[i] = 0.f;
+  for (int kb = 0; kb < kbs; ++kb) {
+    hopper::mbar_wait(&ring.full[ring.s], ring.phase);
+    const uint8_t* b = ring.stage();
+    constexpr int kG = kF32SumK / 8;  // K steps per group
 #pragma unroll
-    for (int j = 0; j < 4 * NQ; ++j) acc[i][j] = 0.f;
-
-  // coordinate rows: W_0 (first layer) or W_bot (skip layer)
-  if (wx_off >= 0) {
-    for (int r = 0; r < d_in; ++r) {
-      float w[4 * NQ];
-      const float* row = W + wx_off + static_cast<long long>(r) * n + 4 * lane;
+    for (int g = 0; g < kF32Steps / kG; ++g) {
+      uint32_t hi[kG][4], lo[kG][4];
 #pragma unroll
-      for (int q = 0; q < NQ; ++q) load4(row + 128 * q, &w[4 * q]);
+      for (int u = 0; u < kG; ++u) a_fragments(H4, kb * kF32Steps + g * kG + u, lt, hi[u], lo[u]);
+      float part[N];
+      hopper::wgmma_fence();
+      // the corrections first, at their own scale, then hi.hi onto them
+      if constexpr (kF32Passes == 3) {
 #pragma unroll
-      for (int i = 0; i < kPts; ++i) {
-        const float a = xs[(warp * kPts + i) * 4 + r];
-#pragma unroll
-        for (int j = 0; j < 4 * NQ; ++j) acc[i][j] = fmaf(a, w[j], acc[i][j]);
-      }
-    }
-  }
-
-  // hidden rows, kKT at a time through the shared-memory double buffer
-  if (k > 0) {
-    const int nk = k / kKT;
-    const int stage_bytes = kKT * n * static_cast<int>(sizeof(float));
-    const char* src = reinterpret_cast<const char*>(W + w_off);
-    auto stage = [&](int t) {
-      char* dst = reinterpret_cast<char*>(Ws + (t & 1) * kKT * kHMax);
-      const char* s = src + static_cast<long long>(t) * stage_bytes;
-      for (int off = tid * 16; off < stage_bytes; off += kSimtThreads * 16) cp_async16(dst + off, s + off);
-      cp_async_commit();
-    };
-    stage(0);
-    for (int t = 0; t < nk; ++t) {
-      if (t + 1 < nk) {
-        stage(t + 1);  // its buffer was last read in step t-1, before the barrier
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const float* ws = Ws + (t & 1) * kKT * kHMax + 4 * lane;
-      const float* hrow = H + (warp * kPts) * kHMax + t * kKT;
-#pragma unroll
-      for (int kk = 0; kk < kKT; kk += 4) {
-        float4 a4[kPts];
-#pragma unroll
-        for (int i = 0; i < kPts; ++i) a4[i] = *reinterpret_cast<const float4*>(hrow + i * kHMax + kk);
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          float w[4 * NQ];
-#pragma unroll
-          for (int q = 0; q < NQ; ++q) load4(ws + (kk + u) * n + 128 * q, &w[4 * q]);
-#pragma unroll
-          for (int i = 0; i < kPts; ++i) {
-            const float a = u == 0 ? a4[i].x : u == 1 ? a4[i].y : u == 2 ? a4[i].z : a4[i].w;
-#pragma unroll
-            for (int j = 0; j < 4 * NQ; ++j) acc[i][j] = fmaf(a, w[j], acc[i][j]);
-          }
+        for (int u = 0; u < kG; ++u) {
+          const int off = 32 * (g * kG + u);
+          hopper::wgmma_tile_tf32(part, hi[u], desc_k_sw128(b + lo_off + off), u > 0);
+          hopper::wgmma_tile_tf32(part, lo[u], desc_k_sw128(b + off), 1);
         }
       }
-      __syncthreads();  // every warp is done with H and with this buffer
+#pragma unroll
+      for (int u = 0; u < kG; ++u)
+        hopper::wgmma_tile_tf32(part, hi[u], desc_k_sw128(b + 32 * (g * kG + u)), kF32Passes == 3 || u > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_registers(part);
+#pragma unroll
+      for (int i = 0; i < N; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
     }
+    if (lt == 0) hopper::mbar_arrive(&ring.empty[ring.s]);
+    ring.advance();
   }
-
-  // epilogue: scale, bias, activation; H is overwritten in place
-#pragma unroll
-  for (int q = 0; q < NQ; ++q) {
-    const int o = 128 * q + 4 * lane;
-    const float4 bias = *reinterpret_cast<const float4*>(B + b_off + o);
-    const float bv[4] = {bias.x, bias.y, bias.z, bias.w};
-#pragma unroll
-    for (int i = 0; i < kPts; ++i) {
-      const int p = warp * kPts + i;
-      float v[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float s = acc[i][4 * q + c];
-        if (skip) s = __fmul_rn(s, kInvSqrt2);
-        v[c] = __fadd_rn(s, bv[c]);
-      }
-      if (last) {
-        if (q == 0 && lane == 0) res[p] = beta > 0.f ? v[0] : tanhf(v[0]);
-      } else {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          if (beta > 0.f) {
-            const float t = __fmul_rn(beta, v[c]);
-            v[c] = __fdiv_rn(__fadd_rn(fmaxf(t, 0.f), log1pf(expf(-fabsf(t)))), beta);
-          } else {
-            v[c] = fmaxf(v[c], 0.f);
-          }
-        }
-        *reinterpret_cast<float4*>(H + p * kHMax + o) = make_float4(v[0], v[1], v[2], v[3]);
-      }
-    }
-  }
-  __syncthreads();
 }
 
-// The whole network over the tile whose coordinates are in xs (64 x 4);
-// leaves the 64 results in res.
-__device__ void simt_tile_forward(const long long* __restrict__ desc, int n_lin, int d_in, float beta,
-                                  const float* __restrict__ W, const float* __restrict__ B, float* smem) {
-  float* H = smem;
-  float* xs = H + kTileP * kHMax;
-  float* res = xs + kTileP * 4;
-  float* Ws = smem + simt_smem_floats();
+// softplus(beta v) / beta = (max(t, 0) + log1p(exp(-|t|))) * RN(1 / beta),
+// t = beta v, on the f32 library functions; or ReLU
+template <bool kSoftplus>
+__device__ __forceinline__ float activate_f32(float v, float beta, float rb) {
+  if constexpr (kSoftplus) {
+    const float t = __fmul_rn(beta, v);
+    return __fmul_rn(__fadd_rn(fmaxf(t, 0.f), log1pf(expf(-fabsf(t)))), rb);
+  } else {
+    return fmaxf(v, 0.f);
+  }
+}
+
+// the thread's 32 values of a 64-column chunk's accumulator, whose first
+// column is col0, with their coordinate term, scale, bias and activation
+template <bool kSoftplus>
+__device__ __forceinline__ void f32_epilogue(float (&acc)[kAcc], int col0, int q, const F32Layer& L,
+                                             const float (&x)[2][4]) {
+#pragma unroll
+  for (int j = 0; j < kChunkN / 8; ++j) {
+    float v[2][2] = {{acc[4 * j], acc[4 * j + 1]}, {acc[4 * j + 2], acc[4 * j + 3]}};
+    hopper::column_pair(L, col0 + 8 * j + 2 * q, x, v);
+    acc[4 * j] = activate_f32<kSoftplus>(v[0][0], L.beta, L.rb);
+    acc[4 * j + 1] = activate_f32<kSoftplus>(v[0][1], L.beta, L.rb);
+    acc[4 * j + 2] = activate_f32<kSoftplus>(v[1][0], L.beta, L.rb);
+    acc[4 * j + 3] = activate_f32<kSoftplus>(v[1][1], L.beta, L.rb);
+  }
+}
+
+// chunk cc's values into the thread's slot of H (groups 8 cc .. 8 cc + 7)
+__device__ __forceinline__ void store_chunk(float4* H4, int cc, int lt, const float (&v)[kAcc]) {
+#pragma unroll
+  for (int j = 0; j < kChunkN / 8; ++j)
+    H4[(8 * cc + j) * kWgThreads + lt] = make_float4(v[4 * j], v[4 * j + 2], v[4 * j + 1], v[4 * j + 3]);
+}
+
+// One hidden layer (n = 128 NQ outputs): consumer c computes chunks c NQ ..
+// c NQ + NQ - 1. Finished chunks wait in registers until both consumers'
+// products have read H (named barrier 1), then all are written back; the
+// second barrier makes the whole layer visible to both.
+template <int NQ, bool kSoftplus>
+__device__ __forceinline__ void f32_hidden_layer(const F32Layer& L, float4* H4, F32Ring& ring, int c, int lt,
+                                                 const float (&x)[2][4]) {
+  const int q = lt & 3;
+  const int kbs = L.k / kF32KBlock;
+  float held[NQ][kAcc];  // held[NQ - 1] is never used
+  float acc[kAcc];
+#pragma unroll
+  for (int j = 0; j < NQ; ++j) {
+    tf32_stream(acc, H4, kbs, ring, lt, kF32ImageBytes);
+    f32_epilogue<kSoftplus>(acc, kChunkN * (c * NQ + j), q, L, x);
+    if (j < NQ - 1) {
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) held[j][i] = acc[i];
+    }
+  }
+  hopper::named_barrier(1, 2 * kWgThreads);
+#pragma unroll
+  for (int j = 0; j < NQ - 1; ++j) store_chunk(H4, c * NQ + j, lt, held[j]);
+  store_chunk(H4, c * NQ + NQ - 1, lt, acc);
+  hopper::named_barrier(1, 2 * kWgThreads);
+}
+
+// The last layer (one output, consumer 0): column 0 of an m64n8k8 product;
+// emit(row, v) for the tile's rows
+template <class Emit>
+__device__ __forceinline__ void f32_last_layer(const F32Layer& L, const float4* H4, F32Ring& ring, int lt,
+                                               const float (&x)[2][4], Emit emit) {
+  const int warp = lt >> 5, lane = lt & 31;
+  const int r0 = 16 * warp + (lane >> 2);
+  float acc[4];
+  tf32_stream(acc, H4, L.k / kF32KBlock, ring, lt, kF32LastImage);
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v = acc[2 * h];
+      if (L.wx != nullptr) {
+        float w[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          if (r < L.d_in) w[r] = L.wx[r * L.n];
+        v = __fadd_rn(v, hopper::coord_dot(x[h], w, L.d_in));
+      }
+      if (L.skip) v = __fmul_rn(v, kInvSqrt2);
+      v = __fadd_rn(v, __ldg(L.bias));
+      emit(r0 + 8 * h, L.beta > 0.f ? v : tanhf(v));
+    }
+  }
+}
+
+// The whole network over the CTA's 64 points, whose coordinates the entry
+// has written to xs (4 per row, zeros past d_in) before the call;
+// emit(row, value) takes each row's result.
+template <int NQ, class Emit>
+__device__ __forceinline__ void tf32_forward(const long long* __restrict__ desc, int n_lin, int d_in, float beta,
+                                             const float* __restrict__ W, const float* __restrict__ B,
+                                             const uint8_t* __restrict__ tiles, uint8_t* smem, Emit emit) {
+  const int wg = threadIdx.x / kWgThreads, lt = threadIdx.x % kWgThreads;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kF32OffBar);
+  // ring r feeds consumer r; its producer is warp r of the producer warpgroup
+  const int r = wg > 0 ? wg - 1 : (lt >> 5) & 1;
+  auto ring_of = [&](int i, bool init) {
+    return hopper::ring_init<F32Ring>(smem + kF32OffRing + size_t(i) * kF32Stages * kF32StageBytes,
+                                      bars + 2 * kF32Stages * i, 1, init);
+  };
+  if (threadIdx.x == 0) {
+    ring_of(0, true);
+    ring_of(1, true);
+  }
+  F32Ring ring = ring_of(r, false);
+  __syncthreads();  // barriers and coordinates ready
+
+  if (wg == 0) {
+    // producers: ring r gets consumer r's weight stages of every layer in
+    // the order it multiplies by them (FusedNet.tf32_tiles: per layer the
+    // chunks in order, so consumer r's NQ chunks are one run of stages)
+    hopper::regs_decrease<kF32ProducerRegs>();
+    if ((lt & 31) == 0 && lt < 64) {
+      const uint8_t* src = tiles;
+      for (int l = 0; l < n_lin; ++l) {
+        const int k = static_cast<int>(desc[kDesc * l]);
+        if (k == 0) continue;
+        const int kbs = k / kF32KBlock;
+        if (l == n_lin - 1) {
+          if (r == 0) hopper::produce(ring, src, 2 * kF32LastImage, kbs);
+        } else {
+          hopper::produce(ring, src + size_t(r) * NQ * kbs * kF32StageBytes, kF32StageBytes, NQ * kbs);
+          src += size_t(2) * NQ * kbs * kF32StageBytes;
+        }
+      }
+    }
+    return;
+  }
+
+  hopper::regs_increase<kF32ConsumerRegs>();
+  const int c = wg - 1;
+  const int r0 = 16 * (lt >> 5) + ((lt & 31) >> 2);
+  float4* H4 = reinterpret_cast<float4*>(smem);
+  const float* xs = reinterpret_cast<const float*>(smem + kF32OffX);
+  float x[2][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[h][i] = xs[(r0 + 8 * h) * 4 + i];
+
+  const float rb = beta > 0.f ? __frcp_rn(beta) : 0.f;
   for (int l = 0; l < n_lin; ++l) {
-    const long long* d = desc + kDesc * l;
-    const bool last = l == n_lin - 1;
-    switch (static_cast<int>(d[1]) / 128) {
-      case 1: simt_layer_forward<1>(d, d_in, beta, last, W, B, H, xs, res, Ws); break;
-      case 2: simt_layer_forward<2>(d, d_in, beta, last, W, B, H, xs, res, Ws); break;
-      case 3: simt_layer_forward<3>(d, d_in, beta, last, W, B, H, xs, res, Ws); break;
-      default: simt_layer_forward<4>(d, d_in, beta, last, W, B, H, xs, res, Ws); break;
+    const F32Layer L = hopper::layer_args(desc, l, d_in, beta, rb, W, B);
+    if (l == n_lin - 1) {
+      if (c == 0) f32_last_layer(L, H4, ring, lt, x, emit);
+    } else if (beta > 0.f) {
+      f32_hidden_layer<NQ, true>(L, H4, ring, c, lt, x);
+    } else {
+      f32_hidden_layer<NQ, false>(L, H4, ring, c, lt, x);
     }
   }
 }
 
-__global__ void __launch_bounds__(kSimtThreads, 1)
-simt_points_kernel(const float* __restrict__ x, long long n_pts, int d_in,
-                   const long long* __restrict__ desc, int n_lin, float beta,
-                   const float* __restrict__ W, const float* __restrict__ B, float* __restrict__ out) {
-  extern __shared__ float4 simt_smem4[];
-  float* smem = reinterpret_cast<float*>(simt_smem4);
-  float* xs = smem + kTileP * kHMax;
-  float* res = xs + kTileP * 4;
+template <int NQ>
+__global__ void __launch_bounds__(kF32Threads, 1)
+tf32_points_kernel(const float* __restrict__ x, long long n_pts, int d_in, const long long* __restrict__ desc,
+                   int n_lin, float beta, const float* __restrict__ W, const float* __restrict__ B,
+                   const uint8_t* __restrict__ tiles, float* __restrict__ out) {
+  extern __shared__ uint8_t f32_smem_raw[];
+  uint8_t* smem = hopper::aligned_smem(f32_smem_raw);
+  float* xs = reinterpret_cast<float*>(smem + kF32OffX);
   const long long p0 = static_cast<long long>(blockIdx.x) * kTileP;
-  for (int e = threadIdx.x; e < kTileP * 4; e += kSimtThreads) {
+  for (int e = threadIdx.x; e < kTileP * 4; e += kF32Threads) {
     const int p = e >> 2, r = e & 3;
     float v = 0.f;
     if (r < d_in && p0 + p < n_pts) v = x[(p0 + p) * d_in + r];
     xs[e] = v;
   }
-  __syncthreads();
-  simt_tile_forward(desc, n_lin, d_in, beta, W, B, smem);
-  const long long p = p0 + threadIdx.x;
-  if (threadIdx.x < kTileP && p < n_pts) out[p] = res[threadIdx.x];
+  tf32_forward<NQ>(desc, n_lin, d_in, beta, W, B, tiles, smem, [&](int row, float v) {
+    if (p0 + row < n_pts) out[p0 + row] = v;
+  });
 }
 
-// dense n^3 grid over linspace(-1, 1, n), flat = x*n^2 + y*n + z; block b
+// dense n^3 grid over linspace(-1, 1, n), flat = x*n^2 + y*n + z; CTA b
 // is tile t = base_tile + b, the flat indices [64 t, 64 t + 64). out holds
 // the launch's own tiles from base_tile on (a shard's slab: the TPU kernel
 // 10, sharded_eval.py _local_sweep_pallas, takes its base from SMEM), so a
 // whole-volume launch has base_tile 0. Points past n^3 are not written.
-__global__ void __launch_bounds__(kSimtThreads, 1)
-simt_grid_kernel(long long base_tile, int n, float step,
-                 const long long* __restrict__ desc, int n_lin, float beta,
-                 const float* __restrict__ W, const float* __restrict__ B, float* __restrict__ out) {
-  extern __shared__ float4 simt_smem4[];
-  float* smem = reinterpret_cast<float*>(simt_smem4);
-  float* xs = smem + kTileP * kHMax;
-  float* res = xs + kTileP * 4;
+template <int NQ>
+__global__ void __launch_bounds__(kF32Threads, 1)
+tf32_grid_kernel(long long base_tile, int n, float step, const long long* __restrict__ desc, int n_lin, float beta,
+                 const float* __restrict__ W, const float* __restrict__ B, const uint8_t* __restrict__ tiles,
+                 float* __restrict__ out) {
+  extern __shared__ uint8_t f32_smem_raw[];
+  uint8_t* smem = hopper::aligned_smem(f32_smem_raw);
+  float* xs = reinterpret_cast<float*>(smem + kF32OffX);
   const long long nn = static_cast<long long>(n) * n;
   const long long total = nn * n;
   const long long p0 = (base_tile + blockIdx.x) * kTileP;
-  for (int e = threadIdx.x; e < kTileP * 4; e += kSimtThreads) {
+  for (int e = threadIdx.x; e < kTileP * 4; e += kF32Threads) {
     const int p = e >> 2, r = e & 3;
     const long long flat = p0 + p;
     float v = 0.f;
@@ -334,30 +474,30 @@ simt_grid_kernel(long long base_tile, int n, float step,
     }
     xs[e] = v;
   }
-  __syncthreads();
-  simt_tile_forward(desc, n_lin, 3, beta, W, B, smem);
-  const long long flat = p0 + threadIdx.x;
-  if (threadIdx.x < kTileP && flat < total) out[flat - base_tile * kTileP] = res[threadIdx.x];
+  tf32_forward<NQ>(desc, n_lin, 3, beta, W, B, tiles, smem, [&](int row, float v) {
+    if (p0 + row < total) out[p0 + row - base_tile * kTileP] = v;
+  });
 }
 
-// the block^3 points of each active block: block b = blockIdx.x / tiles is
-// ids[b] (flat over the nb^3 blocks); blocks at or past *count exit at once
-__global__ void __launch_bounds__(kSimtThreads, 1)
-simt_blocks_kernel(const int* __restrict__ ids, const int* __restrict__ count, int nb, int block, float step,
-                   const long long* __restrict__ desc, int n_lin, float beta,
-                   const float* __restrict__ W, const float* __restrict__ B, float* __restrict__ out) {
-  extern __shared__ float4 simt_smem4[];
+// the block^3 points of each active block: CTA b is sub-tile b % tpb of
+// block b / tpb, which is ids[b / tpb] (flat over the nb^3 blocks); blocks
+// at or past *count exit at once
+template <int NQ>
+__global__ void __launch_bounds__(kF32Threads, 1)
+tf32_blocks_kernel(const int* __restrict__ ids, const int* __restrict__ count, int nb, int block, float step,
+                   const long long* __restrict__ desc, int n_lin, float beta, const float* __restrict__ W,
+                   const float* __restrict__ B, const uint8_t* __restrict__ tiles, float* __restrict__ out) {
   const int pts = block * block * block;
-  const int tiles = pts / kTileP;
-  const int b = blockIdx.x / tiles;
+  const int tpb = pts / kTileP;
+  const int b = blockIdx.x / tpb;
   if (b >= *count) return;
-  float* smem = reinterpret_cast<float*>(simt_smem4);
-  float* xs = smem + kTileP * kHMax;
-  float* res = xs + kTileP * 4;
-  const int sub = blockIdx.x % tiles;
+  extern __shared__ uint8_t f32_smem_raw[];
+  uint8_t* smem = hopper::aligned_smem(f32_smem_raw);
+  float* xs = reinterpret_cast<float*>(smem + kF32OffX);
+  const int sub = blockIdx.x % tpb;
   const int id = ids[b];
   const int bz = id % nb, by = (id / nb) % nb, bx = id / (nb * nb);
-  for (int e = threadIdx.x; e < kTileP * 4; e += kSimtThreads) {
+  for (int e = threadIdx.x; e < kTileP * 4; e += kF32Threads) {
     const int p = e >> 2, r = e & 3;
     const int local = sub * kTileP + p;
     float v = 0.f;
@@ -369,9 +509,9 @@ simt_blocks_kernel(const int* __restrict__ ids, const int* __restrict__ count, i
     }
     xs[e] = v;
   }
-  __syncthreads();
-  simt_tile_forward(desc, n_lin, 3, beta, W, B, smem);
-  if (threadIdx.x < kTileP) out[static_cast<long long>(b) * pts + sub * kTileP + threadIdx.x] = res[threadIdx.x];
+  tf32_forward<NQ>(desc, n_lin, 3, beta, W, B, tiles, smem, [&](int row, float v) {
+    out[static_cast<long long>(b) * pts + sub * kTileP + row] = v;
+  });
 }
 
 // =============================================================================
@@ -534,7 +674,7 @@ wgmma_points_kernel(const float* __restrict__ x, long long n_pts, int d_in,
 }
 
 // the grid entry over tiles [base_tile, base_tile + n_tiles); CTA b takes
-// tiles base_tile + 2b and + 2b + 1 (out as for simt_grid_kernel)
+// tiles base_tile + 2b and + 2b + 1 (out as for tf32_grid_kernel)
 template <int NQ>
 __global__ void __launch_bounds__(kWgmmaThreads, 1)
 wgmma_grid_kernel(long long base_tile, long long n_tiles, int n, float step,
@@ -629,13 +769,15 @@ long long wgmma_ctas(long long tiles) { return (tiles + kCtaTiles - 1) / kCtaTil
 }  // namespace
 
 // ---- C interface (ctypes); each returns the cudaError_t of its launch --------
-// bf16: w and b are FusedNet.packed's buffers, tiles FusedNet.tiles, width
-// the padded hidden width (128, 256, 384 or 512). f32: tiles is unused.
+// w and b are FusedNet.packed's buffers, width the padded hidden width (128,
+// 256, 384 or 512); tiles is FusedNet.tiles (bf16) or FusedNet.tf32_tiles
+// (f32).
 
 extern "C" {
 
 int sdf_mlp_tile_points() { return kTileP; }
 int sdf_mlp_max_width() { return kHMax; }
+int sdf_mlp_f32_k_block() { return kF32KBlock; }
 const char* sdf_mlp_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
 int sdf_mlp_points(const float* x, long long n_pts, int d_in, const long long* desc, int n_lin, float beta,
@@ -644,8 +786,10 @@ int sdf_mlp_points(const float* x, long long n_pts, int d_in, const long long* d
   auto s = static_cast<cudaStream_t>(stream);
   const long long n_tiles = (n_pts + kTileP - 1) / kTileP;
   if (!bf16)
-    return launch(simt_points_kernel, n_tiles, kSimtThreads, kSimtSmem, s, x, n_pts, d_in, desc, n_lin, beta,
-                  static_cast<const float*>(w), b, out);
+    return by_width(width, [&](auto q) {
+      return launch(tf32_points_kernel<decltype(q)::value>, n_tiles, kF32Threads, kF32Smem, s, x, n_pts, d_in,
+                    desc, n_lin, beta, static_cast<const float*>(w), b, static_cast<const uint8_t*>(tiles), out);
+    });
   auto wb = static_cast<const __nv_bfloat16*>(w);
   auto tb = static_cast<const __nv_bfloat16*>(tiles);
   return by_width(width, [&](auto q) {
@@ -659,8 +803,10 @@ int sdf_mlp_grid(long long base_tile, long long n_tiles, int n, float step, cons
                  void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (!bf16)
-    return launch(simt_grid_kernel, n_tiles, kSimtThreads, kSimtSmem, s, base_tile, n, step, desc, n_lin, beta,
-                  static_cast<const float*>(w), b, out);
+    return by_width(width, [&](auto q) {
+      return launch(tf32_grid_kernel<decltype(q)::value>, n_tiles, kF32Threads, kF32Smem, s, base_tile, n, step,
+                    desc, n_lin, beta, static_cast<const float*>(w), b, static_cast<const uint8_t*>(tiles), out);
+    });
   auto wb = static_cast<const __nv_bfloat16*>(w);
   auto tb = static_cast<const __nv_bfloat16*>(tiles);
   return by_width(width, [&](auto q) {
@@ -675,8 +821,11 @@ int sdf_mlp_blocks(const int* ids, const int* count, int k_max, int nb, int bloc
   auto s = static_cast<cudaStream_t>(stream);
   const long long n_tiles = static_cast<long long>(k_max) * (block * block * block / kTileP);
   if (!bf16)
-    return launch(simt_blocks_kernel, n_tiles, kSimtThreads, kSimtSmem, s, ids, count, nb, block, step, desc,
-                  n_lin, beta, static_cast<const float*>(w), b, out);
+    return by_width(width, [&](auto q) {
+      return launch(tf32_blocks_kernel<decltype(q)::value>, n_tiles, kF32Threads, kF32Smem, s, ids, count, nb,
+                    block, step, desc, n_lin, beta, static_cast<const float*>(w), b,
+                    static_cast<const uint8_t*>(tiles), out);
+    });
   auto wb = static_cast<const __nv_bfloat16*>(w);
   auto tb = static_cast<const __nv_bfloat16*>(tiles);
   return by_width(width, [&](auto q) {

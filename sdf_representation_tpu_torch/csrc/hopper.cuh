@@ -1,11 +1,13 @@
 // Hopper (sm_90a) building blocks for the port's hand-written kernels:
 // mbarriers, bulk copies into shared memory (the TMA engine's 1-D form),
 // proxy fences, named barriers, warpgroup register reallocation and the
-// wgmma tensor-core product with its shared-memory descriptors and fences;
-// then the bf16 tensor-core layer routine that csrc/fused_mlp.cu (the fused
-// forward) and csrc/fused_igr.cu (the eikonal kernels) share: the ring of
-// bulk-copied weight stages, the 64-column chunk product with its in-place
-// hazard handling, and the softplus and sigmoid epilogues.
+// wgmma tensor-core product with its shared-memory descriptors and fences
+// (bf16 operands, and TF32 with A from registers and the split of an f32
+// value into two TF32 halves); then the bf16 tensor-core layer routine that
+// csrc/fused_mlp.cu (the fused forward) and csrc/fused_igr.cu (the eikonal
+// kernels) share: the ring of bulk-copied weight stages, the 64-column
+// chunk product with its in-place hazard handling, and the softplus and
+// sigmoid epilogues.
 
 #pragma once
 
@@ -172,6 +174,72 @@ __device__ __forceinline__ void wgmma_m64n8k16(float (&d)[4], uint64_t a, uint64
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// ---- TF32 -------------------------------------------------------------------------
+
+// v rounded to TF32 (10 mantissa bits) to nearest, ties away from zero: the
+// bits of an f32 whose low 13 mantissa bits are zero. Integer arithmetic on
+// the bits gives cvt.rna.tf32.f32's result for every finite v, and the f32
+// fused forward takes 9% less time with it (tools/tf32_time_study.py)
+__device__ __forceinline__ uint32_t tf32_rna(float v) { return (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u; }
+
+// v = hi + lo + e with hi = rna(v), lo = rna(v - hi) (v - hi is exact in
+// f32) and |e| <= 2^-22 |v| for normal v: the two halves of a split-TF32
+// product, whose three passes hi.hi + hi.lo + lo.hi drop only lo.lo
+// (ops/fused_mlp.py split_tf32 is the same arithmetic on int32 views)
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(__fsub_rn(v, __uint_as_float(hi)));
+}
+
+// D(64 x N, f32) = A(64 x 8, tf32, registers) * B(8 x N, tf32, shared,
+// K-major: TF32 operands take no transpose) + (scale_d ? D : 0). Warp w of
+// the warpgroup holds rows 16 w .. 16 w + 15 of A; lane l holds a[0] at
+// (16 w + l/4, l % 4), a[1] at row + 8, a[2] and a[3] at column + 4. D is
+// laid out as in wgmma_m64n64k16. A shared-memory row of B (one output
+// column) holds 32 f32 of K in the 128-byte swizzle: the start address
+// advances 32 bytes per K step of 8.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n8k8_tf32(float (&d)[4], const uint32_t (&a)[4], uint64_t b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tile_tf32(float (&acc)[N], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  if constexpr (N == 32) {
+    wgmma_m64n64k8_tf32(acc, a, db, scale_d);
+  } else {
+    wgmma_m64n8k8_tf32(acc, a, db, scale_d);
+  }
+}
+
 // ==================================================================================
 // The bf16 tensor-core layer routine
 // ==================================================================================
@@ -309,29 +377,35 @@ __device__ __forceinline__ float activate_bf16(float v, float beta, float rb) {
   return bf16_rne(v);
 }
 
-struct Ring {
+// kN stage slots of kBytes each; the bf16 routines' ring is Ring
+template <int kN, int kBytes>
+struct StageRing {
+  static constexpr int kSlots = kN;
   uint8_t* stages;
   uint64_t* full;
   uint64_t* empty;
   int s = 0;
   uint32_t phase = 0;
+  __device__ __forceinline__ uint8_t* stage() const { return stages + s * kBytes; }
   __device__ __forceinline__ void advance() {
-    if (++s == kStages) {
+    if (++s == kN) {
       s = 0;
       phase ^= 1;
     }
   }
 };
+using Ring = StageRing<kStages, kStageBytes>;
 
-// one thread: barriers of a ring at `bars` (2 kStages) over stages at
-// `stages`, with `consumers` arrivals per empty phase
-__device__ __forceinline__ Ring ring_init(uint8_t* stages, uint64_t* bars, int consumers, bool init) {
-  Ring ring;
+// one thread: barriers of a ring at `bars` (2 kN) over stages at `stages`,
+// with `consumers` arrivals per empty phase
+template <class R = Ring>
+__device__ __forceinline__ R ring_init(uint8_t* stages, uint64_t* bars, int consumers, bool init) {
+  R ring;
   ring.stages = stages;
   ring.full = bars;
-  ring.empty = bars + kStages;
+  ring.empty = bars + R::kSlots;
   if (init) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < R::kSlots; ++s) {
       mbar_init(&ring.full[s], 1);
       mbar_init(&ring.empty[s], consumers);
     }
@@ -340,13 +414,15 @@ __device__ __forceinline__ Ring ring_init(uint8_t* stages, uint64_t* bars, int c
   return ring;
 }
 
-// producer: `count` stages of `bytes` each from src into the ring, in order;
-// returns the source address past them
-__device__ __forceinline__ const uint8_t* produce(Ring& ring, const uint8_t* src, uint32_t bytes, int count) {
+// producer: `count` stages of `bytes` each (<= the slot) from src into the
+// ring, in order; returns the source address past them
+template <int kN, int kBytes>
+__device__ __forceinline__ const uint8_t* produce(StageRing<kN, kBytes>& ring, const uint8_t* src, uint32_t bytes,
+                                                  int count) {
   for (int t = 0; t < count; ++t) {
     mbar_wait(&ring.empty[ring.s], ring.phase ^ 1);
     mbar_arrive_expect_tx(&ring.full[ring.s], bytes);
-    bulk_load(ring.stages + ring.s * kStageBytes, src, bytes, &ring.full[ring.s]);
+    bulk_load(ring.stage(), src, bytes, &ring.full[ring.s]);
     src += bytes;
     ring.advance();
   }
@@ -455,20 +531,24 @@ __device__ __forceinline__ float coord_dot(const float (&x)[4], const float (&w)
 
 constexpr float kInvSqrt2 = 0.70710678118654752440f;
 
-struct LayerArgs {
+// T: the type of the weight buffer (bf16, or f32 for the f32 routines)
+template <class T>
+struct LayerArgsT {
   int k, n, d_in;
   bool skip;
   float beta, rb;               // beta and RN(1 / beta)
   const float* bias;            // this layer's biases
-  const __nv_bfloat16* wx;      // coordinate rows (d_in x n), or null
+  const T* wx;                  // coordinate rows (d_in x n), or null
 };
+using LayerArgs = LayerArgsT<__nv_bfloat16>;
 
 // layer l of a descriptor (int64 x 6 per layer: k, n, skip, bias offset,
 // hidden-input offset, coordinate-input offset or -1; FusedNet.layout)
-__device__ __forceinline__ LayerArgs layer_args(const long long* desc, int l, int d_in, float beta, float rb,
-                                                const __nv_bfloat16* W, const float* B) {
+template <class T>
+__device__ __forceinline__ LayerArgsT<T> layer_args(const long long* desc, int l, int d_in, float beta, float rb,
+                                                    const T* W, const float* B) {
   const long long* d = desc + 6 * l;
-  LayerArgs L;
+  LayerArgsT<T> L;
   L.k = static_cast<int>(d[0]);
   L.n = static_cast<int>(d[1]);
   L.d_in = d_in;
@@ -480,20 +560,28 @@ __device__ __forceinline__ LayerArgs layer_args(const long long* desc, int l, in
   return L;
 }
 
+// two neighbouring weights as f32
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+  const __nv_bfloat162 w = *reinterpret_cast<const __nv_bfloat162*>(p);
+  return make_float2(__low2float(w), __high2float(w));
+}
+__device__ __forceinline__ float2 load_pair(const float* p) { return *reinterpret_cast<const float2*>(p); }
+
 // coordinate term, scale and bias of output columns col and col + 1 for the
 // thread's rows r0 (h = 0) and r0 + 8 (h = 1), applied to their sums; with
 // kTangentRow the row h = 1 is a tangent, which takes no bias
-template <bool kTangentRow = false>
-__device__ __forceinline__ void column_pair(const LayerArgs& L, int col, const float (&x)[2][4], float (&v)[2][2]) {
+template <bool kTangentRow = false, class T>
+__device__ __forceinline__ void column_pair(const LayerArgsT<T>& L, int col, const float (&x)[2][4],
+                                            float (&v)[2][2]) {
   const float2 bias = __ldg(reinterpret_cast<const float2*>(L.bias + col));
   float w0[4] = {0.f, 0.f, 0.f, 0.f}, w1[4] = {0.f, 0.f, 0.f, 0.f};
   if (L.wx != nullptr) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       if (r < L.d_in) {
-        const __nv_bfloat162 w = *reinterpret_cast<const __nv_bfloat162*>(L.wx + r * L.n + col);
-        w0[r] = __low2float(w);
-        w1[r] = __high2float(w);
+        const float2 w = load_pair(L.wx + r * L.n + col);
+        w0[r] = w.x;
+        w1[r] = w.y;
       }
     }
   }

@@ -23,12 +23,16 @@ a card: there is no fallback. ``LAUNCHES`` counts kernel launches.
 Working types, as in the JAX kernel (pallas_mlp.py:90-140): float32 all the
 way, or bfloat16, which rounds the input coordinates, each layer's f32
 accumulator before the activation and the activation's output to bf16,
-with bf16 weights, f32 biases and an f32 last layer. On a card the f32
-kernels run on the CUDA cores and the bf16 ones on the tensor cores
-(``FusedNet.tiles`` is their weight layout). The plain versions multiply in
-f32 in f32 mode; in bf16 mode they compute each layer in f64, where the bf16
-products and their sums are exact, and round at the JAX body's points: the
-value every f32 summation order approximates, the same on every device.
+with bf16 weights, f32 biases and an f32 last layer. On a card both run on
+the tensor cores: bf16 products in bf16 (``FusedNet.tiles`` is their weight
+layout), f32 ones as three TF32 products of operands split in two halves
+(``split_tf32``; ``FusedNet.tf32_tiles`` holds the weights' halves), which
+keep the f32 results within 2e-5 of the f32 plain version where one TF32
+pass would not (``forward_tf32_model`` emulates both). The plain versions
+multiply in f32 in f32 mode; in bf16 mode they compute each layer in f64,
+where the bf16 products and their sums are exact, and round at the JAX
+body's points: the value every f32 summation order approximates, the same
+on every device.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import List, Optional, Tuple
+from typing import List, Tuple
 
 import torch
 
@@ -52,6 +56,13 @@ MAX_D_IN = 4         # coordinate columns the CUDA tile holds
 CHUNK_N = 64         # kChunkN
 K_BLOCK = 64         # kKBlock
 LAST_ROWS = 8        # kLastRows
+# the f32 (split-TF32) routine's stages: K columns per stage (one 128-byte
+# row of f32, kF32KBlock), and the order of K within each 8 in its weight
+# images: slot p holds column K_ORDER[p], so that the A fragment a thread
+# loads from its accumulator's own values (columns 2q, 2q + 1 of each 8)
+# meets its weights
+F32_K_BLOCK = 32
+K_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 PLAIN_CHUNK = 65536  # points per plain-path matmul chain
 INV_SQRT2 = 1.0 / math.sqrt(2.0)
 
@@ -185,6 +196,25 @@ class FusedNet:
         return self._staged(igr=False)
 
     @functools.cached_property
+    def tf32_tiles(self) -> torch.Tensor:
+        """The hidden-input matrices as the f32 (split-TF32) kernels' weight
+        stages take them (csrc/fused_mlp.cu): per layer W^T (the last
+        layer's first LAST_ROWS rows only), its K axis reordered within each
+        8 by K_ORDER, cut into CHUNK_N-row chunks and F32_K_BLOCK-column
+        blocks, chunk-major; each stage the hi image, then the lo image
+        (``split_tf32``) of its (rows, 32) block in the 128-byte swizzle.
+        Flat f32: one gather from ``packed``'s weights, split once."""
+        if self.dtype != torch.float32:
+            raise ValueError("tf32_tiles are the f32 kernels' weights")
+        layout = tuple(tuple(row) for row in self.layout)
+        staged = _stage_index(layout, "tf32", self.device)
+        if staged is None:
+            return torch.zeros(1, dtype=torch.float32, device=self.device)
+        index, is_lo = staged
+        hi, lo = split_tf32(self.packed[0].index_select(0, index))
+        return torch.where(is_lo, lo, hi)
+
+    @functools.cached_property
     def igr_tiles(self) -> torch.Tensor:
         """The weight stages of the bf16 eikonal kernels (csrc/fused_igr.cu),
         in the order both take them: ``tiles`` (the forward products of
@@ -200,7 +230,7 @@ class FusedNet:
 
     def _staged(self, igr: bool) -> torch.Tensor:
         layout = tuple(tuple(row) for row in self.layout)
-        index = _stage_index(layout, igr, self.device)
+        index = _stage_index(layout, "igr" if igr else "bf16", self.device)
         if index is None:
             return torch.zeros(1, dtype=self.dtype, device=self.device)
         return self.packed[0].index_select(0, index)
@@ -224,41 +254,71 @@ class FusedNet:
 
 
 @functools.lru_cache(maxsize=None)
-def _stage_index(layout: Tuple[Tuple[int, ...], ...], igr: bool, device) -> Optional[torch.Tensor]:
+def _stage_index(layout: Tuple[Tuple[int, ...], ...], kind: str, device):
     """int32 positions in ``FusedNet.packed``'s weight buffer of the
-    elements of ``FusedNet.tiles`` (``igr``: of ``FusedNet.igr_tiles``),
-    for a net of this ``layout``: the images of the weights' own indices.
-    None where the net has no hidden-input matrix. Made once per layout and
-    device."""
+    elements of ``FusedNet.tiles`` (``kind`` "bf16"), ``FusedNet.igr_tiles``
+    ("igr") or ``FusedNet.tf32_tiles`` ("tf32"), for a net of this
+    ``layout``: the images of the weights' own indices. For "tf32" also a
+    mask of the elements that take the lo half (each position appears
+    twice, in the stage's hi and lo image). None where the net has no
+    hidden-input matrix. Made once per layout and device."""
     last = len(layout) - 1
     mats = {layer: torch.arange(w_off, w_off + k * n, dtype=torch.int32).view(k, n)
             for layer, (k, n, _, _, w_off, _) in enumerate(layout) if w_off >= 0}
-    parts = [swizzle_128b(_layer_stages(m, layer == last)).reshape(-1) for layer, m in mats.items()]
-    if igr:
-        parts += [swizzle_128b(_layer_stages(mats[layer].T, False)).reshape(-1)
+    if not mats:
+        return None
+    if kind == "tf32":
+        parts, lo_parts = [], []
+        for layer, m in mats.items():
+            k = m.shape[0]
+            order = torch.arange(k).view(k // 8, 8)[:, list(K_ORDER)].reshape(-1)
+            stages = swizzle_128b(_layer_stages(m[order], layer == last, F32_K_BLOCK))
+            both = torch.stack([stages, stages], dim=2)  # (chunks, k blocks, hi / lo, rows, 32)
+            is_lo = torch.zeros(both.shape, dtype=torch.bool)
+            is_lo[:, :, 1] = True
+            parts.append(both.reshape(-1))
+            lo_parts.append(is_lo.reshape(-1))
+        return torch.cat(parts).to(device), torch.cat(lo_parts).to(device)
+    parts = [swizzle_128b(_layer_stages(m, layer == last, K_BLOCK)).reshape(-1) for layer, m in mats.items()]
+    if kind == "igr":
+        parts += [swizzle_128b(_layer_stages(mats[layer].T, False, K_BLOCK)).reshape(-1)
                   for layer in range(last - 1, 0, -1)]
-    return torch.cat(parts).to(device) if parts else None
+    return torch.cat(parts).to(device)
 
 
 def swizzle_128b(t: torch.Tensor) -> torch.Tensor:
-    """(..., rows, 64) -> the same, the 16-byte groups (8 bf16) of row r put
-    at group index g ^ (r % 8): the 128-byte swizzle wgmma and TMA read. Its
-    own inverse."""
-    rows = t.shape[-2]
-    groups = t.reshape(*t.shape[:-1], 8, 8)
+    """(..., rows, w) -> the same, the 16-byte groups of row r (w / 8
+    elements: 8 bf16 for w = 64, 4 f32 for w = 32) put at group index
+    g ^ (r % 8): the 128-byte swizzle wgmma and TMA read. Its own inverse."""
+    rows, width = t.shape[-2], t.shape[-1]
+    groups = t.reshape(*t.shape[:-1], 8, width // 8)
     index = torch.arange(8, device=t.device)[None, :] ^ (torch.arange(rows, device=t.device) % 8)[:, None]
-    index = index[..., None].expand(rows, 8, 8).expand(*groups.shape)
+    index = index[..., None].expand(rows, 8, width // 8).expand(*groups.shape)
     return torch.gather(groups, -2, index).reshape(t.shape)
 
 
-def _layer_stages(w_h: torch.Tensor, last: bool) -> torch.Tensor:
+def _layer_stages(w_h: torch.Tensor, last: bool, k_block: int) -> torch.Tensor:
     """A hidden-input matrix (k, n) as its weight stages (chunks, k blocks,
-    rows, 64), unswizzled."""
+    rows, k_block), unswizzled."""
     k = w_h.shape[0]
     wt = (w_h[:, :LAST_ROWS] if last else w_h).T
     rows = wt.shape[0]
     chunk = min(rows, CHUNK_N)
-    return wt.reshape(rows // chunk, chunk, k // K_BLOCK, K_BLOCK).permute(0, 2, 1, 3)
+    return wt.reshape(rows // chunk, chunk, k // k_block, k_block).permute(0, 2, 1, 3)
+
+
+def split_tf32(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 values -> (hi, lo), f32 tensors whose low 13 mantissa bits are
+    zero: hi is t rounded to TF32 (10 mantissa bits) to nearest, ties away
+    from zero, as cvt.rna.tf32.f32 rounds, and lo the same rounding of
+    t - hi, which is exact in f32; |t - hi - lo| <= 2^-22 |t| for normal t.
+    Bit arithmetic on int32 views (finite inputs), on any device."""
+    def rna(v):
+        return ((v.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    t = t.float()
+    hi = rna(t)
+    return hi, rna(t - hi)
 
 
 # ---------------------------------------------------------------------------
@@ -307,6 +367,50 @@ def forward_plain(net: FusedNet, x: torch.Tensor) -> torch.Tensor:
     if net.beta <= 0:
         h = torch.tanh(h)
     return h[:, 0].float()
+
+
+def forward_tf32_model(net: FusedNet, x: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """The f32 forward as the split-TF32 kernels round it, over (M, d_in)
+    points: every hidden-input product taken over the TF32 halves of its
+    operands (``split_tf32``; passes 3: hi.hi + hi.lo + lo.hi, as the
+    kernels issue them; 1: hi.hi, a single TF32 pass), summed in f64 and
+    rounded to f32; every other step is ``forward_plain``'s f32. With
+    passes=1 it is the control that F32_TOL must reject."""
+    if net.dtype != torch.float32:
+        raise ValueError("the split-TF32 emulation is of the f32 forward")
+    if passes not in (1, 3):
+        raise ValueError(f"passes must be 1 or 3, got {passes}")
+
+    def product(h, halves):
+        (hh, hl), (wh, wl) = split_tf32(h), halves
+        acc = hh.double() @ wh.double()
+        if passes == 3:
+            acc = acc + hh.double() @ wl.double() + hl.double() @ wh.double()
+        return acc.float()
+
+    halves = [None if w_h is None else tuple(t.double() for t in split_tf32(w_h))
+              for _, w_h, _, _ in net.plain_layers]
+    out = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
+    n_lin = len(net.plain_layers)
+    for start in range(0, x.shape[0], PLAIN_CHUNK):
+        xc = x[start:start + PLAIN_CHUNK].float()
+        h = xc
+        for layer, (kind, w_h, w_x, b) in enumerate(net.plain_layers):
+            if kind == "first":
+                acc = xc @ w_x + b
+            elif kind == "skip":
+                acc = (product(h, halves[layer]) + xc @ w_x) * INV_SQRT2 + b
+            else:
+                acc = product(h, halves[layer]) + b
+            if layer < n_lin - 1:
+                if net.beta > 0:
+                    t = net.beta * acc
+                    acc = (torch.clamp_min(t, 0.0) + torch.log1p(torch.exp(-t.abs()))) / net.beta
+                else:
+                    acc = torch.clamp_min(acc, 0.0)
+            h = acc
+        out[start:start + xc.shape[0]] = (torch.tanh(h) if net.beta <= 0 else h)[:, 0]
+    return out
 
 
 def _plain_chunked(net: FusedNet, coords, total: int) -> torch.Tensor:
@@ -407,7 +511,10 @@ def _lib() -> ctypes.CDLL:
         fn.restype = I
     lib.sdf_mlp_error_string.argtypes = [I]
     lib.sdf_mlp_error_string.restype = ctypes.c_char_p
-    if lib.sdf_mlp_tile_points() != TILE_P or lib.sdf_mlp_max_width() != MAX_WIDTH:
+    for fn in (lib.sdf_mlp_tile_points, lib.sdf_mlp_max_width, lib.sdf_mlp_f32_k_block):
+        fn.argtypes, fn.restype = [], I
+    if (lib.sdf_mlp_tile_points() != TILE_P or lib.sdf_mlp_max_width() != MAX_WIDTH
+            or lib.sdf_mlp_f32_k_block() != F32_K_BLOCK):
         raise RuntimeError("csrc/fused_mlp.cu and ops/fused_mlp.py disagree on the tile shape")
     return lib
 
@@ -420,8 +527,9 @@ def _check_launch(rc: int, what: str) -> None:
 
 def _cuda_args(net: FusedNet, *tensors: torch.Tensor):
     """Validate a launch and return (weights ptr, biases ptr, desc ptr,
-    n_lin, bf16 flag, stream ptr, tiles ptr, hidden width). bf16 launches
-    take the tensor-core routine, which also reads ``net.tiles``."""
+    n_lin, bf16 flag, stream ptr, tiles ptr, hidden width). Both types run
+    on the tensor cores and stream their weight stages from ``net.tiles``
+    (bf16) or ``net.tf32_tiles`` (f32)."""
     if net.device.type != "cuda":
         raise ValueError(f"the net's weights are on {net.device}, the inputs on a card")
     for t in tensors:
@@ -436,7 +544,7 @@ def _cuda_args(net: FusedNet, *tensors: torch.Tensor):
     wbuf, bbuf, desc = net.packed
     stream = torch.cuda.current_stream(net.device).cuda_stream
     bf16 = net.dtype == torch.bfloat16
-    tiles = net.tiles.data_ptr() if bf16 else None
+    tiles = (net.tiles if bf16 else net.tf32_tiles).data_ptr()
     return (wbuf.data_ptr(), bbuf.data_ptr(), desc.data_ptr(), desc.shape[0], int(bf16), stream,
             tiles, net.h_pad)
 
