@@ -10,9 +10,11 @@ Phases, none of which is allowed to fail quietly:
     nvcc for sm_90a, all at once, printing ptxas's report; then each bf16
     entry of fused_mlp.cu (the tensor-core routine, at widths 128-512: 12),
     each f32 one (the split-TF32 routine: 12, whose HGMMA must all take
-    TF32 operands) and each bf16 entry of fused_igr.cu (igr_fwd and igr_bwd
-    at widths 128-512, softplus and ReLU, and the dW pass igr_dw: 17) must
-    issue HGMMA and use no local memory, and the two FP32 stream kernels of sdf_streams.cu (dist_kernel,
+    TF32 operands), each bf16 entry of fused_igr.cu (igr_fwd and igr_bwd
+    at widths 128-512, softplus and ReLU, and the dW pass igr_dw: 17) and
+    each f32 one (the same 17 on the split-TF32 routine, TF32 operands
+    only) must issue HGMMA and use no local memory, and the two FP32
+    stream kernels of sdf_streams.cu (dist_kernel,
     wind_kernel) no local memory (cuobjdump's SASS and resource usage,
     printed per entry, with the streams' CTA shape).
  3. Kernels against their plain PyTorch versions on the flagship net
@@ -50,10 +52,15 @@ Phases, none of which is allowed to fail quietly:
     points picked to keep every pre-activation clear of zero, where every
     limit of the softplus cases holds: at 8x512 in f32 (in bf16 differing
     roundings still flip single steps there), at 4x512 in both types. Controls: the bf16 plain
-    versions with one rounding point left out must fail the bf16 limits.
-    bf16 igr_bwd sums in a fixed order: two launches must give the same dW
-    and db bit for bit; its two passes (the workspace of its first pass, and
-    the dW pass over a workspace) are held against their plain versions.
+    versions with one rounding point left out must fail the bf16 limits; in
+    f32 the split-TF32 emulation (fused_igr.fused_value_and_grad_tf32_model,
+    fused_param_grads_tf32_model: the kernels' operand roundings, f64 sums)
+    is printed beside each reading and must hold the same limits, and its
+    one-pass form (a single TF32 pass) must fail them on the same inputs.
+    igr_bwd sums in a fixed order in both types: two launches must give the
+    same dW and db bit for bit; its two passes (the workspace of its first
+    pass, and the dW pass over a workspace) are held against their plain
+    versions.
  4. The main path, `python -m sdf_representation_tpu_torch cfg.ini`
     (reconstruct from a checkpoint), once per route, the launch counts
     zeroed just before each run and read just after: cubesize 256 must
@@ -260,10 +267,11 @@ Phases, none of which is allowed to fail quietly:
     points per thread and stage bytes stand beside its time).
     For igr_fwd and igr_bwd at (8x512, N 16,384) and (8x256, N 5,461): the
     operations are 2 N times the multiply-adds of the products each kernel
-    performs (2 and ~6 passes over the layers), the bytes are the inputs, the
-    weights and the outputs (the kernels' workspace bytes and the kernel
-    launches per wrapper call are reported beside the bound; bf16 igr_bwd
-    also times its dW pass alone), and the library yardstick is the same
+    performs (2 and ~6 passes over the layers; in f32 three TF32 products
+    each at 495 TFLOP/s, the FP32-pipe bound beside it), the bytes are the
+    inputs, the weights and the outputs (the kernels' workspace bytes and
+    the kernel launches per wrapper call are reported beside the bound;
+    igr_bwd also times its dW pass alone), and the library yardstick is the same
     (f, grad f) and parameter gradient through cuBLAS and torch autograd's
     double backward (create_graph=True), timed only.
     The sharded streams on phase 3's culled schedule, the card listed 4
@@ -352,7 +360,7 @@ WIND_OPS_PER_PAIR = 112
 EPOCHS = 30
 # igr_fwd / igr_bwd against plain. f32: f and grad f within F32_TOL, every
 # dW and db within IGR_F32_GRAD_TOL of its tensor's largest entry (summation
-# order; the f32 backward adds with atomics, whose order changes run to run).
+# order and the split-TF32 products' dropped lo.lo terms).
 # bf16 (the plain versions sum exactly, in f64): an f32 sum can round to the
 # neighbouring bf16 value and sigma'(beta z) carries that on, so a sound
 # kernel differs from plain at a few points; leaving out one rounding point
@@ -571,8 +579,12 @@ def check_sass(library, entry, expected, tensor_cores=True, tf32=False):
     return counts
 
 
-def timed(fn, min_reps=3):
-    fn()
+def timed(fn, min_reps=3, warmup=True):
+    """ms per call of fn over min_reps calls (CUDA events), after one call
+    unless ``warmup`` is False (the plain versions and library chains that
+    take seconds a call, long after the card and its libraries are warm)."""
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1241,17 +1253,18 @@ def igr_bwd_dropping(net, x, a, c, drop):
 
 
 def check_igr_passes(net, x, a, c, tag, readings):
-    """The bf16 backward's two passes on their own: the first pass's
-    workspace against fused_igr.images_plain (bf16 images, equal but where
-    a sum in another order rounds to the neighbouring value, which later
-    layers carry on: the mean difference within 1e-2 of the mean value, where
-    a misplaced row or column reads ~1; per-tile db sums within 1e-3 of the
-    largest on average), and the dW pass on that plain workspace against
-    fused_igr.dw_pass_plain (bf16 products, exact sums: within 1e-5 of each
-    buffer's largest entry)."""
+    """The backward's two passes on their own: the first pass's workspace
+    against fused_igr.images_plain (bf16 images, equal but where a sum in
+    another order rounds to the neighbouring value, which later layers carry
+    on; f32 values and split images that differ by the summation order: the
+    mean difference within 1e-2 of the mean value, where a misplaced row or
+    column reads ~1; db partial sums within 1e-3 of the largest on average),
+    and the dW pass on that plain workspace against fused_igr.dw_pass_plain
+    (bf16 products, or the split-TF32 products of f32, summed in f64:
+    within 1e-5 of each buffer's largest entry)."""
     from sdf_representation_tpu_torch.ops import fused_igr as fi
 
-    _, _, (found_ws, found_partial) = fi._bwd_bf16(net, x, a, c)
+    _, _, (found_ws, found_partial) = fi._bwd_cuda(net, x, a, c)
     ws, partial = fi.images_plain(net, x, a, c)
     torch.cuda.synchronize()
     equal = (found_ws == ws).float().mean().item()
@@ -1351,45 +1364,64 @@ def check_igr(device, gen, report):
             padded = fi.fused_param_grads_plain(net, x, a, c)
             want = fi.unpack_grads(3, shapes, padded)
             if case == "8x512/n16384":
-                # one input, two launches: bf16 sums in a fixed order and must
-                # agree bit for bit; f32 adds by atomics, whose order changes
+                # one input, two launches: both types sum in a fixed order and
+                # must agree bit for bit
                 again = fi.unpack_grads(3, shapes, fi.fused_param_grads(net, x, a, c))
                 same = all(torch.equal(u, v) for u, v in zip(again, got))
                 print(f"check igr_bwd/{tag}: two launches bit-equal {same}, differ by at most "
                       f"{gradient_errors(again, got)[1]:.3e} of a tensor's largest entry", flush=True)
                 readings[f"{tag}/two_launches_bit_equal"] = same
-                if bf16 and not same:
+                if not same:
                     raise RuntimeError(f"igr_bwd/{tag}: two launches give different gradients")
-                if bf16:
-                    check_igr_passes(net, x, a, c, tag, readings)
+                check_igr_passes(net, x, a, c, tag, readings)
             if not (f.shape == (n,) and g.shape == (n, 3) and torch.isfinite(f).all()
                     and torch.isfinite(g).all() and all(torch.isfinite(t).all() for t in got)):
                 raise RuntimeError(f"igr/{tag}: non-finite or misshapen output")
-            df, dg = (f - pf).abs(), (g - pg).abs()
-            g_mean, g_worst = gradient_errors(got, want)
             max_tol = IGR_BF16_TOL if bf16 else F32_TOL
             worst_tol = IGR_RELU_BF16_GRAD_MAX_TOL if beta <= 0 else IGR_BF16_GRAD_MAX_TOL
-            flipped = (dg.amax(dim=1) > max_tol).float().mean().item()
-            readings[tag] = {"f_max": df.max().item(), "f_mean": df.mean().item(),
-                             "grad_f_max": dg.max().item(), "grad_f_mean": dg.mean().item(),
-                             "grad_f_over_max_limit": flipped, "grads_mean": g_mean, "grads_worst": g_worst}
-            print(f"check igr_fwd/{tag}: f max {df.max().item():.3e} mean {df.mean().item():.3e}, "
-                  f"grad f max {dg.max().item():.3e} mean {dg.mean().item():.3e}, over the max limit "
-                  f"at {flipped:.5f} of the points", flush=True)
-            print(f"check igr_bwd/{tag}: {len(got)} gradients, sum|diff|/sum|plain| {g_mean:.3e}, "
-                  f"worst max|diff|/max|plain| {g_worst:.3e}", flush=True)
-            ok = df.max().item() <= max_tol and (not bf16 or df.mean().item() <= IGR_BF16_F_MEAN_TOL)
-            ok = ok and dg.mean().item() <= (IGR_BF16_G_MEAN_TOL if bf16 else F32_TOL)
-            if flips:
-                ok = ok and flipped <= IGR_RELU_FLIPPED and g_mean <= IGR_RELU_GRAD_MEAN_TOL
-            elif bf16:
-                ok = ok and dg.max().item() <= max_tol
-                ok = ok and g_mean <= IGR_GRAD_MEAN_TOL and g_worst <= worst_tol
-            else:
-                ok = ok and dg.max().item() <= max_tol and g_worst <= IGR_F32_GRAD_TOL
+
+            def held(f, g, got):
+                """(within the case's limits, the readings) of one (f, grad f,
+                gradients) against the plain versions'."""
+                df, dg = (f - pf).abs(), (g - pg).abs()
+                g_mean, g_worst = gradient_errors(got, want)
+                flipped = (dg.amax(dim=1) > max_tol).float().mean().item()
+                row = {"f_max": df.max().item(), "f_mean": df.mean().item(),
+                       "grad_f_max": dg.max().item(), "grad_f_mean": dg.mean().item(),
+                       "grad_f_over_max_limit": flipped, "grads_mean": g_mean, "grads_worst": g_worst}
+                ok = df.max().item() <= max_tol and (not bf16 or df.mean().item() <= IGR_BF16_F_MEAN_TOL)
+                ok = ok and dg.mean().item() <= (IGR_BF16_G_MEAN_TOL if bf16 else F32_TOL)
+                if flips:
+                    ok = ok and flipped <= IGR_RELU_FLIPPED and g_mean <= IGR_RELU_GRAD_MEAN_TOL
+                elif bf16:
+                    ok = ok and dg.max().item() <= max_tol
+                    ok = ok and g_mean <= IGR_GRAD_MEAN_TOL and g_worst <= worst_tol
+                else:
+                    ok = ok and dg.max().item() <= max_tol and g_worst <= IGR_F32_GRAD_TOL
+                return ok, row
+
+            ok, readings[tag] = held(f, g, got)
+            row = readings[tag]
+            print(f"check igr_fwd/{tag}: f max {row['f_max']:.3e} mean {row['f_mean']:.3e}, "
+                  f"grad f max {row['grad_f_max']:.3e} mean {row['grad_f_mean']:.3e}, over the max limit "
+                  f"at {row['grad_f_over_max_limit']:.5f} of the points", flush=True)
+            print(f"check igr_bwd/{tag}: {len(got)} gradients, sum|diff|/sum|plain| {row['grads_mean']:.3e}, "
+                  f"worst max|diff|/max|plain| {row['grads_worst']:.3e}", flush=True)
             if not ok:
                 raise RuntimeError(f"igr/{tag}: kernel and plain version disagree")
-            errors["igr_fwd", case, dt] = max(df.max().item(), dg.max().item())
+            if not bf16:
+                # the split-TF32 emulation beside the kernel: three passes hold
+                # the same limits, one pass (a single TF32 pass) must fail them
+                for passes in (3, 1):
+                    ef, eg = fi.fused_value_and_grad_tf32_model(net, x, passes)
+                    eg_ = fi.unpack_grads(3, shapes, fi.fused_param_grads_tf32_model(net, x, a, c, passes))
+                    e_ok, controls[f"igr/{tag}/emulated_{passes}_pass"] = held(ef, eg, eg_)
+                    print(f"control igr/{tag}/emulated_{passes}_pass (within the limits: {e_ok}): "
+                          + json.dumps(controls[f"igr/{tag}/emulated_{passes}_pass"]), flush=True)
+                    if e_ok != (passes == 3):
+                        raise RuntimeError(f"control igr/{tag}: the {passes}-pass emulation "
+                                           + ("fails" if passes == 3 else "holds") + " the f32 limits")
+            errors["igr_fwd", case, dt] = max(row["f_max"], row["grad_f_max"])
             errors["igr_bwd", case, dt] = max((u - v).abs().max().item() for u, v in zip(got, want))
             if not bf16 or case not in ("8x512/n16384", "8x256/n5461", "8x512/n4096/relu_clear",
                                         "4x512/n4096/relu_clear"):
@@ -3361,8 +3393,17 @@ def multihost_runs(device, work, configs, igr_x2, report):
     return out
 
 
+T_START = time.perf_counter()
+
+
+def stamp(what):
+    """The seconds since the script started, before a phase: a profile of
+    the run against its time limit."""
+    print(f"[{time.perf_counter() - T_START:.1f} s] {what}", flush=True)
+
+
 def main() -> int:
-    t_start = time.perf_counter()
+    t_start = T_START
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -3394,17 +3435,19 @@ def main() -> int:
     print(f"build: {report['build_s']} s per source, {time.perf_counter() - t0:.1f} s in all "
           "(one nvcc each, started together)", flush=True)
     # fused_mlp: points, grid, blocks x widths 128-512, bf16 and f32 (split
-    # TF32); fused_igr (namespace tc): igr_fwd and igr_bwd x widths x
-    # softplus / ReLU, and igr_dw
+    # TF32); fused_igr, bf16 (namespace tc) and f32 (namespace tf32):
+    # igr_fwd and igr_bwd x widths x softplus / ReLU, and igr_dw
     report["sass"] = {**check_sass(kernels.library_path("fused_mlp"), "wgmma_", 12),
                       **check_sass(kernels.library_path("fused_mlp"), "tf32_", 12, tf32=True),
                       **check_sass(kernels.library_path("fused_igr"), r"2tc\d+igr_", 17),
+                      **check_sass(kernels.library_path("fused_igr"), r"4tf32\d+igr_", 17, tf32=True),
                       **check_sass(kernels.library_path("sdf_streams"), r"(dist|wind)_kernel", 2,
                                    tensor_cores=False)}
     report["stream_layout"] = ss.kernel_layout()
     print(f"stream kernels: {report['stream_layout']}", flush=True)
 
     # ---- 3. kernels against plain -------------------------------------------
+    stamp("phase 3: kernels against plain")
     gen = torch.Generator().manual_seed(SEED)
     model = ImplicitNet(hidden_dims=(512,) * 8, skip_in=(4,), beta=100.0, radius_init=0.5,
                         generator=gen, device=device)
@@ -3512,9 +3555,11 @@ def main() -> int:
     shard_P, shard_dist, shard_wind, shard_tables, shard_tc, shard_errors = check_sharded(
         device, stream_mesh, stream_pts, report)
     checks.update(shard_errors)
+    stamp("phase 3: igr_fwd, igr_bwd against plain")
     igr_cases, igr_errors = check_igr(device, gen, report)
 
     # ---- 4. the main path, once per route -----------------------------------
+    stamp("phase 4: the main path")
     run_root = REPO / "build" / "chip_smoke_run"
     # cubesize 256 takes the sparse evaluator (block kernel) and marches on
     # the card, 128 the dense one and marches on the host
@@ -3576,17 +3621,26 @@ def main() -> int:
 
     # ---- 4b. sample -> train -> audit -> reconstruct ---------------------------
     runs = {f"reconstruct/{n}": run["launches"] for n, run in main_path.items()}
+    stamp("phase 4b-4c: sample, train, audit, reconstruct, eikonal runs")
     runs.update(drive_pipeline(device, run_root, report))
+    stamp("phase 4d: culled exact SDF")
     runs.update(drive_culled(device, report))
+    stamp("phase 4e: sharded evaluators, data-parallel training")
     sharded_runs, shard_eval = drive_sharded(device, run_root, model, report)
     runs.update(sharded_runs)
+    stamp("phase 4f: marching, giga")
     runs.update(drive_marching(device, run_root, model, checks, report))
+    stamp("phase 4g: 2-D mode, export")
     runs.update(drive_export_two_dim(device, run_root, report))
+    stamp("phase 4h: model families")
     runs.update(drive_families(device, run_root, report))
+    stamp("phase 4i: host tools")
     runs.update(drive_host_tools(device, run_root, report))
+    stamp("phase 4j: one process per card")
     runs.update(drive_multihost(device, run_root, shard_eval["igr_x2"], report))
 
     # ---- 5. times -----------------------------------------------------------
+    stamp("phase 5: times")
     mac = sum(fi * fo for fi, fo in model.layer_shapes())
 
     def library_chain(x, dt):
@@ -3603,17 +3657,17 @@ def main() -> int:
                 if i < len(layers) - 1:
                     h = torch.nn.functional.softplus(h, beta=model.beta)
 
-    def tf32_bound(flops, t_bytes, t_ops, ctas, net):
+    def tf32_bound(flops, t_bytes, t_ops, ctas, tiles):
         """The f32 rows' bound: the split-TF32 kernels issue TF32_PASSES
         tensor-core products per multiply-add, at PEAK_TF32; beside it the
         FP32 pipes' bound (the same operations once at 67 TFLOP/s), and the
-        weight stages the launch reads from L2 (each CTA reads all of
-        FusedNet.tf32_tiles once; CTAs past a blocks launch's count read
+        weight stages the launch reads from L2 (each CTA reads all of its
+        weight image ``tiles`` once; CTAs past a blocks launch's count read
         nothing): computed from the launch, not measured."""
         t_tf32 = TF32_PASSES * flops / PEAK_TF32 * 1e3
         return {"bound_ms": max(t_bytes, t_tf32), "bound_by": "operations" if t_tf32 >= t_bytes else "bytes",
                 "bound_ms_fp32_pipes": max(t_bytes, t_ops), "ctas": ctas,
-                "l2_weight_bytes": ctas * net.tf32_tiles.numel() * 4}
+                "l2_weight_bytes": ctas * tiles.numel() * 4}
 
     grid_pts = {n: fm.grid_points(n, 0, n ** 3, device) for n in (256,)}
     kernels_line = []
@@ -3653,15 +3707,15 @@ def main() -> int:
             bytes_ = w_bytes + in_bytes + npts * 4
             flops = 2.0 * mac * npts
             t_bytes, t_ops = bytes_ / MEM_BW * 1e3, flops / PEAK[dt] * 1e3
-            ms, plain_ms = timed(run), timed(plain, 1)
-            lib_ms = timed(lambda: library_chain(x, dt), 1)
+            ms, plain_ms = timed(run), timed(plain, 1, warmup=False)
+            lib_ms = timed(lambda: library_chain(x, dt), 1, warmup=False)
             numbers = {"max_abs_err": checks[key], "mean_abs_err": means[key], "ms": ms, "plain_ms": plain_ms,
                        "bound_ms": max(t_bytes, t_ops),
                        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                        "library_ms": lib_ms, "points": npts,
                        "tflops": flops / ms / 1e9, "points_per_s": npts / ms * 1e3}
             if dt == torch.float32:
-                numbers.update(tf32_bound(flops, t_bytes, t_ops, -(-npts // fm.TILE_P), net))
+                numbers.update(tf32_bound(flops, t_bytes, t_ops, -(-npts // fm.TILE_P), net.tf32_tiles))
                 if not ms < lib_ms:
                     print(f"time {name}/{tag}: the kernel is not faster than its library chain", flush=True)
             print(f"time {name}/{tag}: " + json.dumps(numbers), flush=True)
@@ -3710,7 +3764,7 @@ def main() -> int:
         bytes_ = (stream_P.numel() * 4 + n_chunks * tri_chunk * rows * 4 + schedule_bytes
                   + (n_blocks + 1) * m_pts * out_bytes)
         t_bytes, t_ops = bytes_ / MEM_BW * 1e3, pairs * ops / PEAK[torch.float32] * 1e3
-        ms, plain_ms = timed(run), timed(plain, 1)
+        ms, plain_ms = timed(run), timed(plain, 1, warmup=False)
         by_run = {tag: counts[name] for tag, counts in runs.items() if counts[name]}
         entry = {"name": name, "route": "cuda",
                  "source": "sdf_representation_tpu_torch/csrc/sdf_streams.cu", "replaces": replaces,
@@ -3788,6 +3842,7 @@ def main() -> int:
             torch.autograd.grad((a.to(dt) * f).sum() + (c.to(dt) * g).sum(),
                                 [t for pair in params for t in pair])
 
+    stamp("phase 5: igr_fwd, igr_bwd")
     for name, replaces in (
         ("igr_fwd", "sdf_representation_tpu/ops/pallas_igr.py:209 _fused_vag_fwd"),
         ("igr_bwd", "sdf_representation_tpu/ops/pallas_igr.py:412 _fused_vag_bwd"),
@@ -3807,7 +3862,7 @@ def main() -> int:
                 # what the function must move: the weights and biases once in
                 # the working type, the inputs, the outputs. The kernel's own
                 # traffic (its workspace, written and read back, and the staged
-                # or transposed weight copies) is reported beside the bound, not in it.
+                # weight images) is reported beside the bound, not in it.
                 w_bytes = wbuf.numel() * wbuf.element_size() + bbuf.numel() * bbuf.element_size()
                 extra = {}
                 if name == "igr_fwd":
@@ -3818,6 +3873,7 @@ def main() -> int:
                     plain = lambda: fi.fused_value_and_grad_plain(net, x)
                     lib = lambda: library_vag(net_model, x, a, c, dt, False)
                     expect = {"igr_fwd_kernel": 1}
+                    ctas = -(-n // (fi.FWD_CTA_P if bf16 else fi.FWD_TILE_P))
                 else:
                     # two chains forward, two back (no W^T pass below the first
                     # layer), two into dW (~6 per layer); out: f32 dW and db
@@ -3826,12 +3882,17 @@ def main() -> int:
                     run = lambda: fi.fused_param_grads(net, x, a, c)
                     plain = lambda: fi.fused_param_grads_plain(net, x, a, c)
                     lib = lambda: library_vag(net_model, x, a, c, dt, True)
-                    # bf16: igr_bwd, then the dW pass (igr_dw) from the same call
-                    expect = {"igr_bwd_kernel": 1, "igr_dw_kernel": 1} if bf16 else {"igr_bwd_kernel": 1}
-                    if bf16:  # the dW pass alone, on this input's workspace
-                        ws, part = fi.images_plain(net, x, a, c)
-                        extra["dw_pass_ms"] = timed(lambda: fi.dw_pass(net, ws, part), 5)
-                        del ws, part
+                    # igr_bwd, then the dW pass (igr_dw) from the same call (f32:
+                    # then the sum of its parts where it cuts the rows, not an igr_* kernel)
+                    expect = {"igr_bwd_kernel": 1, "igr_dw_kernel": 1}
+                    ctas = -(-n // (fi.BWD_CTA_P if bf16 else fi.BWD_TILE_P))
+                    # the dW pass alone, on this input's workspace
+                    ws, part = fi.images_plain(net, x, a, c)
+                    extra["dw_pass_ms"] = timed(lambda: fi.dw_pass(net, ws, part), 5)
+                    extra["dw_pass_jobs"] = len(fi.dw_plan(net))
+                    if not bf16:
+                        extra["dw_pass_splits"] = fi.dw_splits(extra["dw_pass_jobs"], part.shape[0], x.device)
+                    del ws, part
                 t_bytes, t_ops = bytes_ / MEM_BW * 1e3, ops / PEAK[dt] * 1e3
                 ms = timed(run, 5)
                 workspace = fi.WORKSPACE_BYTES[name]  # what the timed calls allocated
@@ -3846,6 +3907,8 @@ def main() -> int:
                            "workspace_bytes": workspace,
                            "kernel_launches_per_call": sum(launched.values()), "kernels_per_call": launched,
                            "tflops": ops / ms / 1e9, "points_per_s": n / ms * 1e3, **extra}
+                if not bf16:  # split TF32: three TF32 products per multiply-add
+                    numbers.update(tf32_bound(ops, t_bytes, t_ops, ctas, net.igr_tf32_tiles))
                 tag = str(dt).split(".")[1]
                 print(f"time {name}/{case}/{tag}: " + json.dumps(numbers), flush=True)
                 if case == "8x512/n16384" and dt == torch.bfloat16:
@@ -3865,6 +3928,7 @@ def main() -> int:
 
     ids, count = shard_eval["ids"], shard_eval["count"]
     live = int(count)
+    stamp("phase 5: kernels 10, 11")
     for name, replaces in (
         ("sharded_grid", "sdf_representation_tpu/ops/sharded_eval.py:34 _local_sweep_pallas"),
         ("sparse_sharded_blocks", "sdf_representation_tpu/ops/sharded_eval.py:201 _sparse_sharded_device"),
@@ -3903,7 +3967,7 @@ def main() -> int:
             # a 256^3 sweep takes seconds: one timed launch per shard is enough
             reps = 1 if name == "sharded_grid" else 3
             ms_by = {k: timed(shards_run(k), reps) for k in (1, 2, 4)}
-            plain_ms, lib_ms = timed(plain, 1), timed(lambda: library_chain(x, dt), 1)
+            plain_ms, lib_ms = timed(plain, 1, warmup=False), timed(lambda: library_chain(x, dt), 1, warmup=False)
             numbers = {"max_abs_err": err, "ms": ms_by[4], "plain_ms": plain_ms,
                        "bound_ms": max(t_bytes, t_ops),
                        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -3911,7 +3975,7 @@ def main() -> int:
                        "ms_by_shards": ms_by, "tflops": flops / ms_by[4] / 1e9}
             if dt == torch.float32:
                 ctas = 4 * se.slab_tiles(256, 4, 1024) if name == "sharded_grid" else npts // fm.TILE_P
-                numbers.update(tf32_bound(flops, t_bytes, t_ops, ctas, net))
+                numbers.update(tf32_bound(flops, t_bytes, t_ops, ctas, net.tf32_tiles))
             print(f"time {name}/{tag}: " + json.dumps(numbers), flush=True)
             if dt == torch.bfloat16:
                 entry.update(numbers, dtype="bfloat16")
@@ -3921,6 +3985,7 @@ def main() -> int:
             raise RuntimeError(f"{name} was launched on no run of the main path")
         kernels_line.append(entry)
     # the whole evaluators and the data-parallel eikonal step, x1 / x2 / x4
+    stamp("phase 5: the sharded evaluators and steps")
     from sdf_representation_tpu_torch.losses.losses import IGRLOSS
     from sdf_representation_tpu_torch.training.trainer import make_train_step
 

@@ -15,7 +15,7 @@
 // What bounds them: operations. At 8x512 a point costs 2 (forward) and 4
 // plus 2 for dW (backward) hidden-layer products of 512 x 512 against a few
 // bytes of input and output: 0.12 and 0.36 ms at 989 TFLOP/s for 16,384
-// points.
+// points in bf16.
 //
 // bf16: tensor cores, on the layer routine of csrc/hopper.cuh that the
 // fused forward (csrc/fused_mlp.cu) runs: a producer warpgroup streams
@@ -69,19 +69,54 @@
 //   * Rows past the last point have zero seeds, so their cotangents are
 //     zero and they add nothing to dW or db.
 //
-// f32: the SIMT routine, a design choice for this type, not a fallback: a
-// TF32 tensor-core pass would not hold the f32 results to 2e-5 of the plain
-// version. A block owns 64 rows x up to 512 columns of f32 in shared memory,
-// updated in place; weights stream through a cp.async double buffer in
-// 16-row stages; a thread accumulates 8 rows x (4 NQ) columns with FMA.
-// Forward: 64 points. Backward: 32 points, each with its primal and its
-// tangent row, one thread owning both (rows 8w+i and 8w+i+4 of warp w). The
-// per-layer stash goes to an f32 workspace; the reverse products read a
-// transposed copy of the weights (FusedNet.transposed); dW and db are added
-// with f32 atomicAdd into zeroed accumulators, so two launches agree to
-// rounding, not bit for bit.
-//
-// Numerics kept from the JAX kernels. f32: everything f32. bf16: weights bf16;
+// f32: split-TF32 tensor-core products (csrc/hopper.cuh's tf32_layer, the
+// routine of the f32 fused forward): every product with W is issued as hi.hi
+// + hi.lo + lo.hi of split operands, summed in 32-deep tensor-core groups
+// added in f32, which holds the f32 results to 2e-5 of the plain version
+// where one TF32 pass would not. At 8x512 that is 3 x 2 and 3 x 6 passes of
+// 512 x 512 products a point: 0.73 and 2.19 ms for 16,384 points at 495
+// TF32 TFLOP/s (1.80 and 5.39 ms of f32 work on the FP32 pipes).
+//   * One 64-row tile per CTA (its f32 rows take 128 KB); the two consumer
+//     warpgroups split each layer's output columns and take their weight
+//     stages from a ring each (FusedNet.igr_tf32_tiles: the forward stages
+//     of FusedNet.tf32_tiles, then the reverse stages of layers n_lin - 2 ..
+//     1, W itself K-major over the layer's outputs, each stage's hi and lo
+//     images, K permuted within each 8 so that A comes from the threads' own
+//     accumulator values, split on the fly).
+//   * igr_fwd: 64 points per CTA. The primal sweep stashes sigma(z) as f32
+//     in device memory in each thread's own order (the slot order), so the
+//     reverse sweep's epilogue reads back, 16 bytes a load, the values it
+//     multiplies. The head's reverse step seed * w * sigma is elementwise;
+//     grad_x f is each consumer's quad sums of dz W_x^T, consumer 1's added
+//     to consumer 0's through shared memory.
+//   * igr_bwd: a tile holds 32 points, each point's primal and tangent rows
+//     eight apart in one warp (rows r0 and r0 + 8 of a thread's A fragment
+//     and accumulator), so the couplings of the two chains are
+//     register-local, as in bf16. Each layer's [act(z); tcz s] goes to the
+//     workspace in the slot order from the epilogue's registers; each
+//     layer's [dz; dtcz] is copied from shared memory to the workspace
+//     transposed, points contiguous, split into hi and lo images (the dW
+//     pass's B operand, which TF32 wgmma takes K-major only); db is summed
+//     per warp over its 8 points in a fixed order.
+//   * dW without atomics (igr_dw, launched by the same C function): a CTA
+//     owns a 128 x 128 tile of one dW or dW_x matrix (FusedNet's f32 plan,
+//     fused_igr.py _dw_jobs_f32) and loops over the workspace tiles in
+//     order: a producer brings each tile's [h; tc] blocks and [dz; dtcz]
+//     images by bulk copy, consumer c takes rows 64 c .. 64 c + 63 of the
+//     tile with A from registers (split there), 32 workspace rows at a time
+//     summed on the tensor cores and added in f32. Where the plan has fewer
+//     jobs than the card has SMs, each job's rows are cut into `splits`
+//     parts whose tiles a last kernel sums in order. The last CTAs sum db
+//     over the tiles and warps in order. Two launches give the same dW and
+//     db bit for bit.
+//   * The workspace at 8x512, N = 16,384: 0.54 GB of [h; tc], 1.07 GB of
+//     [dz; dtcz] images (fused_igr.py _workspace_sets_f32).
+
+// Numerics kept from the JAX kernels. f32: everything f32, the products of
+// hidden activations and cotangents with W and of the dW sums as three TF32
+// products of split operands (fused_igr.py fused_value_and_grad_tf32_model
+// and fused_param_grads_tf32_model emulate them), sigma(z) on the
+// approximate ex2/rcp. bf16: weights bf16;
 // x and c are rounded on load; the stashed sigma'(z), act(z) and tcz*s are
 // rounded; every cotangent is rounded before a product with W^T or into dW;
 // the tanh head's stashed (z, Tcz) is rounded; accumulators, biases, a, the
@@ -128,567 +163,726 @@ cudaError_t launch(K kernel, long long ctas, int threads, size_t smem, cudaStrea
   return cudaGetLastError();
 }
 
-// =============================================================================
-// f32: the SIMT routine
-// =============================================================================
-
-namespace simt {
-
-constexpr int kRows = 64;      // tile rows per block
-constexpr int kBwdPts = 32;    // points per block in the backward (two rows each)
-constexpr int kThreads = 256;  // 8 warps; warp w owns rows 8w .. 8w+7
-constexpr int kPts = 8;        // rows per thread
-constexpr int kKT = 16;        // weight rows per shared-memory stage
-constexpr int kHMax = 512;     // widest padded layer the tile holds
-constexpr int kChunk = 64;     // dW rows per pass of dw_product
-constexpr float kInvSqrt2 = 0.70710678118654752440f;
-
-// wt_off[l]: element offset of layer l's transposed hidden-input matrix
-// (n x k) in the transposed buffer, -1 where the layer has none.
-
-__host__ __device__ constexpr size_t smem_floats() {
-  return size_t(kRows) * kHMax + kRows * 4 + kRows * 2;  // H, coords, seeds
-}
-constexpr size_t kSmem = smem_floats() * sizeof(float) + 2 * size_t(kKT) * kHMax * sizeof(float);
-static_assert(2 * size_t(kKT) * kHMax >= 2 * size_t(kRows) * kChunk,
-              "the weight stages also hold dw_product's two stash chunks");
-static_assert(kHMax == hopper::kHMax, "both routines take the same widths");
-
-__device__ __forceinline__ void load4(const float* p, float* w) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// act(z): softplus(beta z)/beta, or ReLU for beta <= 0
-__device__ __forceinline__ float act(float z, float beta) {
-  if (beta > 0.f) {
-    const float t = beta * z;
-    return (fmaxf(t, 0.f) + log1pf(expf(-fabsf(t)))) / beta;
-  }
-  return fmaxf(z, 0.f);
-}
-// act'(z): sigmoid(beta z), or the step for beta <= 0
-__device__ __forceinline__ float sigma(float z, float beta) {
-  if (beta > 0.f) return 1.f / (1.f + expf(-beta * z));
-  return z > 0.f ? 1.f : 0.f;
-}
-
-template <int NQ>
-__device__ __forceinline__ void zero(float (&acc)[kPts][4 * NQ]) {
-#pragma unroll
-  for (int i = 0; i < kPts; ++i)
-#pragma unroll
-    for (int j = 0; j < 4 * NQ; ++j) acc[i][j] = 0.f;
-}
-
-// acc[i][.] += sum_r xs[row i][r] * Wx[r][.]: the coordinate rows of a first
-// or skip layer. Lane owns columns 128 q + 4 lane + c.
-template <int NQ>
-__device__ __forceinline__ void coord_rows(float (&acc)[kPts][4 * NQ], const float* xs,
-                                           const float* __restrict__ Wx, int d_in) {
-  constexpr int n = 128 * NQ;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = 0; r < d_in; ++r) {
-    float w[4 * NQ];
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) load4(Wx + r * n + 128 * q + 4 * lane, &w[4 * q]);
-#pragma unroll
-    for (int i = 0; i < kPts; ++i) {
-      const float a = xs[(warp * kPts + i) * 4 + r];
-#pragma unroll
-      for (int j = 0; j < 4 * NQ; ++j) acc[i][j] = fmaf(a, w[j], acc[i][j]);
-    }
+// the kernel of a padded hidden width (NQ = width / 128) and activation
+template <class F>
+cudaError_t by_width(int width, float beta, F f) {
+  const bool sp = beta > 0.f;
+  switch (width) {
+    case 128: return sp ? f(std::integral_constant<int, 1>{}, std::true_type{}) : f(std::integral_constant<int, 1>{}, std::false_type{});
+    case 256: return sp ? f(std::integral_constant<int, 2>{}, std::true_type{}) : f(std::integral_constant<int, 2>{}, std::false_type{});
+    case 384: return sp ? f(std::integral_constant<int, 3>{}, std::true_type{}) : f(std::integral_constant<int, 3>{}, std::false_type{});
+    case 512: return sp ? f(std::integral_constant<int, 4>{}, std::true_type{}) : f(std::integral_constant<int, 4>{}, std::false_type{});
+    default: return cudaErrorInvalidValue;
   }
 }
 
-// acc += H (64 x k, shared) @ W (k x n, device memory, row-major, n = 128 NQ),
-// W streamed kKT rows at a time through the double buffer Ws. Returns after a
-// barrier: every warp is done reading H.
-template <int NQ>
-__device__ __forceinline__ void tile_gemm(float (&acc)[kPts][4 * NQ], const float* H,
-                                          const float* __restrict__ W, int k, float* Ws) {
-  constexpr int n = 128 * NQ;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nk = k / kKT;
-  constexpr int stage_bytes = kKT * n * static_cast<int>(sizeof(float));
-  const char* src = reinterpret_cast<const char*>(W);
-  auto stage = [&](int t) {
-    char* dst = reinterpret_cast<char*>(Ws + (t & 1) * kKT * kHMax);
-    const char* s = src + static_cast<long long>(t) * stage_bytes;
-    for (int off = tid * 16; off < stage_bytes; off += kThreads * 16) cp_async16(dst + off, s + off);
-    cp_async_commit();
+// =============================================================================
+// f32: the split-TF32 routines
+// =============================================================================
+
+namespace tf32 {
+
+using namespace hopper;
+
+constexpr int kThreads = 3 * kWgThreads;  // producer + two consumers
+constexpr int kFwdPts = kRows;            // igr_fwd: 64 points per CTA, a row each
+constexpr int kBwdPts = kRows / 2;        // igr_bwd: 32 points per CTA, a primal and a tangent row each
+constexpr int kStages = 3;                // weight stages in each consumer's ring
+constexpr int kSumK = 32;                 // K per tensor-core group sum
+constexpr int kPasses = 3;                // hi.hi + hi.lo + lo.hi
+// setmaxnreg: 168 registers a thread at launch (384 threads); the
+// producers' warpgroup hands 128 of its 168 to the consumers
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+static_assert(kWgThreads * (168 - kProducerRegs) >= 2 * kWgThreads * (kConsumerRegs - 168), "registers");
+using Ring = StageRing<kStages, kTf32StageBytes>;
+using Layer = LayerArgsT<float>;
+
+// Shared memory of igr_fwd and igr_bwd (from a 1024-byte aligned base):
+//   H4     the tile's 64 rows of f32 in hopper.cuh's slot order (128 KB)
+//   rings  one ring per consumer of kStages stages from FusedNet.igr_tf32_tiles
+//   xs     64 x 4 f32: a row's coordinates (igr_bwd: x for a primal row, c
+//          for a tangent row); at the end of igr_fwd consumer 1's grad_x f
+//   seeds  the head's cotangent seed of each row
+//   full, empty  the rings' mbarriers
+constexpr size_t kOffRing = kTf32HBytes;
+constexpr size_t kOffX = kOffRing + 2 * size_t(kStages) * kTf32StageBytes;
+constexpr size_t kOffSeed = kOffX + size_t(kRows) * 4 * sizeof(float);
+constexpr size_t kOffBar = kOffSeed + size_t(kRows) * sizeof(float);
+constexpr size_t kSmem = kOffBar + 4 * kStages * sizeof(uint64_t) + 1024;  // + alignment slack
+static_assert(kSmem <= 232448, "shared memory of a block");
+
+// The f32 backward's workspace, per 64-row tile T (fused_igr.py
+// _workspace_sets_f32 computes the same): sets in this order, each (tiles x
+// its floats per tile):
+//   stash l   [act(z); tcz s] of hidden layer l (l < n_lin - 1), 64 x h_pad
+//             in the slot order: the dW pass's A operand, and what the
+//             reverse sweep couples with
+//   coords    [x; c], 64 x 64 in the slot order (columns 0 .. 3 live)
+//   cot l     [dz; dtcz] of layer l (l < n_lin), the dW pass's B operand:
+//             per 128 columns, per K block of 32 rows, the hi then the lo
+//             image of 128 rows (the columns) x 32 K in the 128-byte
+//             swizzle. K slot 8 u + j of K block kb is point 16 kb + 4 u +
+//             j % 4 of the tile, its primal row for j < 4, its tangent row
+//             otherwise: the rows the dW pass's A fragments take for K step
+//             4 kb + u.
+struct Sets {
+  long long tiles;
+  int h_pad, n_lin;
+  __device__ __forceinline__ long long stash_floats() const { return 64LL * h_pad; }
+  __device__ __forceinline__ float* stash(float* ws, int l, long long T) const {
+    return ws + (l * tiles + T) * stash_floats();
+  }
+  __device__ __forceinline__ float* coords(float* ws, long long T) const {
+    return ws + (n_lin - 1) * tiles * stash_floats() + T * 4096;
+  }
+  // the hidden layers' images (128 h_pad floats a tile), then the last layer's (128 x 128)
+  __device__ __forceinline__ float* cot(float* ws, int l, long long T) const {
+    const long long base = (n_lin - 1) * tiles * stash_floats() + tiles * 4096;
+    return ws + base + l * tiles * 128LL * h_pad + T * (l < n_lin - 1 ? 128LL * h_pad : 128LL * 128);
+  }
+};
+
+// the CTA's two rings: warp r of the producer warpgroup feeds ring r,
+// consumer r takes it
+__device__ __forceinline__ Ring setup_rings(uint8_t* smem) {
+  const int wg = threadIdx.x / kWgThreads, lt = threadIdx.x % kWgThreads;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kOffBar);
+  const int r = wg > 0 ? wg - 1 : (lt >> 5) & 1;
+  auto ring_of = [&](int i, bool init) {
+    return ring_init<Ring>(smem + kOffRing + size_t(i) * kStages * kTf32StageBytes, bars + 2 * kStages * i, 1,
+                           init);
   };
-  stage(0);
-  for (int t = 0; t < nk; ++t) {
-    if (t + 1 < nk) {
-      stage(t + 1);  // its buffer was last read in step t-1, before the barrier
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* ws = Ws + (t & 1) * kKT * kHMax + 4 * lane;
-    const float* hrow = H + (warp * kPts) * kHMax + t * kKT;
+  if (threadIdx.x == 0) {
+    ring_of(0, true);
+    ring_of(1, true);
+  }
+  Ring ring = ring_of(r, false);
+  __syncthreads();  // barriers and coordinates ready
+  return ring;
+}
+
+// the producer warpgroup: lane 0 of warp r sends consumer r its stages of
+// FusedNet.igr_tf32_tiles in the order both kernels take them: the forward
+// products of layers 1 .. n_lin - 1 (the last one, one output, to ring 0
+// only, and only where the kernel multiplies by it: `head`), then the
+// reverse products of layers n_lin - 2 .. 1; per layer the chunks in order,
+// so consumer r's NQ chunks are one run of stages
+template <int NQ>
+__device__ __forceinline__ void produce_warpgroup(const long long* desc, int n_lin, Ring& ring,
+                                                  const uint8_t* tiles, bool head) {
+  regs_decrease<kProducerRegs>();
+  const int lt = threadIdx.x;
+  if ((lt & 31) != 0 || lt >= 64) return;
+  const int r = lt >> 5;
+  const uint8_t* src = tiles;
+  auto layer = [&](int kbs) {
+    produce(ring, src + size_t(r) * NQ * kbs * kTf32StageBytes, kTf32StageBytes, NQ * kbs);
+    src += size_t(2) * NQ * kbs * kTf32StageBytes;
+  };
+  for (int l = 1; l < n_lin - 1; ++l) layer(static_cast<int>(desc[kDesc * l]) / kTf32KBlock);
+  const int last = static_cast<int>(desc[kDesc * (n_lin - 1)]) / kTf32KBlock;
+  if (r == 0 && head) produce(ring, src, 2 * kTf32LastImage, last);
+  src += size_t(2) * kTf32LastImage * last;
+  for (int l = n_lin - 2; l >= 1; --l) layer(static_cast<int>(desc[kDesc * l + 1]) / kTf32KBlock);
+}
+
+// act(z) (hopper::activate_f32) and act'(z): sigmoid(beta z) from the
+// softplus's own e = exp(-|beta z|), (z >= 0 ? 1 : e) / (1 + e) on the
+// approximate reciprocal (relative error ~1e-7, no division); or the step
+template <bool kSoftplus>
+__device__ __forceinline__ void activate(float z, float beta, float rb, float& act, float& grad) {
+  act = activate_f32<kSoftplus>(z, beta, rb);
+  if constexpr (kSoftplus) {
+    const float t = __fmul_rn(beta, z);
+    const float e = expf(-fabsf(t));
+    grad = __fmul_rn(t >= 0.f ? 1.f : e, rcp_ftz(__fadd_rn(1.f, e)));
+  } else {
+    grad = z > 0.f ? 1.f : 0.f;
+  }
+}
+
+// s = 1 - exp(-beta h) (the step of h for ReLU); dz = dh s + (dtc tc) beta
+// (1 - s), dtcz = dtc s: one reverse step's coupling of the two chains, in
+// the plain version's f32 arithmetic
+template <bool kSoftplus>
+__device__ __forceinline__ void couple(float dh, float dtc, float hp, float tcp, float beta, float& dz, float& dt) {
+  if constexpr (kSoftplus) {
+    const float s = __fsub_rn(1.f, expf(-__fmul_rn(beta, hp)));
+    dz = __fadd_rn(__fmul_rn(dh, s), __fmul_rn(__fmul_rn(dtc, tcp), __fmul_rn(beta, __fsub_rn(1.f, s))));
+    dt = __fmul_rn(dtc, s);
+  } else {
+    const float s = hp > 0.f ? 1.f : 0.f;
+    dz = __fmul_rn(dh, s);
+    dt = __fmul_rn(dtc, s);
+  }
+}
+
+// dx += (dz W_x^T) * scale for a layer with coordinate inputs, whose
+// cotangents dz are in H: the thread's share over its consumer's columns
+// (NQ chunks from its slot) for rows r0 and r0 + 8, summed over the quad
+// (every lane of the quad then holds the rows' dx). Run after the layer,
+// outside the products, so that no partial sums stay live across them.
+template <int NQ>
+__device__ __forceinline__ void dx_add(float (&dx)[2][4], const float4* H4, const Layer& L, int c, int lt) {
+  float dxp[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll 1
+  for (int j = 0; j < NQ; ++j) {
 #pragma unroll
-    for (int kk = 0; kk < kKT; kk += 4) {
-      float4 a4[kPts];
+    for (int jj = 0; jj < kChunkN / 8; ++jj) {
+      const int g = 8 * (c * NQ + j) + jj, col = 8 * g + 2 * (lt & 3);
+      const float4 d = H4[g * kWgThreads + lt];  // (r0, col), (r0 + 8, col), (r0, col + 1), (r0 + 8, col + 1)
 #pragma unroll
-      for (int i = 0; i < kPts; ++i) a4[i] = *reinterpret_cast<const float4*>(hrow + i * kHMax + kk);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        float w[4 * NQ];
-#pragma unroll
-        for (int q = 0; q < NQ; ++q) load4(ws + (kk + u) * n + 128 * q, &w[4 * q]);
-#pragma unroll
-        for (int i = 0; i < kPts; ++i) {
-          const float a = u == 0 ? a4[i].x : u == 1 ? a4[i].y : u == 2 ? a4[i].z : a4[i].w;
-#pragma unroll
-          for (int j = 0; j < 4 * NQ; ++j) acc[i][j] = fmaf(a, w[j], acc[i][j]);
+      for (int r = 0; r < 4; ++r) {
+        if (r < L.d_in) {
+          const float2 w = load_pair(L.wx + r * L.n + col);
+          dxp[0][r] = __fmaf_rn(d.z, w.y, __fmaf_rn(d.x, w.x, dxp[0][r]));
+          dxp[1][r] = __fmaf_rn(d.w, w.y, __fmaf_rn(d.y, w.x, dxp[1][r]));
         }
       }
     }
-    __syncthreads();  // every warp is done with H and with this buffer
   }
-}
-
-// dx[i][r] += scale * sum_n H[row i][n] * Wx[r][n]  (the cotangent's product
-// with the coordinate rows, transposed); every lane ends with the full sums.
-template <int NQ>
-__device__ __forceinline__ void coord_back(float (&dx)[kPts][4], const float* H,
-                                           const float* __restrict__ Wx, int d_in, float scale) {
-  constexpr int n = 128 * NQ;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = 0; r < d_in; ++r) {
-    float w[4 * NQ];
+  const float scale = L.skip ? kInvSqrt2 : 1.f;
 #pragma unroll
-    for (int q = 0; q < NQ; ++q) load4(Wx + r * n + 128 * q + 4 * lane, &w[4 * q]);
+  for (int h = 0; h < 2; ++h)
 #pragma unroll
-    for (int i = 0; i < kPts; ++i) {
-      const float* hrow = H + (warp * kPts + i) * kHMax + 4 * lane;
-      float s = 0.f;
-#pragma unroll
-      for (int q = 0; q < NQ; ++q) {
-        const float4 h = *reinterpret_cast<const float4*>(hrow + 128 * q);
-        s = fmaf(h.x, w[4 * q], s);
-        s = fmaf(h.y, w[4 * q + 1], s);
-        s = fmaf(h.z, w[4 * q + 2], s);
-        s = fmaf(h.w, w[4 * q + 3], s);
-      }
-      dx[i][r] += scale * warp_sum(s);
+    for (int r = 0; r < 4; ++r) {
+      float v = dxp[h][r];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      dx[h][r] = __fadd_rn(dx[h][r], __fmul_rn(v, scale));
     }
-  }
 }
 
-// The last layer's live column as f32 in wv[0 .. k).
-__device__ __forceinline__ void load_head(float* wv, const float* __restrict__ Wl, int k) {
-  for (int j = threadIdx.x; j < k; j += kThreads) wv[j] = Wl[static_cast<long long>(j) * 128];
-}
+// ---- igr_fwd: f and grad_x f ---------------------------------------------------
 
-__device__ __forceinline__ float row_dot(const float* hrow, const float* wv, int k) {
-  float s = 0.f;
-  for (int j = threadIdx.x & 31; j < k; j += 32) s = fmaf(hrow[j], wv[j], s);
-  return warp_sum(s);
-}
-
-// ---- forward: f and grad_x f ---------------------------------------------------
-
-template <int NQ>
+// stash: (n_lin - 1) hidden layers x CTAs x (h_pad / 8) groups x 128 slots
+// of float4: sigma(z) of each layer in the slot order, each thread's own
+template <int NQ, bool kSoftplus>
 __global__ void __launch_bounds__(kThreads, 1)
-igr_fwd_kernel(const float* __restrict__ x, long long n_pts, int d_in,
-               const long long* __restrict__ desc, const long long* __restrict__ wt_off, int n_lin,
-               float beta, const float* __restrict__ W, const float* __restrict__ Wt,
-               const float* __restrict__ B, float* __restrict__ stash, long long stash_rows,
-               float* __restrict__ f_out, float* __restrict__ g_out) {
-  constexpr int n = 128 * NQ;
-  extern __shared__ float4 smem4[];
-  float* H = reinterpret_cast<float*>(smem4);
-  float* xs = H + kRows * kHMax;
-  float* Ws = H + smem_floats();
-  float* wv = Ws;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long row0 = static_cast<long long>(blockIdx.x) * kRows;
-  const long long layer_stride = stash_rows * n;
-
-  for (int e = tid; e < kRows * 4; e += kThreads) {
+igr_fwd_kernel(const float* __restrict__ x, long long n_pts, int d_in, const long long* __restrict__ desc,
+               int n_lin, float beta, const float* __restrict__ W, const float* __restrict__ B,
+               const uint8_t* __restrict__ tiles, float4* stash, float* __restrict__ f_out,
+               float* __restrict__ g_out) {
+  constexpr int kGroups = 16 * NQ;  // 8-column groups of a hidden layer
+  extern __shared__ uint8_t igr_smem_raw[];
+  uint8_t* smem = aligned_smem(igr_smem_raw);
+  float* xs = reinterpret_cast<float*>(smem + kOffX);
+  const long long p0 = static_cast<long long>(blockIdx.x) * kFwdPts;
+  for (int e = threadIdx.x; e < kFwdPts * 4; e += kThreads) {
     const int p = e >> 2, r = e & 3;
     float v = 0.f;
-    if (r < d_in && row0 + p < n_pts) v = x[(row0 + p) * d_in + r];
+    if (r < d_in && p0 + p < n_pts) v = x[(p0 + p) * d_in + r];
     xs[e] = v;
   }
-  __syncthreads();
+  Ring ring = setup_rings(smem);
+  if (threadIdx.x < kWgThreads) {
+    produce_warpgroup<NQ>(desc, n_lin, ring, tiles, true);
+    return;
+  }
+  regs_increase<kConsumerRegs>();
+  const int c = threadIdx.x / kWgThreads - 1, lt = threadIdx.x % kWgThreads;
+  const int lane = lt & 31, q = lane & 3;
+  const int r0 = 16 * (lt >> 5) + (lane >> 2);
+  float4* H4 = reinterpret_cast<float4*>(smem);
+  float* seeds = reinterpret_cast<float*>(smem + kOffSeed);
+  float xy[2][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) xy[h][r] = xs[(r0 + 8 * h) * 4 + r];
+  const float rb = beta > 0.f ? __frcp_rn(beta) : 0.f;
+  // sigma(z) of hidden layer l: the tile's groups, the thread's slot
+  auto stash_of = [&](int l) {
+    return stash + (static_cast<long long>(l) * gridDim.x + blockIdx.x) * kGroups * kWgThreads + lt;
+  };
 
-  float acc[kPts][4 * NQ];
-  // primal forward over the hidden layers, stashing sigma'(z)
+  // primal forward over the hidden layers, stashing sigma(z)
   for (int l = 0; l < n_lin - 1; ++l) {
-    const long long* d = desc + kDesc * l;
-    zero<NQ>(acc);
-    if (d[5] >= 0) coord_rows<NQ>(acc, xs, W + d[5], d_in);
-    if (d[0] > 0) tile_gemm<NQ>(acc, H, W + d[4], static_cast<int>(d[0]), Ws);
-    const float scale = d[2] != 0 ? kInvSqrt2 : 1.f;
-    float* S = stash + l * layer_stride;
+    const Layer L = layer_args(desc, l, d_in, beta, rb, W, B);
+    float4* S = stash_of(l);
+    tf32_layer<NQ, kSumK, kPasses>(H4, L.k / kTf32KBlock, ring, c, lt, [&](int ch, float (&acc)[kAcc]) {
 #pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      const int o = 128 * q + 4 * lane;
-      const float4 bias = *reinterpret_cast<const float4*>(B + d[3] + o);
-      const float bv[4] = {bias.x, bias.y, bias.z, bias.w};
+      for (int j = 0; j < kChunkN / 8; ++j) {
+        float v[2][2] = {{acc[4 * j], acc[4 * j + 1]}, {acc[4 * j + 2], acc[4 * j + 3]}};
+        column_pair(L, kChunkN * ch + 8 * j + 2 * q, xy, v);
+        float sg[2][2];
 #pragma unroll
-      for (int i = 0; i < kPts; ++i) {
-        const int p = warp * kPts + i;
-        float s[4], h[4];
+        for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float z = acc[i][4 * q + c] * scale + bv[c];
-          s[c] = sigma(z, beta);
-          h[c] = act(z, beta);
-        }
-        *reinterpret_cast<float4*>(S + (row0 + p) * n + o) = make_float4(s[0], s[1], s[2], s[3]);
-        *reinterpret_cast<float4*>(H + p * kHMax + o) = make_float4(h[0], h[1], h[2], h[3]);
+          for (int e = 0; e < 2; ++e) activate<kSoftplus>(v[h][e], beta, rb, acc[4 * j + 2 * h + e], sg[h][e]);
+        S[(8 * ch + j) * kWgThreads] = make_float4(sg[0][0], sg[1][0], sg[0][1], sg[1][1]);
       }
-    }
-    __syncthreads();
+    });
   }
 
-  // head: z = h . w + b; f = z or tanh z; the cotangent seed; then the last
-  // layer's reverse step, dz = (seed * w) * sigma'(z of the last hidden layer)
-  const long long* dl = desc + kDesc * (n_lin - 1);
-  const int hk = static_cast<int>(dl[0]);
-  load_head(wv, W + dl[4], hk);
-  __syncthreads();
+  // head (consumer 0; one output, no coordinate input, no skip): z = h . w
+  // + b, column 0 of an m64n8k8 product; f = z or tanh z; the seed of the
+  // reverse sweep, 1 or 1 - f^2, per row in shared memory
+  if (c == 0) {
+    const Layer Lh = layer_args(desc, n_lin - 1, d_in, beta, rb, W, B);
+    float acc4[4];
+    tf32_stream<kSumK, kPasses>(acc4, H4, Lh.k / kTf32KBlock, ring, lt, kTf32LastImage);
+    if (q == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float z = __fadd_rn(acc4[2 * h], __ldg(Lh.bias));
+        const float f = kSoftplus ? z : tanhf(z);
+        const long long p = p0 + r0 + 8 * h;
+        if (p < n_pts) f_out[p] = f;
+        seeds[r0 + 8 * h] = kSoftplus ? 1.f : __fsub_rn(1.f, __fmul_rn(f, f));
+      }
+    }
+  }
+  named_barrier(1, 2 * kWgThreads);  // the head's products have read H; the seeds are in place
+
+  // the head's reverse step, elementwise into H in place of the last hidden
+  // layer's activations: dz = (seed * w) * sigma(z); each thread rewrites
+  // only its own values
+  float dx[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
   {
-    const float* S = stash + (n_lin - 2) * layer_stride;
-    const float bl = B[dl[3]];
-    for (int i = 0; i < kPts; ++i) {
-      const int p = warp * kPts + i;
-      float* hrow = H + p * kHMax;
-      const float z = row_dot(hrow, wv, hk) + bl;
-      float f = z, seed = 1.f;
-      if (!(beta > 0.f)) {
-        f = tanhf(z);
-        seed = 1.f - f * f;
+    const Layer Lp = layer_args(desc, n_lin - 2, d_in, beta, rb, W, B);
+    const float* wl = W + desc[kDesc * (n_lin - 1) + 4];  // k x 128, column 0 live
+    const float sd[2] = {seeds[r0], seeds[r0 + 8]};
+#pragma unroll 1
+    for (int j = 0; j < NQ; ++j) {
+      const int ch = c * NQ + j;
+#pragma unroll
+      for (int jj = 0; jj < kChunkN / 8; ++jj) {
+        const int col = kChunkN * ch + 8 * jj + 2 * q;
+        const float w0 = wl[col * 128], w1 = wl[(col + 1) * 128];
+        const float4 s = stash_of(n_lin - 2)[(8 * ch + jj) * kWgThreads];
+        const float d00 = __fmul_rn(__fmul_rn(sd[0], w0), s.x), d10 = __fmul_rn(__fmul_rn(sd[1], w0), s.y);
+        const float d01 = __fmul_rn(__fmul_rn(sd[0], w1), s.z), d11 = __fmul_rn(__fmul_rn(sd[1], w1), s.w);
+        H4[(8 * ch + jj) * kWgThreads + lt] = make_float4(d00, d10, d01, d11);
       }
-      if (lane == 0 && row0 + p < n_pts) f_out[row0 + p] = f;
-      const float* srow = S + (row0 + p) * n;
-      // each lane rewrites only the columns it read in row_dot
-      for (int j = lane; j < hk; j += 32) hrow[j] = seed * wv[j] * srow[j];
     }
+    if (Lp.wx != nullptr) dx_add<NQ>(dx, H4, Lp, c, lt);
+    named_barrier(1, 2 * kWgThreads);  // the cotangents are in H for both consumers
   }
-  __syncthreads();
 
-  // reverse sweep: H holds the cotangent dz of layer l's output
-  float dx[kPts][4];
-#pragma unroll
-  for (int i = 0; i < kPts; ++i)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) dx[i][r] = 0.f;
+  // reverse sweep: H holds dz of layer l; dz of layer l - 1 = (dz W_l^T) *
+  // scale * sigma(z of layer l - 1); dx += (dz W_x^T) * scale where layer
+  // l - 1 has coordinate inputs
   for (int l = n_lin - 2; l >= 1; --l) {
     const long long* d = desc + kDesc * l;
     const float scale = d[2] != 0 ? kInvSqrt2 : 1.f;
-    if (d[5] >= 0) coord_back<NQ>(dx, H, W + d[5], d_in, scale);
-    zero<NQ>(acc);
-    tile_gemm<NQ>(acc, H, Wt + wt_off[l], n, Ws);
-    const float* S = stash + (l - 1) * layer_stride;
+    const Layer Lp = layer_args(desc, l - 1, d_in, beta, rb, W, B);
+    const float4* S = stash_of(l - 1);
+    if (lt == 0) prefetch_l2(S + 8 * NQ * c * kWgThreads, 8 * NQ * kWgThreads * sizeof(float4));
+    tf32_layer<NQ, kSumK, kPasses>(H4, static_cast<int>(d[1]) / kTf32KBlock, ring, c, lt,
+                                   [&](int ch, float (&acc)[kAcc]) {
 #pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      const int o = 128 * q + 4 * lane;
-#pragma unroll
-      for (int i = 0; i < kPts; ++i) {
-        const int p = warp * kPts + i;
-        const float4 s = *reinterpret_cast<const float4*>(S + (row0 + p) * n + o);
-        *reinterpret_cast<float4*>(H + p * kHMax + o) = make_float4(
-            acc[i][4 * q] * scale * s.x, acc[i][4 * q + 1] * scale * s.y,
-            acc[i][4 * q + 2] * scale * s.z, acc[i][4 * q + 3] * scale * s.w);
+      for (int jj = 0; jj < kChunkN / 8; ++jj) {
+        const float4 s = S[(8 * ch + jj) * kWgThreads];
+        const float d00 = __fmul_rn(__fmul_rn(acc[4 * jj], scale), s.x);
+        const float d01 = __fmul_rn(__fmul_rn(acc[4 * jj + 1], scale), s.z);
+        const float d10 = __fmul_rn(__fmul_rn(acc[4 * jj + 2], scale), s.y);
+        const float d11 = __fmul_rn(__fmul_rn(acc[4 * jj + 3], scale), s.w);
+        acc[4 * jj] = d00;
+        acc[4 * jj + 1] = d01;
+        acc[4 * jj + 2] = d10;
+        acc[4 * jj + 3] = d11;
       }
-    }
-    __syncthreads();
+    });
+    if (Lp.wx != nullptr) dx_add<NQ>(dx, H4, Lp, c, lt);
   }
-  coord_back<NQ>(dx, H, W + desc[5], d_in, 1.f);
-  if (lane == 0) {
+
+  // grad_x f: consumer 1's share of each row through shared memory (xs is
+  // free: the coordinates are in registers), added to consumer 0's
+  if (c == 1 && q == 0) {
 #pragma unroll
-    for (int i = 0; i < kPts; ++i) {
-      const long long p = row0 + warp * kPts + i;
-      if (p < n_pts)
-        for (int r = 0; r < d_in; ++r) g_out[p * d_in + r] = dx[i][r];
-    }
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) xs[(r0 + 8 * h) * 4 + r] = dx[h][r];
   }
-}
-
-// ---- backward: parameter gradients -----------------------------------------------
-
-// gW[k][.] += scale * sum_r A[r][k] * H[r][.] over the tile's 64 rows: A is
-// the stash of the layer below (device memory, row stride n), H the
-// cotangents in shared memory. kChunk rows of dW at a time: thread rows are
-// k = kc*64 + 8 warp + i, columns as everywhere. The stash chunk (64 x 64
-// f32) is staged through the weight buffers.
-template <int NQ>
-__device__ __forceinline__ void dw_product(const float* A, const float* H,
-                                           float* __restrict__ gW, float scale, float* As) {
-  constexpr int n = 128 * NQ;
-  constexpr int n_chunks = n / kChunk;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  auto stage = [&](int kc) {
-    float* dst = As + (kc & 1) * kRows * kChunk;
-    for (int e = tid; e < kRows * (kChunk / 4); e += kThreads) {
-      const int r = e / (kChunk / 4), seg = e % (kChunk / 4);
-      cp_async16(dst + r * kChunk + 4 * seg, A + static_cast<long long>(r) * n + kc * kChunk + 4 * seg);
+  named_barrier(1, 2 * kWgThreads);
+  if (c == 0 && q == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long p = p0 + r0 + 8 * h;
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        if (r < d_in && p < n_pts) g_out[p * d_in + r] = __fadd_rn(dx[h][r], xs[(r0 + 8 * h) * 4 + r]);
     }
-    cp_async_commit();
-  };
-  stage(0);
-  for (int kc = 0; kc < n_chunks; ++kc) {
-    if (kc + 1 < n_chunks) {
-      stage(kc + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    float acc[kPts][4 * NQ];
-    zero<NQ>(acc);
-    const float* as = As + (kc & 1) * kRows * kChunk + warp * kPts;
-    const float* hcol = H + 4 * lane;
-#pragma unroll 2
-    for (int r = 0; r < kRows; ++r) {
-      const float4 a0 = *reinterpret_cast<const float4*>(as + r * kChunk);
-      const float4 a1 = *reinterpret_cast<const float4*>(as + r * kChunk + 4);
-      const float a[kPts] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      float b[4 * NQ];
-#pragma unroll
-      for (int q = 0; q < NQ; ++q) {
-        const float4 v = *reinterpret_cast<const float4*>(hcol + r * kHMax + 128 * q);
-        b[4 * q] = v.x; b[4 * q + 1] = v.y; b[4 * q + 2] = v.z; b[4 * q + 3] = v.w;
-      }
-#pragma unroll
-      for (int i = 0; i < kPts; ++i)
-#pragma unroll
-        for (int j = 0; j < 4 * NQ; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < kPts; ++i) {
-      float* dst = gW + static_cast<long long>(kc * kChunk + warp * kPts + i) * n + 4 * lane;
-#pragma unroll
-      for (int q = 0; q < NQ; ++q)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) atomicAdd(dst + 128 * q + c, acc[i][4 * q + c] * scale);
-    }
-    __syncthreads();  // this buffer is restaged two chunks on
   }
 }
 
-// gWx[r][.] += scale * sum_rows xs[row][r] * H[row][.]  (d_in x n)
-__device__ __forceinline__ void dwx_product(const float* xs, const float* H, float* __restrict__ gWx,
-                                            int d_in, int n, float scale) {
-  for (int col = threadIdx.x; col < n; col += kThreads) {
-    float s[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int r = 0; r < kRows; ++r) {
-      const float h = H[r * kHMax + col];
+// ---- igr_bwd: both chains, their reverse sweep, the workspace for dW ------------
+
+// The image of [dz; dtcz] of a layer (n_cols columns) for the dW pass (cot
+// in Sets), written by the 256 consumer threads (t256), 16 bytes a thread
+// and store; value(point, tangent, col) gives each f32 value, split here
+// into its hi and lo halves.
+template <class Value>
+__device__ __forceinline__ void cot_image(float* dst, int n_cols, int t256, Value value) {
+  const int items = n_cols / 128 * 2 * 128 * 8;  // (128-column block, K block, row, 16-byte group)
+  for (int i = t256; i < items; i += 2 * kWgThreads) {
+    const int pg = i & 7, row = (i >> 3) & 127, kb = (i >> 10) & 1, nb = i >> 11;
+    const int lg = pg ^ (row & 7), u = lg >> 1, tangent = lg & 1;  // the group's K slots 4 lg .. 4 lg + 3
+    const int col = 128 * nb + row;
+    uint32_t hi[4], lo[4];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) s[k] = fmaf(xs[r * 4 + k], h, s[k]);
-    }
-    for (int k = 0; k < d_in; ++k) atomicAdd(gWx + k * n + col, s[k] * scale);
+    for (int j = 0; j < 4; ++j) split_tf32(value(16 * kb + 4 * u + j, tangent, col), hi[j], lo[j]);
+    float* out = dst + ((nb * 2 + kb) * 2) * 4096 + row * 32 + pg * 4;
+    *reinterpret_cast<uint4*>(out) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<uint4*>(out + 4096) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
   }
 }
 
-// One reverse step's epilogue. acc rows i < 4 hold dh, rows i + 4 hold dtc of
-// the same points (already W^T products, unscaled). With the stash of the
-// layer below (h = act(z), tc = tcz * s):
-//   s = 1 - exp(-beta h)         (step(h) for ReLU)
-//   dz = dh s + dtc tc beta (1 - s),  dtcz = dtc s
-// db of that layer takes dz; H gets both. (A and the
-// stash chunks of dw_product were written by this kernel: no __restrict__ on
-// them, so their loads stay on the coherent path.)
-template <int NQ>
-__device__ __forceinline__ void reverse_epilogue(const float (&acc)[kPts][4 * NQ], float scale, float beta,
-                                                 const float* A, float* H, float* __restrict__ gb) {
-  constexpr int n = 128 * NQ;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int q = 0; q < NQ; ++q) {
-    const int o = 128 * q + 4 * lane;
-    float db[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < kPts / 2; ++i) {
-      const int rp = warp * kPts + i, rt = rp + kPts / 2;
-      const float4 h4 = *reinterpret_cast<const float4*>(A + static_cast<long long>(rp) * n + o);
-      const float4 t4 = *reinterpret_cast<const float4*>(A + static_cast<long long>(rt) * n + o);
-      const float hp[4] = {h4.x, h4.y, h4.z, h4.w}, tc[4] = {t4.x, t4.y, t4.z, t4.w};
-      float dz[4], dt[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float dh = acc[i][4 * q + c] * scale, dtc = acc[i + kPts / 2][4 * q + c] * scale;
-        if (beta > 0.f) {
-          const float s = 1.f - expf(-beta * hp[c]);
-          dz[c] = dh * s + (dtc * tc[c]) * (beta * (1.f - s));
-          dt[c] = dtc * s;
-        } else {
-          const float s = hp[c] > 0.f ? 1.f : 0.f;
-          dz[c] = dh * s;
-          dt[c] = dtc * s;
-        }
-        db[c] += dz[c];
-      }
-      *reinterpret_cast<float4*>(H + rp * kHMax + o) = make_float4(
-          dz[0], dz[1], dz[2], dz[3]);
-      *reinterpret_cast<float4*>(H + rt * kHMax + o) = make_float4(
-          dt[0], dt[1], dt[2], dt[3]);
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) atomicAdd(gb + o + c, db[c]);
-  }
+// the value of H at a tile point's primal (tangent = 0) or tangent row and a column
+__device__ __forceinline__ float h_value(const float* Hf, int point, int tangent, int col) {
+  const int t = 32 * (point >> 3) + 4 * (point & 7) + ((col & 7) >> 1);
+  return Hf[((col >> 3) * kWgThreads + t) * 4 + 2 * (col & 1) + tangent];
 }
 
-template <int NQ>
+// ws: the workspace (Sets); partial: (CTAs x 4 warps x n_bias) f32, each
+// consumer warp's sums of dz over its 8 points, per bias column
+template <int NQ, bool kSoftplus>
 __global__ void __launch_bounds__(kThreads, 1)
 igr_bwd_kernel(const float* __restrict__ x, const float* __restrict__ a, const float* __restrict__ cvec,
-               long long n_pts, int d_in, const long long* __restrict__ desc,
-               const long long* __restrict__ wt_off, int n_lin, float beta,
-               const float* __restrict__ W, const float* __restrict__ Wt, const float* __restrict__ B,
-               float* __restrict__ stash, long long stash_rows,
-               float* __restrict__ gW, float* __restrict__ gB) {
+               long long n_pts, int d_in, const long long* __restrict__ desc, int n_lin, float beta,
+               const float* __restrict__ W, const float* __restrict__ B, const uint8_t* __restrict__ tiles,
+               float* ws, float* __restrict__ partial, int n_bias) {
   constexpr int n = 128 * NQ;
-  constexpr int kHalf = kPts / 2;
-  extern __shared__ float4 smem4[];
-  float* H = reinterpret_cast<float*>(smem4);
-  float* xs = H + kRows * kHMax;
-  float* seed = xs + kRows * 4;  // seeds per tile row
-  float* Ws = H + smem_floats();
-  float* wv = Ws;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long pt0 = static_cast<long long>(blockIdx.x) * kBwdPts;
-  const long long row0 = static_cast<long long>(blockIdx.x) * kRows;
-  const long long layer_stride = stash_rows * n;
-
-  // tile row r = 8 w + i: point 4 w + (i & 3); rows i < 4 carry x (primal),
-  // rows i >= 4 carry c (tangent)
-  for (int e = tid; e < kRows * 4; e += kThreads) {
+  extern __shared__ uint8_t igr_smem_raw[];
+  uint8_t* smem = aligned_smem(igr_smem_raw);
+  float* xs = reinterpret_cast<float*>(smem + kOffX);
+  const long long T = blockIdx.x;
+  // row r: point 32 T + 8 (r / 16) + r % 8, its x for r % 16 < 8, its c otherwise
+  for (int e = threadIdx.x; e < kRows * 4; e += kThreads) {
     const int r = e >> 2, k = e & 3;
-    const long long p = pt0 + 4 * (r >> 3) + (r & 3);
-    const float* src = (r & 7) >= kHalf ? cvec : x;
+    const long long p = T * kBwdPts + 8 * (r >> 4) + (r & 7);
+    const float* src = (r & 8) ? cvec : x;
     float v = 0.f;
     if (k < d_in && p < n_pts) v = src[p * d_in + k];
     xs[e] = v;
   }
-  __syncthreads();
-
-  float acc[kPts][4 * NQ];
-  // rematerialise both chains, stashing [act(z); tcz * s] per hidden layer
-  for (int l = 0; l < n_lin - 1; ++l) {
-    const long long* d = desc + kDesc * l;
-    zero<NQ>(acc);
-    if (d[5] >= 0) coord_rows<NQ>(acc, xs, W + d[5], d_in);
-    if (d[0] > 0) tile_gemm<NQ>(acc, H, W + d[4], static_cast<int>(d[0]), Ws);
-    const float scale = d[2] != 0 ? kInvSqrt2 : 1.f;
-    float* A = stash + l * layer_stride + row0 * n;
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      const int o = 128 * q + 4 * lane;
-      const float4 bias = *reinterpret_cast<const float4*>(B + d[3] + o);
-      const float bv[4] = {bias.x, bias.y, bias.z, bias.w};
-#pragma unroll
-      for (int i = 0; i < kHalf; ++i) {
-        const int rp = warp * kPts + i, rt = rp + kHalf;
-        float h[4], tc[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float z = acc[i][4 * q + c] * scale + bv[c];  // the bias is the primal row's only
-          const float tcz = acc[i + kHalf][4 * q + c] * scale;
-          h[c] = act(z, beta);
-          tc[c] = tcz * sigma(z, beta);
-        }
-        const float4 h4 = make_float4(h[0], h[1], h[2], h[3]), t4 = make_float4(tc[0], tc[1], tc[2], tc[3]);
-        *reinterpret_cast<float4*>(H + rp * kHMax + o) = h4;
-        *reinterpret_cast<float4*>(H + rt * kHMax + o) = t4;
-        *reinterpret_cast<float4*>(A + static_cast<long long>(rp) * n + o) = h4;
-        *reinterpret_cast<float4*>(A + static_cast<long long>(rt) * n + o) = t4;
-      }
-    }
-    __syncthreads();
+  Ring ring = setup_rings(smem);
+  if (threadIdx.x < kWgThreads) {
+    produce_warpgroup<NQ>(desc, n_lin, ring, tiles, !kSoftplus);  // softplus' seeds need no head product
+    return;
   }
+  regs_increase<kConsumerRegs>();
+  const int c = threadIdx.x / kWgThreads - 1, lt = threadIdx.x % kWgThreads, t256 = threadIdx.x - kWgThreads;
+  const int warp = lt >> 5, lane = lt & 31, q = lane & 3;
+  const int r0 = 16 * warp + (lane >> 2);
+  float4* H4 = reinterpret_cast<float4*>(smem);
+  const float* Hf = reinterpret_cast<const float*>(smem);
+  float* seeds = reinterpret_cast<float*>(smem + kOffSeed);
+  float xy[2][4];  // the point's x (primal row r0) and c (tangent row r0 + 8)
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) xy[h][r] = xs[(r0 + 8 * h) * 4 + r];
+  const Sets sets{static_cast<long long>(gridDim.x), n, n_lin};
+  const long long point = T * kBwdPts + 8 * warp + (lane >> 2);
+  const float rb = beta > 0.f ? __frcp_rn(beta) : 0.f;
+  float* part = partial + (T * 4 + warp) * n_bias;
 
-  // head: (z, Tcz) of the last layer and the seeds on them
-  const long long* dl = desc + kDesc * (n_lin - 1);
-  const int hk = static_cast<int>(dl[0]);
-  load_head(wv, W + dl[4], hk);
-  __syncthreads();
+  // db: the warp's sum of dz at a column over its 8 points (shuffles over
+  // the row groups, in a fixed order), written by the lane of the column's q
+  auto db_add = [&](int col, float v) {
+    v += __shfl_xor_sync(0xffffffffu, v, 4);
+    v += __shfl_xor_sync(0xffffffffu, v, 8);
+    v += __shfl_xor_sync(0xffffffffu, v, 16);
+    if (lane < 4) part[col] = v;
+  };
+  auto h_at = [&](int p, int tangent, int col) { return h_value(Hf, p, tangent, col); };
+
+  // the [x; c] image: groups 4 c .. 4 c + 3 of the thread's slot (group 0:
+  // columns 0 .. 7, of which 0 .. d_in - 1 are nonzero)
   {
-    const float bl = B[dl[3]];
-    float db_last = 0.f;
-    for (int i = 0; i < kHalf; ++i) {
-      const int rp = warp * kPts + i, rt = rp + kHalf;
-      const long long p = pt0 + 4 * warp + i;
-      float z = row_dot(H + rp * kHMax, wv, hk) + bl;
-      float tz = row_dot(H + rt * kHMax, wv, hk);
-      float dz = 0.f, dt = 0.f;
-      if (p < n_pts) {
-        const float ap = a[p];
-        if (beta > 0.f) {
-          dz = ap;
-          dt = 1.f;
-        } else {  // f = tanh z, g = Tcz (1 - f^2)
-          const float t = tanhf(z), fp = 1.f - t * t;
-          dz = ap * fp - 2.f * t * fp * tz;
-          dt = fp;
-        }
-      }
-      db_last += dz;
-      if (lane == 0) {
-        seed[rp] = dz;
-        seed[rt] = dt;
-      }
+    float4* X = reinterpret_cast<float4*>(sets.coords(ws, T)) + lt;
+#pragma unroll
+    for (int g = 4 * c; g < 4 * c + 4; ++g) {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (g == 0 && q == 0) v = make_float4(xy[0][0], xy[1][0], xy[0][1], xy[1][1]);
+      if (g == 0 && q == 1) v = make_float4(xy[0][2], xy[1][2], xy[0][3], xy[1][3]);
+      X[g * kWgThreads] = v;
     }
-    if (lane == 0) atomicAdd(gB + dl[3], db_last);
   }
-  __syncthreads();
-  // dW of the last layer's live column: sum over rows of [h; tc] * seeds
-  for (int j = tid; j < hk; j += kThreads) {
-    float s = 0.f;
-    for (int r = 0; r < kRows; ++r) s = fmaf(H[r * kHMax + j], seed[r], s);
-    atomicAdd(gW + dl[4] + static_cast<long long>(j) * 128, s);
-  }
-  // the last layer's reverse step: [dh; dtc] = seeds (outer) w
-#pragma unroll
-  for (int q = 0; q < NQ; ++q)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int col = 128 * q + 4 * lane + c;
-      const float w = col < hk ? wv[col] : 0.f;
-#pragma unroll
-      for (int i = 0; i < kPts; ++i) acc[i][4 * q + c] = seed[warp * kPts + i] * w;
-    }
-  __syncthreads();  // every read of H and wv is done
-  reverse_epilogue<NQ>(acc, 1.f, beta, stash + (n_lin - 2) * layer_stride + row0 * n, H,
-                           gB + desc[kDesc * (n_lin - 2) + 3]);
-  __syncthreads();
 
-  // reverse sweep: H holds [dz; dtcz] of layer l
+  // rematerialise both chains: [act(z); tcz sigma(z)] per hidden layer, in
+  // H and in the workspace
+  for (int l = 0; l < n_lin - 1; ++l) {
+    const Layer L = layer_args(desc, l, d_in, beta, rb, W, B);
+    float4* S = reinterpret_cast<float4*>(sets.stash(ws, l, T)) + lt;
+    tf32_layer<NQ, kSumK, kPasses>(H4, L.k / kTf32KBlock, ring, c, lt, [&](int ch, float (&acc)[kAcc]) {
+#pragma unroll
+      for (int j = 0; j < kChunkN / 8; ++j) {
+        float v[2][2] = {{acc[4 * j], acc[4 * j + 1]}, {acc[4 * j + 2], acc[4 * j + 3]}};
+        column_pair<true>(L, kChunkN * ch + 8 * j + 2 * q, xy, v);  // v[0] = z, v[1] = tcz
+        float hv[2], tv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float sg;
+          activate<kSoftplus>(v[0][e], beta, rb, hv[e], sg);
+          tv[e] = __fmul_rn(v[1][e], sg);
+        }
+        acc[4 * j] = hv[0];
+        acc[4 * j + 1] = hv[1];
+        acc[4 * j + 2] = tv[0];
+        acc[4 * j + 3] = tv[1];
+        S[(8 * ch + j) * kWgThreads] = make_float4(hv[0], tv[0], hv[1], tv[1]);
+      }
+    });
+  }
+
+  // head (consumer 0): the seeds on the last layer's (z, Tcz); softplus:
+  // (a, 1), tanh: from (z, Tcz), column 0 of an m64n8k8 product; db of the
+  // last layer (its other 127 columns are zero)
+  const int b_last = static_cast<int>(desc[kDesc * (n_lin - 1) + 3]);
+  if (c == 0) {
+    float acc4[4] = {0.f, 0.f, 0.f, 0.f};
+    const Layer Lh = layer_args(desc, n_lin - 1, d_in, beta, rb, W, B);
+    if constexpr (!kSoftplus) tf32_stream<kSumK, kPasses>(acc4, H4, Lh.k / kTf32KBlock, ring, lt, kTf32LastImage);
+    float dz = 0.f, dt = 0.f;
+    if (point < n_pts) {
+      const float ap = __ldg(a + point);
+      if constexpr (kSoftplus) {
+        dz = ap;
+        dt = 1.f;
+      } else {  // f = tanh z, g = Tcz (1 - f^2)
+        const float z = __fadd_rn(acc4[0], __ldg(Lh.bias)), tz = acc4[2];
+        const float t = tanhf(z), fp = __fsub_rn(1.f, __fmul_rn(t, t));
+        dz = __fsub_rn(__fmul_rn(ap, fp), __fmul_rn(__fmul_rn(__fmul_rn(2.f, t), fp), tz));
+        dt = fp;
+      }
+    }
+    dz = __shfl_sync(0xffffffffu, dz, lane & ~3);  // column 0 is the quad leader's
+    dt = __shfl_sync(0xffffffffu, dt, lane & ~3);
+    float sum = dz;
+    sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 8);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 16);
+    if (lane == 0) part[b_last] = sum;
+    if (q == 0) {
+      seeds[r0] = dz;
+      seeds[r0 + 8] = dt;
+    }
+  } else {
+    for (int col = 1 + lane; col < 128; col += 32) part[b_last + col] = 0.f;
+  }
+  named_barrier(1, 2 * kWgThreads);  // the head's products have read H; the seeds are in place
+
+  // the last layer's [dz; dtcz] image: the seeds in column 0
+  cot_image(sets.cot(ws, n_lin - 1, T), 128, t256, [&](int p, int tangent, int col) {
+    return col == 0 ? seeds[16 * (p >> 3) + (p & 7) + 8 * tangent] : 0.f;
+  });
+
+  // the head's reverse step: [dh; dtc] = seeds (outer) w, coupled with the
+  // last hidden layer's [h; tc] in H, into its cotangents in their place;
+  // each thread rewrites only its own values
+  {
+    const int b_off = static_cast<int>(desc[kDesc * (n_lin - 2) + 3]);
+    const float* wl = W + desc[kDesc * (n_lin - 1) + 4];  // k x 128, column 0 live
+    const float sd = seeds[r0], st = seeds[r0 + 8];
+#pragma unroll 1
+    for (int j = 0; j < NQ; ++j) {
+      const int ch = c * NQ + j;
+#pragma unroll
+      for (int jj = 0; jj < kChunkN / 8; ++jj) {
+        const int col = kChunkN * ch + 8 * jj + 2 * q;
+        const float w0 = wl[col * 128], w1 = wl[(col + 1) * 128];
+        float4* hp = H4 + (8 * ch + jj) * kWgThreads + lt;  // (h, tc) at col, then at col + 1
+        const float4 v = *hp;
+        float z0, t0, z1, t1;
+        couple<kSoftplus>(__fmul_rn(sd, w0), __fmul_rn(st, w0), v.x, v.y, beta, z0, t0);
+        couple<kSoftplus>(__fmul_rn(sd, w1), __fmul_rn(st, w1), v.z, v.w, beta, z1, t1);
+        db_add(b_off + col, z0);
+        db_add(b_off + col + 1, z1);
+        *hp = make_float4(z0, t0, z1, t1);
+      }
+    }
+    named_barrier(1, 2 * kWgThreads);  // the cotangents are in H for both consumers
+    cot_image(sets.cot(ws, n_lin - 2, T), n, t256, h_at);
+  }
+
+  // reverse sweep: H holds [dz; dtcz] of layer l; [dh; dtc] = [dz; dtcz]
+  // W_l^T * scale, coupled with the stashed [h; tc] of layer l - 1 (the
+  // thread's own values, written by it in the forward chains)
   for (int l = n_lin - 2; l >= 1; --l) {
     const long long* d = desc + kDesc * l;
     const float scale = d[2] != 0 ? kInvSqrt2 : 1.f;
-    const float* A = stash + (l - 1) * layer_stride + row0 * n;
-    dw_product<NQ>(A, H, gW + d[4], scale, Ws);
-    if (d[5] >= 0) dwx_product(xs, H, gW + d[5], d_in, n, scale);
-    zero<NQ>(acc);
-    tile_gemm<NQ>(acc, H, Wt + wt_off[l], n, Ws);
-    reverse_epilogue<NQ>(acc, scale, beta, A, H, gB + desc[kDesc * (l - 1) + 3]);
-    __syncthreads();
+    const float4* S = reinterpret_cast<const float4*>(sets.stash(ws, l - 1, T)) + lt;
+    const int b_off = static_cast<int>(desc[kDesc * (l - 1) + 3]);
+    if (lt == 0) prefetch_l2(S + 8 * NQ * c * kWgThreads, 8 * NQ * kWgThreads * sizeof(float4));
+    tf32_layer<NQ, kSumK, kPasses>(H4, static_cast<int>(d[1]) / kTf32KBlock, ring, c, lt,
+                                   [&](int ch, float (&acc)[kAcc]) {
+#pragma unroll
+      for (int jj = 0; jj < kChunkN / 8; ++jj) {
+        const float4 v = S[(8 * ch + jj) * kWgThreads];  // (h, tc) at col, then at col + 1
+        const int col = kChunkN * ch + 8 * jj + 2 * q;
+        float z0, t0, z1, t1;
+        couple<kSoftplus>(__fmul_rn(acc[4 * jj], scale), __fmul_rn(acc[4 * jj + 2], scale), v.x, v.y, beta, z0, t0);
+        couple<kSoftplus>(__fmul_rn(acc[4 * jj + 1], scale), __fmul_rn(acc[4 * jj + 3], scale), v.z, v.w, beta, z1,
+                          t1);
+        db_add(b_off + col, z0);
+        db_add(b_off + col + 1, z1);
+        acc[4 * jj] = z0;
+        acc[4 * jj + 1] = z1;
+        acc[4 * jj + 2] = t0;
+        acc[4 * jj + 3] = t1;
+      }
+    });
+    cot_image(sets.cot(ws, l - 1, T), n, t256, h_at);
   }
-  dwx_product(xs, H, gW + desc[5], d_in, n, 1.f);
 }
 
-}  // namespace simt
+// ---- igr_dw: dW and db from the workspace, in a fixed order -------------------
+
+constexpr int kPlan = 11;  // int64 per job (fused_igr.py _dw_jobs_f32):
+// [0] A set base (floats per tile before the set: at J[0] * tiles), [1] A
+// floats per tile, [2] A offset in the tile (the 64-
+// column blocks of the job's dW rows), [3] A blocks (1 or 2: one per
+// consumer), [4] B set base (as [0]), [5] B floats per tile, [6] B offset in the tile
+// (the job's 128 columns), [7] element offset of the job's first output,
+// [8] output row stride, [9] output rows written (<= 128), [10] skip: scale
+// by 1/sqrt 2
+constexpr int kDwStages = 2;
+constexpr int kDwBlockBytes = 64 * 64 * 4;                             // a 64-column block of a tile's [h; tc]
+constexpr int kDwImageBytes = 128 * 32 * 4;                            // an image of a K block of [dz; dtcz]
+constexpr int kDwStageBytes = 2 * kDwBlockBytes + 4 * kDwImageBytes;   // A blocks, then 2 K blocks x hi / lo: 96 KB
+constexpr size_t kDwOffBar = size_t(kDwStages) * kDwStageBytes;
+constexpr size_t kDwSmem = kDwOffBar + 2 * kDwStages * sizeof(uint64_t) + 1024;
+static_assert(kDwSmem <= 232448, "shared memory of a block");
+
+// CTA b < n_jobs * splits: job b / splits over the tiles of split s = b %
+// splits (tiles * s / splits .. tiles * (s + 1) / splits), in order; its
+// 128 x 128 tile of dW (one split's part of it) goes to out + s *
+// out_split. A producer thread brings each tile's A blocks and B images by
+// bulk copy through a ring of kDwStages; consumer c multiplies A block c
+// (the job's rows 64 c .. 64 c + 63, A from registers) by the same 128 B
+// columns, 32 rows at a time on the tensor cores (the corrections first),
+// each sum added to its f32 accumulator. The CTAs past them sum db
+// columns, kThreads each, over the tiles and warps in order.
+__global__ void __launch_bounds__(kThreads, 1)
+igr_dw_kernel(const long long* __restrict__ plan, int n_jobs, int splits, const float* __restrict__ ws,
+              long long tiles, float* __restrict__ out, long long out_split, const float* __restrict__ partial,
+              int n_bias, float* __restrict__ gb) {
+  const int cta = static_cast<int>(blockIdx.x);
+  if (cta >= n_jobs * splits) {
+    const int col = (cta - n_jobs * splits) * kThreads + threadIdx.x;
+    if (col < n_bias) {
+      float s = 0.f;
+      for (long long t = 0; t < tiles * 4; ++t) s = __fadd_rn(s, partial[t * n_bias + col]);
+      gb[col] = s;
+    }
+    return;
+  }
+  extern __shared__ uint8_t igr_smem_raw[];
+  uint8_t* smem = aligned_smem(igr_smem_raw);
+  const long long* J = plan + kPlan * (cta / splits);
+  const int split = cta % splits;
+  const long long t0 = tiles * split / splits, t1 = tiles * (split + 1) / splits;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kDwOffBar);
+  uint64_t* empty = full + kDwStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDwStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);  // one arrival per consumer
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / kWgThreads;
+  if (wg == 0) {
+    regs_decrease<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      const float* A = ws + J[0] * tiles + J[2];
+      const float* Bm = ws + J[4] * tiles + J[6];
+      const uint32_t a_bytes = static_cast<uint32_t>(J[3]) * kDwBlockBytes;
+      for (long long T = t0; T < t1; ++T) {
+        const long long i = T - t0;
+        const int s = static_cast<int>(i % kDwStages);
+        mbar_wait(&empty[s], static_cast<uint32_t>((i / kDwStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], a_bytes + 4 * kDwImageBytes);
+        uint8_t* st = smem + s * kDwStageBytes;
+        bulk_load(st, A + T * J[1], a_bytes, &full[s]);
+        bulk_load(st + 2 * kDwBlockBytes, Bm + T * J[5], 4 * kDwImageBytes, &full[s]);
+      }
+    }
+    return;
+  }
+  regs_increase<kConsumerRegs>();
+  const int c = wg - 1, lt = threadIdx.x - wg * kWgThreads;
+  const int warp = lt >> 5, lane = lt & 31, q = lane & 3;
+  const bool active = c < J[3];
+  // the thread's A fragment of K step s: its M rows 16 warp + lane / 4 and
+  // + 8 stand for columns 2 cp and 2 cp + 1 (cp = 8 warp + lane / 4) of A
+  // block c, its K slots q and q + 4 for the primal and the tangent row of
+  // point 4 s + q: one float4 of the slot order
+  const int cp = 8 * warp + (lane >> 2);
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (long long T = t0; T < t1; ++T) {
+    const long long i = T - t0;
+    const int s = static_cast<int>(i % kDwStages);
+    mbar_wait(&full[s], static_cast<uint32_t>((i / kDwStages) & 1));
+    const uint8_t* st = smem + s * kDwStageBytes;
+    if (active) {
+      const float4* As = reinterpret_cast<const float4*>(st + c * kDwBlockBytes);
+#pragma unroll
+      for (int kb = 0; kb < 2; ++kb) {
+        const uint8_t* bhi = st + 2 * kDwBlockBytes + 2 * kb * kDwImageBytes;
+        const uint8_t* blo = bhi + kDwImageBytes;
+        uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int p = 16 * kb + 4 * u + q;
+          const float4 v = As[(cp >> 2) * kWgThreads + 32 * (p >> 3) + 4 * (p & 7) + (cp & 3)];
+          split_tf32(v.x, hi[u][0], lo[u][0]);  // (column 2 cp, primal)
+          split_tf32(v.z, hi[u][1], lo[u][1]);  // (column 2 cp + 1, primal)
+          split_tf32(v.y, hi[u][2], lo[u][2]);  // (column 2 cp, tangent)
+          split_tf32(v.w, hi[u][3], lo[u][3]);  // (column 2 cp + 1, tangent)
+        }
+        float part[64];
+        wgmma_fence();
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          wgmma_m64n128k8_tf32(part, hi[u], desc_k_sw128(blo + 32 * u), u > 0);
+          wgmma_m64n128k8_tf32(part, lo[u], desc_k_sw128(bhi + 32 * u), 1);
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) wgmma_m64n128k8_tf32(part, hi[u], desc_k_sw128(bhi + 32 * u), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_registers(part);
+#pragma unroll
+        for (int k = 0; k < 64; ++k) acc[k] = __fadd_rn(acc[k], part[k]);
+      }
+    }
+    if (lt == 0) mbar_arrive(&empty[s]);
+  }
+  if (!active) return;
+  const float scale = J[10] != 0 ? kInvSqrt2 : 1.f;
+  const int rows = static_cast<int>(J[9]);
+  float* o = out + split * out_split + J[7];
+  const long long stride = J[8];
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    // accumulator row 16 warp + lane / 4 + 8 ((i / 2) % 2): column 2 cp +
+    // (i / 2) % 2 of A block c
+    const int row = 64 * c + 2 * cp + ((i >> 1) & 1);
+    const int col = 8 * (i >> 2) + 2 * q;
+    if (row < rows)
+      *reinterpret_cast<float2*>(o + row * stride + col) =
+          make_float2(__fmul_rn(acc[i], scale), __fmul_rn(acc[i + 1], scale));
+  }
+}
+
+// gw = the dW pass's splits summed in order
+__global__ void split_sum_kernel(const float* __restrict__ buf, int splits, long long size, float* __restrict__ gw) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= size) return;
+  float s = buf[i];
+  for (int k = 1; k < splits; ++k) s = __fadd_rn(s, buf[k * size + i]);
+  gw[i] = s;
+}
+
+}  // namespace tf32
 
 // =============================================================================
 // bf16: the tensor-core routine
@@ -1343,90 +1537,78 @@ igr_dw_kernel(const long long* __restrict__ plan, int n_jobs, const __nv_bfloat1
     }
 }
 
-template <class F>
-cudaError_t by_width(int width, float beta, F f) {
-  const bool sp = beta > 0.f;
-  switch (width) {
-    case 128: return sp ? f(std::integral_constant<int, 1>{}, std::true_type{}) : f(std::integral_constant<int, 1>{}, std::false_type{});
-    case 256: return sp ? f(std::integral_constant<int, 2>{}, std::true_type{}) : f(std::integral_constant<int, 2>{}, std::false_type{});
-    case 384: return sp ? f(std::integral_constant<int, 3>{}, std::true_type{}) : f(std::integral_constant<int, 3>{}, std::false_type{});
-    case 512: return sp ? f(std::integral_constant<int, 4>{}, std::true_type{}) : f(std::integral_constant<int, 4>{}, std::false_type{});
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace tc
-
-// ---- f32 launches -------------------------------------------------------------------
-
-template <int NQ>
-cudaError_t launch_fwd(const float* x, long long n_pts, int d_in, const long long* desc, const long long* wt_off,
-                       int n_lin, float beta, const void* w, const void* wt, const float* b, float* stash,
-                       long long stash_rows, float* f, float* g, cudaStream_t stream) {
-  return launch(simt::igr_fwd_kernel<NQ>, (n_pts + simt::kRows - 1) / simt::kRows, simt::kThreads, simt::kSmem,
-                stream, x, n_pts, d_in, desc, wt_off, n_lin, beta, static_cast<const float*>(w),
-                static_cast<const float*>(wt), b, stash, stash_rows, f, g);
-}
-
-template <int NQ>
-cudaError_t launch_bwd(const float* x, const float* a, const float* c, long long n_pts, int d_in,
-                       const long long* desc, const long long* wt_off, int n_lin, float beta, const void* w,
-                       const void* wt, const float* b, float* stash, long long stash_rows, float* gw, float* gb,
-                       cudaStream_t stream) {
-  return launch(simt::igr_bwd_kernel<NQ>, (n_pts + simt::kBwdPts - 1) / simt::kBwdPts, simt::kThreads,
-                simt::kSmem, stream, x, a, c, n_pts, d_in, desc, wt_off, n_lin, beta, static_cast<const float*>(w),
-                static_cast<const float*>(wt), b, stash, stash_rows, gw, gb);
-}
 
 }  // namespace
 
 // ---- C interface (ctypes); each returns the cudaError_t of its launches --------
 // h_pad is the padded hidden width, one of 128, 256, 384, 512 (the wrapper
-// checks). f32: stash has (n_lin - 1) x stash_rows x h_pad floats with
-// stash_rows >= 64 * blocks; gw and gb are zeroed by the caller. bf16: w, b
-// are FusedNet.packed's buffers, tiles FusedNet.igr_tiles; the forward's
+// checks); w, b are FusedNet.packed's buffers. f32: tiles is
+// FusedNet.igr_tf32_tiles; the forward's stash holds (n_lin - 1) x CTAs x 64
+// x h_pad floats; the backward's ws and partial are sized by fused_igr.py
+// _workspace_sets_f32, split_buf holds splits x the packed weights' count
+// (unused with one split). bf16: tiles is FusedNet.igr_tiles; the forward's
 // stash holds (n_lin - 1) x CTAs x 128 x h_pad bf16; the backward's ws and
-// partial are sized by fused_igr.py _workspace_sets, and gw, gb are written
-// whole (no zeroing).
-
-#define IGR_F32_DISPATCH(CALL)                                  \
-  switch (h_pad / 128) {                                        \
-    case 1: return CALL(1);                                     \
-    case 2: return CALL(2);                                     \
-    case 3: return CALL(3);                                     \
-    case 4: return CALL(4);                                     \
-    default: return static_cast<int>(cudaErrorInvalidValue);    \
-  }
+// partial are sized by fused_igr.py _workspace_sets. Both backwards write
+// gw and gb whole (no zeroing).
 
 extern "C" {
 
 // points per CTA: forward / backward, f32 / bf16
 int sdf_igr_cta_points(int bf16, int backward) {
   if (bf16) return backward ? tc::kBwdCtaPts : tc::kFwdCtaPts;
-  return backward ? simt::kBwdPts : simt::kRows;
+  return backward ? tf32::kBwdPts : tf32::kFwdPts;
 }
 int sdf_igr_max_width() { return hopper::kHMax; }
-int sdf_igr_plan_fields() { return tc::kPlan; }
+int sdf_igr_plan_fields(int bf16) { return bf16 ? tc::kPlan : tf32::kPlan; }
 const char* sdf_igr_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
-int sdf_igr_fwd_f32(const float* x, long long n_pts, int d_in, const long long* desc, const long long* wt_off,
-                    int n_lin, int h_pad, float beta, const float* w, const float* wt, const float* b,
-                    float* stash, long long stash_rows, float* f, float* g, void* stream) {
+int sdf_igr_fwd_f32(const float* x, long long n_pts, int d_in, const long long* desc, int n_lin, int h_pad,
+                    float beta, const float* w, const float* b, const void* tiles, float* stash, float* f,
+                    float* g, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-#define IGR_FWD(Q) launch_fwd<Q>(x, n_pts, d_in, desc, wt_off, n_lin, beta, w, wt, b, stash, stash_rows, f, g, s)
-  IGR_F32_DISPATCH(IGR_FWD)
-#undef IGR_FWD
+  auto tb = static_cast<const uint8_t*>(tiles);
+  const long long ctas = (n_pts + tf32::kFwdPts - 1) / tf32::kFwdPts;
+  return by_width(h_pad, beta, [&](auto q, auto sp) {
+    return launch(tf32::igr_fwd_kernel<decltype(q)::value, decltype(sp)::value>, ctas, tf32::kThreads, tf32::kSmem,
+                  s, x, n_pts, d_in, desc, n_lin, beta, w, b, tb, reinterpret_cast<float4*>(stash), f, g);
+  });
 }
 
+int sdf_igr_dw_f32(const long long* plan, int n_jobs, int splits, const float* ws, long long tiles,
+                   float* split_buf, float* gw, long long w_size, const float* partial, int n_bias, float* gb,
+                   void* stream);
+
+// igr_bwd, then the dW pass over the plan's n_jobs jobs in `splits` parts
+// each and the db columns, then (splits > 1) the parts' sum
 int sdf_igr_bwd_f32(const float* x, const float* a, const float* c, long long n_pts, int d_in,
-                    const long long* desc, const long long* wt_off, int n_lin, int h_pad, float beta,
-                    const float* w, const float* wt, const float* b, float* stash, long long stash_rows,
-                    float* gw, float* gb, void* stream) {
+                    const long long* desc, int n_lin, int h_pad, float beta, const float* w, const float* b,
+                    const void* tiles, float* ws, float* partial, int n_bias, const long long* plan, int n_jobs,
+                    int splits, float* split_buf, float* gw, long long w_size, float* gb, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-#define IGR_BWD(Q) \
-  launch_bwd<Q>(x, a, c, n_pts, d_in, desc, wt_off, n_lin, beta, w, wt, b, stash, stash_rows, gw, gb, s)
-  IGR_F32_DISPATCH(IGR_BWD)
-#undef IGR_BWD
+  auto tb = static_cast<const uint8_t*>(tiles);
+  const long long ctas = (n_pts + tf32::kBwdPts - 1) / tf32::kBwdPts;
+  cudaError_t err = by_width(h_pad, beta, [&](auto q, auto sp) {
+    return launch(tf32::igr_bwd_kernel<decltype(q)::value, decltype(sp)::value>, ctas, tf32::kThreads, tf32::kSmem,
+                  s, x, a, c, n_pts, d_in, desc, n_lin, beta, w, b, tb, ws, partial, n_bias);
+  });
+  if (err != cudaSuccess || ctas == 0) return static_cast<int>(err);
+  return sdf_igr_dw_f32(plan, n_jobs, splits, ws, ctas, split_buf, gw, w_size, partial, n_bias, gb, stream);
+}
+
+// the f32 dW pass alone, on a workspace the backward has written
+int sdf_igr_dw_f32(const long long* plan, int n_jobs, int splits, const float* ws, long long tiles,
+                   float* split_buf, float* gw, long long w_size, const float* partial, int n_bias, float* gb,
+                   void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  const long long db_ctas = (n_bias + tf32::kThreads - 1) / tf32::kThreads;
+  float* out = splits > 1 ? split_buf : gw;
+  cudaError_t err = launch(tf32::igr_dw_kernel, static_cast<long long>(n_jobs) * splits + db_ctas, tf32::kThreads,
+                           tf32::kDwSmem, s, plan, n_jobs, splits, ws, tiles, out, splits > 1 ? w_size : 0LL,
+                           partial, n_bias, gb);
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  return static_cast<int>(launch(tf32::split_sum_kernel, (w_size + 255) / 256, 256, 0, s,
+                                 static_cast<const float*>(split_buf), splits, w_size, gw));
 }
 
 int sdf_igr_fwd_bf16(const float* x, long long n_pts, int d_in, const long long* desc, int n_lin, int h_pad,
@@ -1436,7 +1618,7 @@ int sdf_igr_fwd_bf16(const float* x, long long n_pts, int d_in, const long long*
   auto wb = static_cast<const __nv_bfloat16*>(w);
   auto tb = static_cast<const __nv_bfloat16*>(tiles);
   const long long ctas = (n_pts + tc::kFwdCtaPts - 1) / tc::kFwdCtaPts;
-  return tc::by_width(h_pad, beta, [&](auto q, auto sp) {
+  return by_width(h_pad, beta, [&](auto q, auto sp) {
     return launch(tc::igr_fwd_kernel<decltype(q)::value, decltype(sp)::value>, ctas, tc::kThreads, tc::kFwdSmem, s,
                   x, n_pts, d_in, desc, n_lin, beta, wb, b, tb, static_cast<uint32_t*>(stash), f, g);
   });
@@ -1455,7 +1637,7 @@ int sdf_igr_bwd_bf16(const float* x, const float* a, const float* c, long long n
   auto tb = static_cast<const __nv_bfloat16*>(tiles);
   auto wsb = static_cast<__nv_bfloat16*>(ws);
   const long long ctas = (n_pts + tc::kBwdCtaPts - 1) / tc::kBwdCtaPts;
-  cudaError_t err = tc::by_width(h_pad, beta, [&](auto q, auto sp) {
+  cudaError_t err = by_width(h_pad, beta, [&](auto q, auto sp) {
     return launch(tc::igr_bwd_kernel<decltype(q)::value, decltype(sp)::value>, ctas, tc::kThreads, tc::kBwdSmem, s,
                   x, a, c, n_pts, d_in, desc, n_lin, beta, wb, b, tb, wsb, partial, n_bias);
   });

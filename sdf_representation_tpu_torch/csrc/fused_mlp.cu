@@ -169,12 +169,10 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 // f32: the split-TF32 wgmma routine
 // =============================================================================
 
-constexpr int kF32KBlock = 32;                            // K per stage: one 128-byte row of f32
-constexpr int kF32Steps = kF32KBlock / 8;                 // K steps (m64nNk8) per stage
+constexpr int kF32KBlock = hopper::kTf32KBlock;           // K per stage: one 128-byte row of f32
 constexpr int kF32Stages = 3;                             // stages in each consumer's ring
-constexpr int kF32ImageBytes = kChunkN * kF32KBlock * 4;  // one W^T image of a stage: 8 KB
-constexpr int kF32StageBytes = 2 * kF32ImageBytes;        // the hi image, then the lo image
-constexpr int kF32LastImage = kLastRows * kF32KBlock * 4; // the last layer's images: 1 KB
+constexpr int kF32StageBytes = hopper::kTf32StageBytes;   // the hi image, then the lo image
+constexpr int kF32LastImage = hopper::kTf32LastImage;     // the last layer's images: 1 KB
 // K per tensor-core group sum (8, 16 or 32) and products per K step (3:
 // hi.hi + hi.lo + lo.hi; 1: hi.hi only, a single TF32 pass);
 // tools/tf32_sum_study.py builds the variants
@@ -187,101 +185,24 @@ constexpr int kF32Threads = 3 * kWgThreads;               // producer + two cons
 constexpr int kF32ProducerRegs = 40;
 constexpr int kF32ConsumerRegs = 232;
 static_assert(kWgThreads * (168 - kF32ProducerRegs) >= 2 * kWgThreads * (kF32ConsumerRegs - 168), "registers");
-constexpr size_t kF32HBytes = size_t(kTileP) * kHMax * 4; // the tile's f32 activations: 128 KB
-constexpr size_t kF32OffRing = kF32HBytes;
+constexpr size_t kF32OffRing = hopper::kTf32HBytes;       // after the tile's f32 activations (128 KB)
 constexpr size_t kF32OffX = kF32OffRing + 2 * size_t(kF32Stages) * kF32StageBytes;
 constexpr size_t kF32OffBar = kF32OffX + size_t(kTileP) * 4 * sizeof(float);
 constexpr size_t kF32Smem = kF32OffBar + 4 * kF32Stages * sizeof(uint64_t) + 1024;  // + alignment slack
 static_assert(kF32Smem <= 232448, "the f32 routine's shared memory");
-static_assert(kF32SumK % 8 == 0 && kF32KBlock % kF32SumK == 0, "group depth");
 
 using F32Ring = hopper::StageRing<kF32Stages, kF32StageBytes>;
 using F32Layer = hopper::LayerArgsT<float>;
 
 // Shared memory (from a 1024-byte aligned base):
-//   H        the tile's 64 x kHMax f32 activations as float4 H[g][t]: column
-//            group g (columns 8 g .. 8 g + 7) of thread slot t (warp w =
-//            t / 32, lane l; rows r0 = 16 w + l / 4 and r0 + 8; q = l % 4)
-//            holds (r0, 8 g + 2 q), (r0 + 8, 8 g + 2 q), (r0, 8 g + 2 q + 1),
-//            (r0 + 8, 8 g + 2 q + 1): the four values of K step g of a TF32
-//            A fragment if the K slots q and q + 4 of the step stand for
-//            columns 2 q and 2 q + 1, and the four values thread t of either
-//            consumer finds in its accumulator for group g. A thread reads
-//            and writes only its slot, which the same thread of the other
-//            consumer shares, 16 bytes at a time: a warp 512 contiguous
-//            bytes.
+//   H        the tile's 64 x kHMax f32 activations as float4 H[g][t], in
+//            csrc/hopper.cuh's slot order (the order the A fragments and the
+//            accumulators both take)
 //   rings    two rings (one per consumer) of kF32Stages stages: the hi and
 //            the lo image of 64 W^T rows x 32 K, K permuted within each 8 as
 //            above, in the 128-byte swizzle (FusedNet.tf32_tiles)
 //   xs       64 x 4 f32 coordinates
 //   full, empty  the rings' mbarriers
-
-using hopper::split_tf32;
-
-// the hi and lo A fragments of K step s from the thread's slot of H
-__device__ __forceinline__ void a_fragments(const float4* H4, int s, int lt, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-  const float4 a = H4[s * kWgThreads + lt];
-  split_tf32(a.x, hi[0], lo[0]);
-  split_tf32(a.y, hi[1], lo[1]);
-  split_tf32(a.z, hi[2], lo[2]);
-  split_tf32(a.w, hi[3], lo[3]);
-}
-
-// acc = A(64 x 32 kbs, the tile's activations) * B(the next kbs stages of
-// the ring, `lo_off` bytes from the hi image to the lo image), every K step
-// as its kF32Passes products, summed on the tensor cores in groups kF32SumK
-// deep that are added to acc in f32; the stages are handed back once read.
-template <int N>
-__device__ __forceinline__ void tf32_stream(float (&acc)[N], const float4* H4, int kbs, F32Ring& ring, int lt,
-                                            int lo_off) {
-  using hopper::desc_k_sw128;
-#pragma unroll
-  for (int i = 0; i < N; ++i) acc[i] = 0.f;
-  for (int kb = 0; kb < kbs; ++kb) {
-    hopper::mbar_wait(&ring.full[ring.s], ring.phase);
-    const uint8_t* b = ring.stage();
-    constexpr int kG = kF32SumK / 8;  // K steps per group
-#pragma unroll
-    for (int g = 0; g < kF32Steps / kG; ++g) {
-      uint32_t hi[kG][4], lo[kG][4];
-#pragma unroll
-      for (int u = 0; u < kG; ++u) a_fragments(H4, kb * kF32Steps + g * kG + u, lt, hi[u], lo[u]);
-      float part[N];
-      hopper::wgmma_fence();
-      // the corrections first, at their own scale, then hi.hi onto them
-      if constexpr (kF32Passes == 3) {
-#pragma unroll
-        for (int u = 0; u < kG; ++u) {
-          const int off = 32 * (g * kG + u);
-          hopper::wgmma_tile_tf32(part, hi[u], desc_k_sw128(b + lo_off + off), u > 0);
-          hopper::wgmma_tile_tf32(part, lo[u], desc_k_sw128(b + off), 1);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kG; ++u)
-        hopper::wgmma_tile_tf32(part, hi[u], desc_k_sw128(b + 32 * (g * kG + u)), kF32Passes == 3 || u > 0);
-      hopper::wgmma_commit();
-      hopper::wgmma_wait<0>();
-      hopper::fence_registers(part);
-#pragma unroll
-      for (int i = 0; i < N; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
-    }
-    if (lt == 0) hopper::mbar_arrive(&ring.empty[ring.s]);
-    ring.advance();
-  }
-}
-
-// softplus(beta v) / beta = (max(t, 0) + log1p(exp(-|t|))) * RN(1 / beta),
-// t = beta v, on the f32 library functions; or ReLU
-template <bool kSoftplus>
-__device__ __forceinline__ float activate_f32(float v, float beta, float rb) {
-  if constexpr (kSoftplus) {
-    const float t = __fmul_rn(beta, v);
-    return __fmul_rn(__fadd_rn(fmaxf(t, 0.f), log1pf(expf(-fabsf(t)))), rb);
-  } else {
-    return fmaxf(v, 0.f);
-  }
-}
 
 // the thread's 32 values of a 64-column chunk's accumulator, whose first
 // column is col0, with their coordinate term, scale, bias and activation
@@ -292,45 +213,22 @@ __device__ __forceinline__ void f32_epilogue(float (&acc)[kAcc], int col0, int q
   for (int j = 0; j < kChunkN / 8; ++j) {
     float v[2][2] = {{acc[4 * j], acc[4 * j + 1]}, {acc[4 * j + 2], acc[4 * j + 3]}};
     hopper::column_pair(L, col0 + 8 * j + 2 * q, x, v);
-    acc[4 * j] = activate_f32<kSoftplus>(v[0][0], L.beta, L.rb);
-    acc[4 * j + 1] = activate_f32<kSoftplus>(v[0][1], L.beta, L.rb);
-    acc[4 * j + 2] = activate_f32<kSoftplus>(v[1][0], L.beta, L.rb);
-    acc[4 * j + 3] = activate_f32<kSoftplus>(v[1][1], L.beta, L.rb);
+    acc[4 * j] = hopper::activate_f32<kSoftplus>(v[0][0], L.beta, L.rb);
+    acc[4 * j + 1] = hopper::activate_f32<kSoftplus>(v[0][1], L.beta, L.rb);
+    acc[4 * j + 2] = hopper::activate_f32<kSoftplus>(v[1][0], L.beta, L.rb);
+    acc[4 * j + 3] = hopper::activate_f32<kSoftplus>(v[1][1], L.beta, L.rb);
   }
 }
 
-// chunk cc's values into the thread's slot of H (groups 8 cc .. 8 cc + 7)
-__device__ __forceinline__ void store_chunk(float4* H4, int cc, int lt, const float (&v)[kAcc]) {
-#pragma unroll
-  for (int j = 0; j < kChunkN / 8; ++j)
-    H4[(8 * cc + j) * kWgThreads + lt] = make_float4(v[4 * j], v[4 * j + 2], v[4 * j + 1], v[4 * j + 3]);
-}
-
-// One hidden layer (n = 128 NQ outputs): consumer c computes chunks c NQ ..
-// c NQ + NQ - 1. Finished chunks wait in registers until both consumers'
-// products have read H (named barrier 1), then all are written back; the
-// second barrier makes the whole layer visible to both.
+// One hidden layer (n = 128 NQ outputs): hopper::tf32_layer, consumer c
+// computing chunks c NQ .. c NQ + NQ - 1
 template <int NQ, bool kSoftplus>
 __device__ __forceinline__ void f32_hidden_layer(const F32Layer& L, float4* H4, F32Ring& ring, int c, int lt,
                                                  const float (&x)[2][4]) {
   const int q = lt & 3;
-  const int kbs = L.k / kF32KBlock;
-  float held[NQ][kAcc];  // held[NQ - 1] is never used
-  float acc[kAcc];
-#pragma unroll
-  for (int j = 0; j < NQ; ++j) {
-    tf32_stream(acc, H4, kbs, ring, lt, kF32ImageBytes);
-    f32_epilogue<kSoftplus>(acc, kChunkN * (c * NQ + j), q, L, x);
-    if (j < NQ - 1) {
-#pragma unroll
-      for (int i = 0; i < kAcc; ++i) held[j][i] = acc[i];
-    }
-  }
-  hopper::named_barrier(1, 2 * kWgThreads);
-#pragma unroll
-  for (int j = 0; j < NQ - 1; ++j) store_chunk(H4, c * NQ + j, lt, held[j]);
-  store_chunk(H4, c * NQ + NQ - 1, lt, acc);
-  hopper::named_barrier(1, 2 * kWgThreads);
+  hopper::tf32_layer<NQ, kF32SumK, kF32Passes>(H4, L.k / kF32KBlock, ring, c, lt, [&](int ch, float (&acc)[kAcc]) {
+    f32_epilogue<kSoftplus>(acc, kChunkN * ch, q, L, x);
+  });
 }
 
 // The last layer (one output, consumer 0): column 0 of an m64n8k8 product;
@@ -341,7 +239,7 @@ __device__ __forceinline__ void f32_last_layer(const F32Layer& L, const float4* 
   const int warp = lt >> 5, lane = lt & 31;
   const int r0 = 16 * warp + (lane >> 2);
   float acc[4];
-  tf32_stream(acc, H4, L.k / kF32KBlock, ring, lt, kF32LastImage);
+  hopper::tf32_stream<kF32SumK, kF32Passes>(acc, H4, L.k / kF32KBlock, ring, lt, kF32LastImage);
   if ((lane & 3) == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {

@@ -3,11 +3,11 @@
 // proxy fences, named barriers, warpgroup register reallocation and the
 // wgmma tensor-core product with its shared-memory descriptors and fences
 // (bf16 operands, and TF32 with A from registers and the split of an f32
-// value into two TF32 halves); then the bf16 tensor-core layer routine that
+// value into two TF32 halves); then the two layer routines that
 // csrc/fused_mlp.cu (the fused forward) and csrc/fused_igr.cu (the eikonal
-// kernels) share: the ring of bulk-copied weight stages, the 64-column
-// chunk product with its in-place hazard handling, and the softplus and
-// sigmoid epilogues.
+// kernels) share, bf16 and split TF32: the ring of bulk-copied weight
+// stages, the 64-column chunk product with its in-place hazard handling, and
+// the softplus and sigmoid epilogues.
 
 #pragma once
 
@@ -70,6 +70,12 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
           smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// asks for `bytes` (a multiple of 16) from src to be brought into L2 ahead
+// of the loads that will read them; a hint, with no completion to wait for
+__device__ __forceinline__ void prefetch_l2(const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src), "r"(bytes) : "memory");
 }
 
 // orders this thread's ordinary shared-memory writes before later reads of
@@ -231,9 +237,42 @@ __device__ __forceinline__ void wgmma_m64n8k8_tf32(float (&d)[4], const uint32_t
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
+// The same with N = 128: d[i] at row 16 w + t/4 % 8 + 8 (i/2 % 2), column
+// 8 (i/4) + 2 (t % 4) + i % 2, as for m64n64
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_tile_tf32(float (&acc)[N], const uint32_t (&a)[4], uint64_t db, int scale_d) {
-  if constexpr (N == 32) {
+  if constexpr (N == 64) {
+    wgmma_m64n128k8_tf32(acc, a, db, scale_d);
+  } else if constexpr (N == 32) {
     wgmma_m64n64k8_tf32(acc, a, db, scale_d);
   } else {
     wgmma_m64n8k8_tf32(acc, a, db, scale_d);
@@ -603,6 +642,140 @@ __device__ __forceinline__ void column_pair(const LayerArgsT<T>& L, int col, con
       v[h][0] = __fadd_rn(a, bias.x);
       v[h][1] = __fadd_rn(b, bias.y);
     }
+  }
+}
+
+
+// ==================================================================================
+// The split-TF32 layer routine (f32 products)
+// ==================================================================================
+//
+// A TF32 operand keeps 10 mantissa bits, so each f32 operand v is split into
+// hi = rna(v) and lo = rna(v - hi) (split_tf32) and every product is issued
+// three times, hi.hi + hi.lo + lo.hi (lo.lo, ~2^-22 of it, is dropped).
+// A CTA holds one tile of kRows rows x up to kHMax columns of f32 in shared
+// memory (128 KB) as float4 H4[g][t]: column group g (columns 8 g .. 8 g +
+// 7) of thread slot t (warp w = t / 32, lane l; rows r0 = 16 w + l / 4 and
+// r0 + 8; q = l % 4) holds (r0, 8 g + 2 q), (r0 + 8, 8 g + 2 q), (r0, 8 g +
+// 2 q + 1), (r0 + 8, 8 g + 2 q + 1): the four values of K step g of a TF32 A
+// fragment if the K slots q and q + 4 of the step stand for columns 2 q and
+// 2 q + 1, and the four values thread t of either consumer finds in its
+// accumulator for group g. A thread reads and writes only its slot, which
+// the same thread of the other consumer shares, 16 bytes at a time: a warp
+// 512 contiguous bytes. Two consumer warpgroups split each layer's output
+// columns; each takes the weight stages of its columns from its own ring:
+// 64 output columns x 32 K, the hi image, then the lo image (16 KB), the K
+// axis permuted within each 8 as above, in the 128-byte swizzle
+// (FusedNet.tf32_tiles, FusedNet.igr_tf32_tiles).
+
+constexpr int kTf32KBlock = 32;                               // K per stage: one 128-byte row of f32
+constexpr int kTf32Steps = kTf32KBlock / 8;                   // K steps (m64nNk8) per stage
+constexpr int kTf32ImageBytes = kChunkN * kTf32KBlock * 4;    // one image of a stage: 8 KB
+constexpr int kTf32StageBytes = 2 * kTf32ImageBytes;          // the hi image, then the lo image
+constexpr int kTf32LastImage = kLastRows * kTf32KBlock * 4;   // a one-output layer's images: 1 KB
+constexpr size_t kTf32HBytes = size_t(kRows) * kHMax * 4;     // a tile's f32 rows: 128 KB
+
+// the hi and lo A fragments of K step s from the thread's slot of H
+__device__ __forceinline__ void a_fragments(const float4* H4, int s, int lt, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const float4 a = H4[s * kWgThreads + lt];
+  split_tf32(a.x, hi[0], lo[0]);
+  split_tf32(a.y, hi[1], lo[1]);
+  split_tf32(a.z, hi[2], lo[2]);
+  split_tf32(a.w, hi[3], lo[3]);
+}
+
+// acc = A(64 x 32 kbs, the tile) * B(the next kbs stages of the ring,
+// `lo_off` bytes from the hi image to the lo image), every K step as its
+// kPasses products (3, or 1: hi.hi only), summed on the tensor cores in
+// groups kSumK deep that are added to acc in f32; the stages are handed back
+// once read. The tensor cores truncate inside a sum, so a group sums its
+// correction products first, at their own scale (~2^-11 of the main
+// products), then the hi.hi products onto them: every truncation at the
+// main sum's scale is one the hi.hi sum alone would make.
+template <int kSumK, int kPasses, int N, class R>
+__device__ __forceinline__ void tf32_stream(float (&acc)[N], const float4* H4, int kbs, R& ring, int lt,
+                                            int lo_off) {
+  static_assert(kSumK % 8 == 0 && kTf32KBlock % kSumK == 0, "group depth");
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] = 0.f;
+  for (int kb = 0; kb < kbs; ++kb) {
+    mbar_wait(&ring.full[ring.s], ring.phase);
+    const uint8_t* b = ring.stage();
+    constexpr int kG = kSumK / 8;  // K steps per group
+#pragma unroll
+    for (int g = 0; g < kTf32Steps / kG; ++g) {
+      uint32_t hi[kG][4], lo[kG][4];
+#pragma unroll
+      for (int u = 0; u < kG; ++u) a_fragments(H4, kb * kTf32Steps + g * kG + u, lt, hi[u], lo[u]);
+      float part[N];
+      wgmma_fence();
+      if constexpr (kPasses == 3) {
+#pragma unroll
+        for (int u = 0; u < kG; ++u) {
+          const int off = 32 * (g * kG + u);
+          wgmma_tile_tf32(part, hi[u], desc_k_sw128(b + lo_off + off), u > 0);
+          wgmma_tile_tf32(part, lo[u], desc_k_sw128(b + off), 1);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kG; ++u)
+        wgmma_tile_tf32(part, hi[u], desc_k_sw128(b + 32 * (g * kG + u)), kPasses == 3 || u > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_registers(part);
+#pragma unroll
+      for (int i = 0; i < N; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
+    }
+    if (lt == 0) mbar_arrive(&ring.empty[ring.s]);
+    ring.advance();
+  }
+}
+
+// chunk cc's values (a 64-column accumulator) into the thread's slot of H
+// (groups 8 cc .. 8 cc + 7)
+__device__ __forceinline__ void store_chunk(float4* H4, int cc, int lt, const float (&v)[kAcc]) {
+#pragma unroll
+  for (int j = 0; j < kChunkN / 8; ++j)
+    H4[(8 * cc + j) * kWgThreads + lt] = make_float4(v[4 * j], v[4 * j + 2], v[4 * j + 1], v[4 * j + 3]);
+}
+
+// One layer of n = 128 NQ outputs over the tile, whose outputs replace H:
+// consumer c computes chunks c NQ .. c NQ + NQ - 1, each H times the next
+// kbs stages of its ring, and epilogue(chunk, acc) turns the chunk's sums
+// into its outputs in place. Finished chunks wait in registers until both
+// consumers' products have read H (named barrier 1 over both), then all are
+// written back; the second barrier makes the whole layer visible to both.
+template <int NQ, int kSumK, int kPasses, class R, class Epilogue>
+__device__ __forceinline__ void tf32_layer(float4* H4, int kbs, R& ring, int c, int lt, Epilogue epilogue) {
+  float held[NQ][kAcc];  // held[NQ - 1] is never used
+  float acc[kAcc];
+#pragma unroll
+  for (int j = 0; j < NQ; ++j) {
+    tf32_stream<kSumK, kPasses>(acc, H4, kbs, ring, lt, kTf32ImageBytes);
+    epilogue(c * NQ + j, acc);
+    if (j < NQ - 1) {
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) held[j][i] = acc[i];
+    }
+  }
+  named_barrier(1, 2 * kWgThreads);
+#pragma unroll
+  for (int j = 0; j < NQ - 1; ++j) store_chunk(H4, c * NQ + j, lt, held[j]);
+  store_chunk(H4, c * NQ + NQ - 1, lt, acc);
+  named_barrier(1, 2 * kWgThreads);
+}
+
+// softplus(beta v) / beta = (max(t, 0) + log1p(exp(-|t|))) * RN(1 / beta),
+// t = beta v, on the f32 library functions (within an ulp of the division
+// by beta, whose slow path spilled registers and made the f32 fused forward
+// 31% slower); or ReLU
+template <bool kSoftplus>
+__device__ __forceinline__ float activate_f32(float v, float beta, float rb) {
+  if constexpr (kSoftplus) {
+    const float t = __fmul_rn(beta, v);
+    return __fmul_rn(__fadd_rn(fmaxf(t, 0.f), log1pf(expf(-fabsf(t)))), rb);
+  } else {
+    return fmaxf(v, 0.f);
   }
 }
 

@@ -21,9 +21,14 @@ from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
+# -split-compile=0: nvcc runs its optimiser over a source's kernels on every
+# core of the machine (one nvcc per source is started for all at once), which
+# more than halves the build of fused_igr.cu and fused_mlp.cu, the longest,
+# with no spills (chip_smoke.py's phase 2 prints the build times and ptxas's
+# report, and checks every entry's SASS)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-split-compile=0",
 )
 
 # flags of one source only. sdf_streams: no contraction of a*b+c into FMA by

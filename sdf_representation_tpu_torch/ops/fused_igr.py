@@ -36,18 +36,19 @@ through f32 to bf16 at the JAX kernels' points: the value every f32
 summation order approximates, the same on every device (as
 fused_mlp.forward_plain).
 
-On a card the bf16 kernels run on the tensor cores (``FusedNet.igr_tiles`` is
-their weight image). The forward stashes the rounded act'(z) as bf16 in a
-workspace; the backward writes each layer's [act(z); tcz s] and rounded
-[dz; dtcz] tiles to a bf16 workspace (``_workspace_sets``) and db per tile to
-a partial-sum buffer, and a second kernel, launched from the same call, owns
-the tiles of dW and sums over all points' rows in a fixed order
-(``dw_plan``), then db over the tiles: two launches give the same gradients
-bit for bit. ``images_plain`` and ``dw_pass_plain`` are the plain versions of
-the backward's two passes (its workspace, and dW from a workspace). The f32
-kernels run on the CUDA cores with an f32 stash, a transposed weight copy
-(``FusedNet.transposed``) and dW / db added by atomics, whose order changes
-run to run.
+On a card both types run on the tensor cores: bf16 products in bf16
+(``FusedNet.igr_tiles`` is their weight image), f32 ones as three TF32
+products of operands split in two halves (``FusedNet.igr_tf32_tiles``;
+``fused_value_and_grad_tf32_model`` and ``fused_param_grads_tf32_model``
+emulate them, and with one pass the single-TF32 control). The forward
+stashes act'(z) (bf16: rounded) in a workspace; the backward writes each
+layer's [act(z); tcz s] and [dz; dtcz] to a workspace (``_workspace_sets``,
+``_workspace_sets_f32``) and db per tile (f32: per warp) to a partial-sum
+buffer, and a second kernel, launched from the same call, owns the tiles of
+dW and sums over all points' rows in a fixed order (``dw_plan``), then db
+over the tiles: two launches give the same gradients bit for bit, in either
+type. ``images_plain`` and ``dw_pass_plain`` are the plain versions of the
+backward's two passes (its workspace, and dW from a workspace).
 """
 
 from __future__ import annotations
@@ -61,18 +62,20 @@ import torch
 from .. import kernels
 from ..models.implicit_net import softplus_beta
 from ..parallel.mesh import ProcessMesh, gather, get_mesh, over_ranks, replicate, shard_batch
-from .fused_mlp import INV_SQRT2, MAX_D_IN, MAX_WIDTH, FusedNet, _rounded, swizzle_128b
+from .fused_mlp import INV_SQRT2, MAX_D_IN, MAX_WIDTH, FusedNet, _rounded, split_tf32, swizzle_128b
 
-# f32 (the SIMT routine of csrc/fused_igr.cu, namespace simt)
-FWD_TILE_P = 64     # points per CUDA block, forward (kRows)
-BWD_TILE_P = 32     # points per CUDA block, backward (kBwdPts): two tile rows each
-TILE_ROWS = 64      # workspace rows per block in both kernels
-# bf16 (the tensor-core routine, namespace tc)
+# f32 (the split-TF32 routines of csrc/fused_igr.cu, namespace tf32): one
+# 64-row tile per CTA
+FWD_TILE_P = 64     # points per CTA, forward (kFwdPts): a row each
+BWD_TILE_P = 32     # points per CTA, backward (kBwdPts): a primal and a tangent row each
+TILE_ROWS = 64      # tile rows per CTA in both kernels
+PLAN_FIELDS_F32 = 11  # int64 per job of the f32 dW pass (kPlan)
+# bf16 (the bf16 tensor-core routine, namespace tc)
 FWD_CTA_P = 128     # points per CTA, forward (kFwdCtaPts): 64 per consumer warpgroup
 BWD_CTA_P = 64      # points per CTA, backward (kBwdCtaPts): two 64-row tiles
 TILE_POINTS = 32    # points of a backward tile: a primal and a tangent row each (kTilePts)
 IMG_BLOCK = 64 * 64  # elements of one workspace image block (kImgBlock)
-PLAN_FIELDS = 10    # int64 per job of the dW pass (kPlan)
+PLAN_FIELDS = 10    # int64 per job of the bf16 dW pass (kPlan)
 
 # kernel launches per wrapper; chip_smoke.py zeroes them around the main path
 LAUNCHES = {"igr_fwd": 0, "igr_bwd": 0}
@@ -125,9 +128,48 @@ def _plain_arith(net: FusedNet):
     return work, rnd, layers
 
 
+def _matmul(t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return t @ w
+
+
+def _tf32_product(passes: int):
+    """t @ w as the split-TF32 kernels compute it: over the TF32 halves of
+    both operands (``split_tf32``; passes 3: hi.hi + hi.lo + lo.hi, 1: hi.hi,
+    a single TF32 pass), summed in f64 and rounded to f32."""
+    if passes not in (1, 3):
+        raise ValueError(f"passes must be 1 or 3, got {passes}")
+
+    def product(t, w):
+        (th, tl), (wh, wl) = split_tf32(t), split_tf32(w)
+        acc = th.double() @ wh.double()
+        if passes == 3:
+            acc = acc + th.double() @ wl.double() + tl.double() @ wh.double()
+        return acc.float()
+
+    return product
+
+
 def fused_value_and_grad_plain(net: FusedNet, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """What ``igr_fwd`` computes, in PyTorch: (f (N,), grad_x f (N, d_in)),
     f32."""
+    return _value_and_grad(net, x, _matmul)
+
+
+def fused_value_and_grad_tf32_model(net: FusedNet, x: torch.Tensor,
+                                    passes: int = 3) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The f32 ``igr_fwd`` as the split-TF32 kernel rounds it: every product
+    of the hidden activations or of the cotangents with a hidden-input
+    matrix (the head's included; not the head's reverse step, an outer
+    product of one multiply a term) over the TF32 halves of its operands,
+    summed in f64 (``_tf32_product``); every other step the plain f32
+    version's. passes=1 is the single TF32 pass that the f32 limits must
+    reject."""
+    if net.dtype != torch.float32:
+        raise ValueError("the split-TF32 emulation is of the f32 kernels")
+    return _value_and_grad(net, x, _tf32_product(passes))
+
+
+def _value_and_grad(net: FusedNet, x: torch.Tensor, product) -> Tuple[torch.Tensor, torch.Tensor]:
     work, rnd, layers = _plain_arith(net)
     beta = net.beta
     x = rnd(x.to(work))
@@ -136,9 +178,9 @@ def fused_value_and_grad_plain(net: FusedNet, x: torch.Tensor) -> Tuple[torch.Te
         if kind == "first":
             z = x @ w_x + b
         elif kind == "skip":
-            z = (h @ w_h + x @ w_x) * INV_SQRT2 + b
+            z = (product(h, w_h) + x @ w_x) * INV_SQRT2 + b
         else:
-            z = h @ w_h + b
+            z = product(h, w_h) + b
         if layer < len(layers) - 1:
             stash.append(rnd(_sigma(z, beta)))
             h = rnd(_act(z, beta))
@@ -155,16 +197,19 @@ def fused_value_and_grad_plain(net: FusedNet, x: torch.Tensor) -> Tuple[torch.Te
         if w_x is not None:
             dx = dx + (dz_c @ w_x.T) * scale
         if layer > 0:
-            dz = (dz_c @ w_h.T) * scale * stash[layer - 1]
+            mm = _matmul if layer == len(layers) - 1 else product
+            dz = mm(dz_c, w_h.T) * scale * stash[layer - 1]
     return f[:, 0].float(), dx.float()
 
 
 def _param_grad_chain(net: FusedNet, x: torch.Tensor, a: torch.Tensor, c: torch.Tensor,
-                      live: Optional[int] = None):
+                      live: Optional[int] = None, product=_matmul):
     """The plain backward's values, in ``_plain_arith``'s dtype: (x, c
     rounded, per layer (its input rows h_prev and tc_prev, its cotangents dz
     and dtcz before rounding)). Rows at or past ``live`` get zero seeds (the
-    kernels' padded points)."""
+    kernels' padded points). ``product(t, w)``: the products with the
+    hidden-input matrices but the head's reverse step (``_tf32_product``
+    for the split-TF32 emulation)."""
     work, rnd, layers = _plain_arith(net)
     beta = net.beta
     n_lin = len(layers)
@@ -175,9 +220,9 @@ def _param_grad_chain(net: FusedNet, x: torch.Tensor, a: torch.Tensor, c: torch.
         if kind == "first":
             z, tcz = x @ w_x, c @ w_x
         elif kind == "skip":
-            z, tcz = (h @ w_h + x @ w_x) * INV_SQRT2, (tc @ w_h + c @ w_x) * INV_SQRT2
+            z, tcz = (product(h, w_h) + x @ w_x) * INV_SQRT2, (product(tc, w_h) + c @ w_x) * INV_SQRT2
         else:
-            z, tcz = h @ w_h, tc @ w_h
+            z, tcz = product(h, w_h), product(tc, w_h)
         z = z + b  # the bias belongs to the primal chain only
         if layer < n_lin - 1:
             h, tc = rnd(_act(z, beta)), rnd(tcz * _sigma(z, beta))
@@ -200,7 +245,8 @@ def _param_grad_chain(net: FusedNet, x: torch.Tensor, a: torch.Tensor, c: torch.
         h_prev, tc_prev = (x, c) if layer == 0 else stash[layer - 1]
         chain[layer] = (h_prev, tc_prev, dz, dtcz)
         if layer > 0:
-            dh, dtc = (rnd(dz) @ w_h.T) * scale, (rnd(dtcz) @ w_h.T) * scale
+            mm = _matmul if layer == n_lin - 1 else product
+            dh, dtc = mm(rnd(dz), w_h.T) * scale, mm(rnd(dtcz), w_h.T) * scale
             if beta > 0:
                 s = 1.0 - torch.exp(-beta * h_prev)  # sigmoid(beta z) from the stashed act(z)
                 dz = dh * s + (dtc * tc_prev) * (beta * (1.0 - s))
@@ -216,20 +262,42 @@ def fused_param_grads_plain(net: FusedNet, x: torch.Tensor, a: torch.Tensor,
     """What ``igr_bwd`` computes, in PyTorch, step by step: the padded f32
     gradients of sum_b [a_b f_b + c_b . grad_x f(x_b)] w.r.t. every weight
     and bias."""
+    return _param_grads(net, x, a, c, None)
+
+
+def fused_param_grads_tf32_model(net: FusedNet, x: torch.Tensor, a: torch.Tensor, c: torch.Tensor,
+                                 passes: int = 3) -> PaddedGrads:
+    """The f32 ``igr_bwd`` as the split-TF32 kernels round it: both chains'
+    products and the reverse products with the hidden-input matrices as in
+    ``fused_value_and_grad_tf32_model``, and each dW (dW_x too) as one
+    product of [h; tc]^T and [dz; dtcz] over all rows, over the TF32 halves
+    of both, summed in f64; every other step the plain f32 version's."""
+    if net.dtype != torch.float32:
+        raise ValueError("the split-TF32 emulation is of the f32 kernels")
+    return _param_grads(net, x, a, c, _tf32_product(passes))
+
+
+def _param_grads(net: FusedNet, x: torch.Tensor, a: torch.Tensor, c: torch.Tensor, product) -> PaddedGrads:
     _, rnd, layers = _plain_arith(net)
-    x, c, chain = _param_grad_chain(net, x, a, c)
+    x, c, chain = _param_grad_chain(net, x, a, c, product=product or _matmul)
     grads: PaddedGrads = []
     for (kind, w_h, w_x, _), (h_prev, tc_prev, dz, dtcz) in zip(layers, chain):
         scale = INV_SQRT2 if kind == "skip" else 1.0
         dz_c, dtcz_c = rnd(dz), rnd(dtcz)
-        g_h = None if w_h is None else ((h_prev.T @ dz_c + tc_prev.T @ dtcz_c) * scale).float()
-        g_x = None if w_x is None else ((x.T @ dz_c + c.T @ dtcz_c) * scale).float()
+
+        def rows_product(u, t):  # [u; t]^T [dz; dtcz]
+            if product is None:
+                return u.T @ dz_c + t.T @ dtcz_c
+            return product(torch.cat([u, t]).T, torch.cat([dz_c, dtcz_c]))
+
+        g_h = None if w_h is None else (rows_product(h_prev, tc_prev) * scale).float()
+        g_x = None if w_x is None else (rows_product(x, c) * scale).float()
         grads.append((g_h, g_x, dz.sum(dim=0).float()))
     return grads
 
 
 # ---------------------------------------------------------------------------
-# the bf16 backward's workspace and the plan of its dW pass
+# the backward's workspaces and the plans of its dW pass
 # ---------------------------------------------------------------------------
 
 def _workspace_sets(n_lin: int, h_pad: int) -> Tuple[Dict, int]:
@@ -247,6 +315,26 @@ def _workspace_sets(n_lin: int, h_pad: int) -> Tuple[Dict, int]:
     for l in range(n_lin):
         sets["cot", l] = ((n_lin - 1) * hb + 1 + l * hb, hb if l < n_lin - 1 else 2)
     return sets, 2 * (n_lin - 1) * hb + 3
+
+
+def _workspace_sets_f32(n_lin: int, h_pad: int) -> Tuple[Dict, int]:
+    """The sets of the f32 backward's workspace (``tf32::Sets`` in
+    csrc/fused_igr.cu), {("stash", l): [act(z); tcz s] of hidden layer l,
+    "coords": [x; c], ("cot", l): [dz; dtcz] of layer l} -> (base, floats
+    per tile), base in floats per tile before the set; and the floats per
+    tile in all. Tile T of a set starts at float base * tiles + T * size. A
+    tile holds 32 points, 32 T .. 32 T + 31. The stash and coords sets are
+    64 x width in the slot order (``_slot_image``), the cot sets the dW
+    pass's split images (``_cot_image``)."""
+    stash = 64 * h_pad
+    sets: Dict = {("stash", l): (l * stash, stash) for l in range(n_lin - 1)}
+    sets["coords"] = ((n_lin - 1) * stash, 4096)
+    base = (n_lin - 1) * stash + 4096
+    for l in range(n_lin):
+        size = 128 * (h_pad if l < n_lin - 1 else 128)
+        sets["cot", l] = (base, size)
+        base += size
+    return sets, base
 
 
 @functools.lru_cache(maxsize=None)
@@ -268,21 +356,59 @@ def _dw_jobs(layout: Tuple[Tuple[int, ...], ...], d_in: int, h_pad: int) -> Tupl
     return tuple(jobs)
 
 
+@functools.lru_cache(maxsize=None)
+def _dw_jobs_f32(layout: Tuple[Tuple[int, ...], ...], d_in: int, h_pad: int) -> Tuple[Tuple[int, ...], ...]:
+    sets, _ = _workspace_sets_f32(len(layout), h_pad)
+    jobs = []
+    for layer, (k, n, skip, _, w_off, wx_off) in enumerate(layout):
+        b_base, b_size = sets["cot", layer]
+        operands = []
+        if w_off >= 0:  # dW_h = [h; tc]^T [dz; dtcz] of the layer below
+            operands.append((sets["stash", layer - 1], w_off, k))
+        if wx_off >= 0:  # dW_x = [x; c]^T [dz; dtcz], d_in rows
+            operands.append((sets["coords"], wx_off, d_in))
+        for (a_base, a_size), off, rows in operands:
+            for mb in range(-(-rows // 128)):
+                live = min(128, rows - 128 * mb)
+                for nb in range(n // 128):
+                    jobs.append((a_base, a_size, 8192 * mb, -(-live // 64), b_base, b_size, 16384 * nb,
+                                 off + 128 * mb * n + 128 * nb, n, live, skip))
+    return tuple(jobs)
+
+
 def dw_plan(net: FusedNet) -> Tuple[Tuple[int, ...], ...]:
-    """The jobs of the bf16 backward's dW pass, one CTA each (``kPlan`` in
-    csrc/fused_igr.cu): a 64 x 128 tile of one layer's dW_h or dW_x,
-    (A set base, A blocks per tile, A block, B set base, B blocks per tile,
-    first of the two B blocks, offset of the tile's first element in the
-    packed gradient buffer, its row stride, rows written, skip). The tile is
-    the sum over every workspace tile, in order, of A's 64 rows x 64
-    columns transposed times B's 64 rows x 128 columns, times 1/sqrt(2)
-    where skip; the jobs cover the packed weight buffer once."""
-    return _dw_jobs(tuple(tuple(r) for r in net.layout), net.d_in, net.h_pad)
+    """The jobs of the backward's dW pass, one CTA each (``kPlan`` in
+    csrc/fused_igr.cu), together covering the packed weight buffer once.
+    bf16: a 64 x 128 tile of one layer's dW_h or dW_x, (A set base, A
+    blocks per tile, A block (the 64 rows of dW), B set base, B blocks per
+    tile, first of the two B blocks, offset of the tile's first element in
+    the packed gradient buffer, its row stride, rows written, skip): the sum
+    over every workspace tile, in order, of A's 64 rows x 64 columns
+    transposed times B's 64 rows x 128 columns, times 1/sqrt(2) where skip.
+    f32: a 128 x 128 tile, (A set base, A floats per tile, A offset in the
+    tile, A blocks of 64 columns (1 or 2), B set base, B floats per tile, B
+    offset in the tile, then as bf16): the same sum over the [h; tc] and
+    [dz; dtcz] rows of every tile."""
+    jobs = _dw_jobs_f32 if net.dtype == torch.float32 else _dw_jobs
+    return jobs(tuple(tuple(r) for r in net.layout), net.d_in, net.h_pad)
 
 
 @functools.lru_cache(maxsize=None)
 def _plan_on(jobs: Tuple[Tuple[int, ...], ...], device) -> torch.Tensor:
     return torch.tensor(jobs, dtype=torch.int64, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def dw_splits(n_jobs: int, tiles: int, device) -> int:
+    """Parts the f32 dW pass cuts each job's rows into: as many as keep
+    n_jobs x parts CTAs within one wave of the card's SMs (1 at 8x512, 3 at
+    8x256 on 132 SMs), at most one per tile. The parts are summed in order,
+    so the result depends on the card's SM count, and on nothing else."""
+    return max(1, min(_sm_count(device) // n_jobs, tiles))
 
 
 def _tile_rows(primal: torch.Tensor, tangent: torch.Tensor) -> torch.Tensor:
@@ -301,16 +427,71 @@ def _image(rows: torch.Tensor, width: int) -> torch.Tensor:
     return swizzle_128b(rows.reshape(tiles, 64, width // 64, 64).permute(0, 2, 1, 3))
 
 
+def _slot_image(primal: torch.Tensor, tangent: torch.Tensor, width: int) -> torch.Tensor:
+    """(tiles * 32, <= width) f32 primal and tangent rows of the points ->
+    (tiles, width / 8, 128, 4), zero-padded to ``width`` columns, in the
+    slot order of csrc/hopper.cuh: group g, slot t = 32 w + 4 i + q holds
+    point 8 w + i of the tile at columns 8 g + 2 q, + 1 as (primal, tangent,
+    primal, tangent)."""
+    tiles = primal.shape[0] // TILE_POINTS
+
+    def split(t):  # (tiles, w, i, g, q, e): point 8 w + i, column 8 g + 2 q + e
+        t = torch.nn.functional.pad(t.float(), (0, width - t.shape[1]))
+        return t.reshape(tiles, 4, 8, width // 8, 4, 2)
+
+    both = torch.stack([split(primal), split(tangent)], dim=-1)  # component 2 e + tangent
+    return both.permute(0, 3, 1, 2, 4, 5, 6).reshape(tiles, width // 8, 128, 4)
+
+
+def _slot_rows(image: torch.Tensor, width: int) -> torch.Tensor:
+    """``_slot_image`` inverted: (tiles, width / 8, 128, 4) -> (tiles * 32,
+    2, width), each point's primal and tangent row."""
+    tiles = image.shape[0]
+    t = image.reshape(tiles, width // 8, 4, 8, 4, 2, 2).permute(0, 2, 3, 6, 1, 4, 5)
+    return t.reshape(tiles * TILE_POINTS, 2, width)
+
+
+def _cot_image(dz: torch.Tensor, dtcz: torch.Tensor, width: int) -> torch.Tensor:
+    """(tiles * 32, <= width) f32 cotangents of the points' primal and
+    tangent rows -> the f32 dW pass's B images (tiles, width / 128, 2 K
+    blocks, hi / lo, 128, 32): per 128 columns and 32 K, the hi and the lo
+    half (``split_tf32``) of the block transposed (columns as rows), K slot
+    8 u + j of K block kb the primal (j < 4) or tangent row of point 16 kb +
+    4 u + j % 4, in the 128-byte swizzle."""
+    tiles = dz.shape[0] // TILE_POINTS
+
+    def split(t):  # (tiles, kb, u, j, column)
+        t = torch.nn.functional.pad(t.float(), (0, width - t.shape[1]))
+        return t.reshape(tiles, 2, 4, 4, width)
+
+    k = torch.stack([split(dz), split(dtcz)], dim=3).reshape(tiles, 2, 32, width)
+    img = torch.stack(split_tf32(k), dim=2)  # (tiles, kb, hi / lo, K, column)
+    img = img.reshape(tiles, 2, 2, 32, width // 128, 128).permute(0, 4, 1, 2, 5, 3)
+    return swizzle_128b(img.contiguous())
+
+
+def _cot_rows(image: torch.Tensor, width: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_cot_image`` inverted: -> the hi and the lo halves, each (tiles *
+    32, 2, width): each point's primal and tangent row."""
+    tiles = image.shape[0]
+    t = swizzle_128b(image).permute(0, 2, 5, 3, 1, 4)  # (tiles, kb, K, hi / lo, blocks, 128)
+    t = t.reshape(tiles, 2, 4, 2, 4, 2, width).permute(0, 1, 2, 4, 3, 5, 6)  # (.., u, j, tangent, hi / lo, col)
+    t = t.reshape(tiles * TILE_POINTS, 2, 2, width)
+    return t[:, :, 0], t[:, :, 1]
+
+
 def images_plain(net: FusedNet, x: torch.Tensor, a: torch.Tensor,
                  c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """What the bf16 ``igr_bwd`` writes before its dW pass, from the plain
-    backward's values: (the bf16 workspace of ``_workspace_sets``, flat; the
-    (tiles, biases) f32 sums of each tile's dz). Points are padded to whole
-    CTAs with zeros and zero seeds, as in the kernel."""
-    if net.dtype != torch.bfloat16:
-        raise ValueError("the workspace is the bf16 kernel's")
+    """What ``igr_bwd`` writes before its dW pass, from the plain backward's
+    values: (the workspace of ``_workspace_sets`` (bf16) or
+    ``_workspace_sets_f32`` (f32), flat; the f32 sums of dz per tile (bf16:
+    (tiles, biases)) or per warp's 8 points (f32: (tiles, 4, biases))).
+    Points are padded to whole CTAs with zeros and zero seeds, as in the
+    kernel."""
     n = x.shape[0]
-    pts = -(-n // BWD_CTA_P) * BWD_CTA_P
+    f32 = net.dtype == torch.float32
+    cta = BWD_TILE_P if f32 else BWD_CTA_P
+    pts = -(-n // cta) * cta
     tiles = pts // TILE_POINTS
 
     def pad(t):
@@ -318,33 +499,64 @@ def images_plain(net: FusedNet, x: torch.Tensor, a: torch.Tensor,
 
     xr, cr, chain = _param_grad_chain(net, pad(x), pad(a), pad(c), live=n)
     n_lin = len(chain)
-    sets, _ = _workspace_sets(n_lin, net.h_pad)
     ws, partial = (t.zero_() for t in _workspace(net, n, True))
+    if f32:
+        sets, _ = _workspace_sets_f32(n_lin, net.h_pad)
 
-    def put(key, rows, width):
+        def put(key, image):
+            base, size = sets[key]
+            ws[base * tiles:base * tiles + size * tiles] = image.reshape(-1)
+
+        put("coords", _slot_image(xr, cr, 64))
+        for layer, (h_prev, tc_prev, dz, dtcz) in enumerate(chain):
+            width, b_off = net.layout[layer][1], net.layout[layer][3]
+            if layer > 0:
+                put(("stash", layer - 1), _slot_image(h_prev, tc_prev, net.h_pad))
+            put(("cot", layer), _cot_image(dz, dtcz, width))
+            partial[:, :, b_off:b_off + dz.shape[1]] = dz.reshape(tiles, 4, 8, -1).sum(dim=2)
+        return ws, partial
+    sets, _ = _workspace_sets(n_lin, net.h_pad)
+
+    def put_bf16(key, rows, width):
         base, blocks = sets[key]
         ws[base * tiles * IMG_BLOCK:(base + blocks) * tiles * IMG_BLOCK] = \
             _image(rows, width).reshape(-1).to(torch.bfloat16)
 
-    put("coords", _tile_rows(xr, cr), 64)
+    put_bf16("coords", _tile_rows(xr, cr), 64)
     for layer, (h_prev, tc_prev, dz, dtcz) in enumerate(chain):
         width, b_off = net.layout[layer][1], net.layout[layer][3]
         if layer > 0:
-            put(("stash", layer - 1), _tile_rows(h_prev, tc_prev), net.h_pad)
-        put(("cot", layer), _tile_rows(_rounded(dz), _rounded(dtcz)), width)
+            put_bf16(("stash", layer - 1), _tile_rows(h_prev, tc_prev), net.h_pad)
+        put_bf16(("cot", layer), _tile_rows(_rounded(dz), _rounded(dtcz)), width)
         partial[:, b_off:b_off + dz.shape[1]] = dz.reshape(tiles, TILE_POINTS, -1).sum(dim=1)
     return ws, partial
 
 
 def dw_pass_plain(net: FusedNet, ws: torch.Tensor, partial: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """What the bf16 backward's dW pass computes from a workspace: (the
-    packed f32 weight gradients, the f32 bias gradients), each job's tile
-    summed over all workspace rows in f64 (the bf16 products and their sums
-    exact), db the partial sums over the tiles, then rounded to f32."""
+    """What the backward's dW pass computes from a workspace: (the packed
+    f32 weight gradients, the f32 bias gradients), each job's tile summed
+    over all workspace rows in f64 and rounded to f32, db the partial sums
+    over the tiles (and warps). bf16: the products of the bf16 images (exact
+    in f64). f32: the three split-TF32 products of [h; tc], split here as the
+    kernel splits it, with the hi and lo images of [dz; dtcz]."""
     tiles = partial.shape[0]
     wbuf, _, _ = net.packed
     gw = torch.empty(wbuf.numel(), dtype=torch.float32, device=ws.device)
+    if net.dtype == torch.float32:
+        for (a_base, a_size, a_off, a_blocks, b_base, b_size, b_off, off, stride, n_rows,
+             skip) in dw_plan(net):
+            a_img = ws[a_base * tiles:(a_base + a_size) * tiles].reshape(tiles, a_size)
+            a_img = a_img[:, a_off:a_off + 4096 * a_blocks].reshape(tiles, 8 * a_blocks, 128, 4)
+            b_img = ws[b_base * tiles:(b_base + b_size) * tiles].reshape(tiles, b_size)
+            b_img = b_img[:, b_off:b_off + 16384].reshape(tiles, 1, 2, 2, 128, 32)
+            ah, al = (t.reshape(-1, 64 * a_blocks).double() for t in split_tf32(_slot_rows(a_img, 64 * a_blocks)))
+            bh, bl = (t.reshape(-1, 128).double() for t in _cot_rows(b_img, 128))
+            tile = ah.T @ bh + ah.T @ bl + al.T @ bh
+            if skip:
+                tile = tile * INV_SQRT2
+            gw.as_strided((n_rows, 128), (stride, 1), off).copy_(tile[:n_rows])
+        return gw, partial.double().sum(dim=(0, 1)).float()
 
     def rows(base, blocks, first, count):
         img = ws[base * tiles * IMG_BLOCK:(base + blocks) * tiles * IMG_BLOCK]
@@ -367,20 +579,22 @@ def dw_pass_plain(net: FusedNet, ws: torch.Tensor, partial: torch.Tensor
 def _lib() -> ctypes.CDLL:
     lib = kernels.load("fused_igr")
     P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    lib.sdf_igr_fwd_f32.argtypes = [P, L, I, P, P, I, I, F, P, P, P, P, L, P, P, P]
-    lib.sdf_igr_bwd_f32.argtypes = [P, P, P, L, I, P, P, I, I, F, P, P, P, P, L, P, P, P]
+    lib.sdf_igr_fwd_f32.argtypes = [P, L, I, P, I, I, F, P, P, P, P, P, P, P]
+    lib.sdf_igr_bwd_f32.argtypes = [P, P, P, L, I, P, I, I, F, P, P, P, P, P, I, P, I, I, P, P, L, P, P]
+    lib.sdf_igr_dw_f32.argtypes = [P, I, I, P, L, P, P, L, P, I, P, P]
     lib.sdf_igr_fwd_bf16.argtypes = [P, L, I, P, I, I, F, P, P, P, P, P, P, P]
     lib.sdf_igr_bwd_bf16.argtypes = [P, P, P, L, I, P, I, I, F, P, P, P, P, P, I, P, I, P, P, P]
     lib.sdf_igr_dw_bf16.argtypes = [P, I, P, L, P, P, I, P, P]
-    for fn in (lib.sdf_igr_fwd_f32, lib.sdf_igr_bwd_f32, lib.sdf_igr_fwd_bf16, lib.sdf_igr_bwd_bf16,
-               lib.sdf_igr_dw_bf16):
+    for fn in (lib.sdf_igr_fwd_f32, lib.sdf_igr_bwd_f32, lib.sdf_igr_dw_f32, lib.sdf_igr_fwd_bf16,
+               lib.sdf_igr_bwd_bf16, lib.sdf_igr_dw_bf16):
         fn.restype = I
     lib.sdf_igr_cta_points.argtypes = [I, I]
+    lib.sdf_igr_plan_fields.argtypes = [I]
     lib.sdf_igr_error_string.argtypes = [I]
     lib.sdf_igr_error_string.restype = ctypes.c_char_p
     tiles = [lib.sdf_igr_cta_points(bf16, bwd) for bf16 in (0, 1) for bwd in (0, 1)]
     if (tiles != [FWD_TILE_P, BWD_TILE_P, FWD_CTA_P, BWD_CTA_P] or lib.sdf_igr_max_width() != MAX_WIDTH
-            or lib.sdf_igr_plan_fields() != PLAN_FIELDS):
+            or [lib.sdf_igr_plan_fields(bf16) for bf16 in (0, 1)] != [PLAN_FIELDS_F32, PLAN_FIELDS]):
         raise RuntimeError("csrc/fused_igr.cu and ops/fused_igr.py disagree on the tile shape")
     return lib
 
@@ -413,21 +627,25 @@ def _cuda_args(net: FusedNet, *tensors: torch.Tensor):
 
 def _workspace(net: FusedNet, n: int, backward: bool) -> Tuple[torch.Tensor, ...]:
     """One launch's workspace at n points, written and read back by the
-    kernels. f32: the stash, (hidden layers, 64 rows per block, h_pad) f32.
-    bf16: forward the stash of act'(z), flat bf16 over whole CTAs; backward
-    the image workspace of ``_workspace_sets``, flat bf16, and the (tiles,
-    biases) f32 db partial sums."""
+    kernels. Forward: the stash of act'(z), (hidden layers x whole CTAs x
+    h_pad) values, f32 or bf16. Backward: the workspace of
+    ``_workspace_sets_f32`` (f32) or ``_workspace_sets`` (bf16), flat, and
+    the f32 db partial sums, (tiles, 4 warps, biases) or (tiles, biases)."""
     hidden, dev = len(net.spec) - 1, net.device
-    if net.dtype != torch.bfloat16:
-        rows = -(-n // (BWD_TILE_P if backward else FWD_TILE_P)) * TILE_ROWS
-        return (torch.empty((hidden, rows, net.h_pad), dtype=torch.float32, device=dev),)
+    f32 = net.dtype == torch.float32
     if not backward:
-        return (torch.empty(hidden * -(-n // FWD_CTA_P) * FWD_CTA_P * net.h_pad, dtype=torch.bfloat16,
-                            device=dev),)
+        cta = FWD_TILE_P if f32 else FWD_CTA_P
+        return (torch.empty(hidden * -(-n // cta) * cta * net.h_pad, dtype=net.dtype, device=dev),)
+    n_bias = net.packed[1].numel()
+    if f32:
+        tiles = -(-n // BWD_TILE_P)
+        _, total = _workspace_sets_f32(len(net.spec), net.h_pad)
+        return (torch.empty(total * tiles, dtype=torch.float32, device=dev),
+                torch.empty((tiles, 4, n_bias), dtype=torch.float32, device=dev))
     tiles = -(-n // BWD_CTA_P) * (BWD_CTA_P // TILE_POINTS)
     _, total = _workspace_sets(len(net.spec), net.h_pad)
     return (torch.empty(total * tiles * IMG_BLOCK, dtype=torch.bfloat16, device=dev),
-            torch.empty((tiles, net.packed[1].numel()), dtype=torch.float32, device=dev))
+            torch.empty((tiles, n_bias), dtype=torch.float32, device=dev))
 
 
 def _record_workspace(kernel: str, work: Sequence[torch.Tensor]) -> None:
@@ -451,18 +669,13 @@ def fused_value_and_grad(net: FusedNet, x: torch.Tensor) -> Tuple[torch.Tensor, 
     if n:
         (stash,) = work = _workspace(net, n, False)
         _record_workspace("igr_fwd", work)
+        bf16 = net.dtype == torch.bfloat16
+        launch = _lib().sdf_igr_fwd_bf16 if bf16 else _lib().sdf_igr_fwd_f32
+        tiles = net.igr_tiles if bf16 else net.igr_tf32_tiles
         with torch.cuda.device(x.device):
-            if net.dtype == torch.bfloat16:
-                rc = _lib().sdf_igr_fwd_bf16(
-                    x.data_ptr(), n, net.d_in, desc.data_ptr(), len(net.spec), net.h_pad, net.beta,
-                    wbuf.data_ptr(), bbuf.data_ptr(), net.igr_tiles.data_ptr(), stash.data_ptr(),
-                    f.data_ptr(), g.data_ptr(), stream)
-            else:
-                wt, wt_off = net.transposed
-                rc = _lib().sdf_igr_fwd_f32(
-                    x.data_ptr(), n, net.d_in, desc.data_ptr(), wt_off.data_ptr(), len(net.spec),
-                    net.h_pad, net.beta, wbuf.data_ptr(), wt.data_ptr(), bbuf.data_ptr(),
-                    stash.data_ptr(), stash.shape[1], f.data_ptr(), g.data_ptr(), stream)
+            rc = launch(x.data_ptr(), n, net.d_in, desc.data_ptr(), len(net.spec), net.h_pad, net.beta,
+                        wbuf.data_ptr(), bbuf.data_ptr(), tiles.data_ptr(), stash.data_ptr(), f.data_ptr(),
+                        g.data_ptr(), stream)
         _check_launch(rc, "igr_fwd")
         LAUNCHES["igr_fwd"] += 1
     return f, g
@@ -486,34 +699,15 @@ def fused_param_grads(net: FusedNet, x: torch.Tensor, a: torch.Tensor, c: torch.
                          f"got {tuple(a.shape)} and {tuple(c.shape)}")
     if x.device.type == "cpu":
         return fused_param_grads_plain(net, x, a, c)
-    if net.dtype == torch.bfloat16:
-        gw, gb, _ = _bwd_bf16(net, x, a, c)
-        return _padded(net, gw, gb)
-    wbuf, bbuf, desc, stream = _cuda_args(net, x, a, c)
-    n = x.shape[0]
-    # the kernel adds into these with atomics
-    gw = torch.zeros(wbuf.numel(), dtype=torch.float32, device=x.device)
-    gb = torch.zeros(bbuf.numel(), dtype=torch.float32, device=x.device)
-    if n:
-        (stash,) = work = _workspace(net, n, True)
-        _record_workspace("igr_bwd", work)
-        wt, wt_off = net.transposed
-        with torch.cuda.device(x.device):
-            rc = _lib().sdf_igr_bwd_f32(
-                x.data_ptr(), a.data_ptr(), c.data_ptr(), n, net.d_in, desc.data_ptr(),
-                wt_off.data_ptr(), len(net.spec), net.h_pad, net.beta, wbuf.data_ptr(),
-                wt.data_ptr(), bbuf.data_ptr(), stash.data_ptr(), stash.shape[1], gw.data_ptr(),
-                gb.data_ptr(), stream)
-        _check_launch(rc, "igr_bwd")
-        LAUNCHES["igr_bwd"] += 1
+    gw, gb, _ = _bwd_cuda(net, x, a, c)
     return _padded(net, gw, gb)
 
 
-def _bwd_bf16(net: FusedNet, x: torch.Tensor, a: torch.Tensor, c: torch.Tensor
+def _bwd_cuda(net: FusedNet, x: torch.Tensor, a: torch.Tensor, c: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor, Tuple[torch.Tensor, ...]]:
-    """The bf16 backward on a card, ``igr_bwd`` then its dW pass from one C
-    call -> (packed f32 weight gradients, f32 bias gradients, the workspace
-    the first pass wrote: what ``images_plain`` computes; () at N = 0)."""
+    """The backward on a card, ``igr_bwd`` then its dW pass from one C call
+    -> (packed f32 weight gradients, f32 bias gradients, the workspace the
+    first pass wrote: what ``images_plain`` computes; () at N = 0)."""
     wbuf, bbuf, desc, stream = _cuda_args(net, x, a, c)
     n = x.shape[0]
     if not n:  # an empty shard of a mesh: nothing to launch, nothing to add
@@ -523,37 +717,64 @@ def _bwd_bf16(net: FusedNet, x: torch.Tensor, a: torch.Tensor, c: torch.Tensor
     gw = torch.empty(wbuf.numel(), dtype=torch.float32, device=x.device)
     gb = torch.empty(bbuf.numel(), dtype=torch.float32, device=x.device)
     ws, partial = work = _workspace(net, n, True)
-    _record_workspace("igr_bwd", work)
     plan = _plan_on(dw_plan(net), x.device)
     with torch.cuda.device(x.device):
-        rc = _lib().sdf_igr_bwd_bf16(
-            x.data_ptr(), a.data_ptr(), c.data_ptr(), n, net.d_in, desc.data_ptr(),
-            len(net.spec), net.h_pad, net.beta, wbuf.data_ptr(), bbuf.data_ptr(),
-            net.igr_tiles.data_ptr(), ws.data_ptr(), partial.data_ptr(), bbuf.numel(),
-            plan.data_ptr(), plan.shape[0], gw.data_ptr(), gb.data_ptr(), stream)
+        if net.dtype == torch.bfloat16:
+            _record_workspace("igr_bwd", work)
+            rc = _lib().sdf_igr_bwd_bf16(
+                x.data_ptr(), a.data_ptr(), c.data_ptr(), n, net.d_in, desc.data_ptr(),
+                len(net.spec), net.h_pad, net.beta, wbuf.data_ptr(), bbuf.data_ptr(),
+                net.igr_tiles.data_ptr(), ws.data_ptr(), partial.data_ptr(), bbuf.numel(),
+                plan.data_ptr(), plan.shape[0], gw.data_ptr(), gb.data_ptr(), stream)
+        else:
+            splits, split_buf = _split_buffer(net, plan.shape[0], partial.shape[0], gw)
+            _record_workspace("igr_bwd", work + (split_buf,) * (splits > 1))
+            rc = _lib().sdf_igr_bwd_f32(
+                x.data_ptr(), a.data_ptr(), c.data_ptr(), n, net.d_in, desc.data_ptr(),
+                len(net.spec), net.h_pad, net.beta, wbuf.data_ptr(), bbuf.data_ptr(),
+                net.igr_tf32_tiles.data_ptr(), ws.data_ptr(), partial.data_ptr(), bbuf.numel(),
+                plan.data_ptr(), plan.shape[0], splits, split_buf.data_ptr(), gw.data_ptr(), gw.numel(),
+                gb.data_ptr(), stream)
     _check_launch(rc, "igr_bwd")
     LAUNCHES["igr_bwd"] += 1
     return gw, gb, work
 
 
+def _split_buffer(net: FusedNet, n_jobs: int, tiles: int, gw: torch.Tensor) -> Tuple[int, torch.Tensor]:
+    """The f32 dW pass's parts per job (``dw_splits``) and the buffer of
+    their sums (gw itself, unused, with one part)."""
+    splits = dw_splits(n_jobs, tiles, gw.device)
+    if splits == 1:
+        return 1, gw
+    return splits, torch.empty(splits * gw.numel(), dtype=torch.float32, device=gw.device)
+
+
 def dw_pass(net: FusedNet, ws: torch.Tensor, partial: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The bf16 backward's dW pass alone, on a workspace of its first pass
-    (or of ``images_plain``): (packed f32 weight gradients, bias gradients),
-    as ``dw_pass_plain`` computes them. For checks and timings: no wrapper
+    """The backward's dW pass alone, on a workspace of its first pass (or
+    of ``images_plain``): (packed f32 weight gradients, bias gradients), as
+    ``dw_pass_plain`` computes them. For checks and timings: no wrapper
     calls it, and ``LAUNCHES`` does not count it."""
     if ws.device.type == "cpu":
         return dw_pass_plain(net, ws, partial)
     wbuf, bbuf, _, stream = _cuda_args(net, partial)
-    _, total = _workspace_sets(len(net.spec), net.h_pad)
-    if (ws.device != net.device or ws.dtype != torch.bfloat16 or not ws.is_contiguous()
-            or partial.shape[1] != bbuf.numel() or ws.numel() != total * partial.shape[0] * IMG_BLOCK):
-        raise ValueError("not a bf16 backward workspace of this net")
+    f32 = net.dtype == torch.float32
+    sets, total = (_workspace_sets_f32 if f32 else _workspace_sets)(len(net.spec), net.h_pad)
+    tiles = partial.shape[0]
+    if (ws.device != net.device or ws.dtype != net.dtype or not ws.is_contiguous()
+            or partial.shape[-1] != bbuf.numel() or ws.numel() != total * tiles * (1 if f32 else IMG_BLOCK)):
+        raise ValueError("not a backward workspace of this net")
     gw = torch.empty(wbuf.numel(), dtype=torch.float32, device=ws.device)
     gb = torch.empty(bbuf.numel(), dtype=torch.float32, device=ws.device)
     plan = _plan_on(dw_plan(net), ws.device)
     with torch.cuda.device(ws.device):
-        rc = _lib().sdf_igr_dw_bf16(plan.data_ptr(), plan.shape[0], ws.data_ptr(), partial.shape[0],
-                                    gw.data_ptr(), partial.data_ptr(), bbuf.numel(), gb.data_ptr(), stream)
+        if f32:
+            splits, split_buf = _split_buffer(net, plan.shape[0], tiles, gw)
+            rc = _lib().sdf_igr_dw_f32(plan.data_ptr(), plan.shape[0], splits, ws.data_ptr(), tiles,
+                                       split_buf.data_ptr(), gw.data_ptr(), gw.numel(), partial.data_ptr(),
+                                       bbuf.numel(), gb.data_ptr(), stream)
+        else:
+            rc = _lib().sdf_igr_dw_bf16(plan.data_ptr(), plan.shape[0], ws.data_ptr(), tiles, gw.data_ptr(),
+                                        partial.data_ptr(), bbuf.numel(), gb.data_ptr(), stream)
     _check_launch(rc, "igr_dw")
     return gw, gb
 

@@ -204,10 +204,26 @@ class FusedNet:
         blocks, chunk-major; each stage the hi image, then the lo image
         (``split_tf32``) of its (rows, 32) block in the 128-byte swizzle.
         Flat f32: one gather from ``packed``'s weights, split once."""
+        return self._tf32_staged("tf32")
+
+    @functools.cached_property
+    def igr_tf32_tiles(self) -> torch.Tensor:
+        """The weight stages of the f32 eikonal kernels (csrc/fused_igr.cu),
+        in the order both take them: ``tf32_tiles`` (the forward products of
+        layers 1 .. n_lin - 1), then per layer n_lin - 2 .. 1 the stages of
+        the reverse product dz W^T, whose B operand is W itself, K-major
+        over the layer's outputs: W (k, n) with its K axis (n) reordered
+        within each 8 by K_ORDER, cut into CHUNK_N-row chunks (the k
+        inputs) and F32_K_BLOCK-column blocks, chunk-major, each stage the
+        hi then the lo image of its (64, 32) block in the 128-byte swizzle.
+        Flat f32: one gather from ``packed``'s weights, split once."""
+        return self._tf32_staged("igr_tf32")
+
+    def _tf32_staged(self, kind: str) -> torch.Tensor:
         if self.dtype != torch.float32:
-            raise ValueError("tf32_tiles are the f32 kernels' weights")
+            raise ValueError(f"the {kind} stages are the f32 kernels' weights")
         layout = tuple(tuple(row) for row in self.layout)
-        staged = _stage_index(layout, "tf32", self.device)
+        staged = _stage_index(layout, kind, self.device)
         if staged is None:
             return torch.zeros(1, dtype=torch.float32, device=self.device)
         index, is_lo = staged
@@ -224,8 +240,7 @@ class FusedNet:
         (the k inputs, the product's output columns) and K_BLOCK-column
         blocks (the n outputs, its K), chunk-major, each a (64, 64) block in
         the 128-byte swizzle. Flat, in compute_dtype: one gather from
-        ``packed``'s weights, so it costs a step one launch (the f32
-        kernels' ``transposed`` costs a copy per layer)."""
+        ``packed``'s weights, so it costs a step one launch."""
         return self._staged(igr=True)
 
     def _staged(self, igr: bool) -> torch.Tensor:
@@ -235,45 +250,34 @@ class FusedNet:
             return torch.zeros(1, dtype=self.dtype, device=self.device)
         return self.packed[0].index_select(0, index)
 
-    @functools.cached_property
-    def transposed(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(W^T of every hidden-to-hidden matrix, flat in compute_dtype; int64
-        offsets per layer, -1 where a layer has none) for the f32 kernels of
-        csrc/fused_igr.cu, whose reverse sweeps multiply by W^T and stream
-        rows."""
-        mats, offsets, off = [], [], 0
-        for layer, (_, w_h, _, _) in enumerate(self.layers):
-            if w_h is None or layer == len(self.layers) - 1:
-                offsets.append(-1)
-            else:
-                offsets.append(off)
-                mats.append(w_h.T.contiguous().reshape(-1))
-                off += w_h.numel()
-        flat = torch.cat(mats) if mats else torch.zeros(1, dtype=self.dtype, device=self.device)
-        return flat, torch.tensor(offsets, dtype=torch.int64, device=self.device)
-
 
 @functools.lru_cache(maxsize=None)
 def _stage_index(layout: Tuple[Tuple[int, ...], ...], kind: str, device):
     """int32 positions in ``FusedNet.packed``'s weight buffer of the
     elements of ``FusedNet.tiles`` (``kind`` "bf16"), ``FusedNet.igr_tiles``
-    ("igr") or ``FusedNet.tf32_tiles`` ("tf32"), for a net of this
-    ``layout``: the images of the weights' own indices. For "tf32" also a
-    mask of the elements that take the lo half (each position appears
-    twice, in the stage's hi and lo image). None where the net has no
-    hidden-input matrix. Made once per layout and device."""
+    ("igr"), ``FusedNet.tf32_tiles`` ("tf32") or ``FusedNet.igr_tf32_tiles``
+    ("igr_tf32"), for a net of this ``layout``: the images of the weights'
+    own indices. For the f32 kinds also a mask of the elements that take the
+    lo half (each position appears twice, in the stage's hi and lo image).
+    None where the net has no hidden-input matrix. Made once per layout and
+    device."""
     last = len(layout) - 1
     mats = {layer: torch.arange(w_off, w_off + k * n, dtype=torch.int32).view(k, n)
             for layer, (k, n, _, _, w_off, _) in enumerate(layout) if w_off >= 0}
     if not mats:
         return None
-    if kind == "tf32":
-        parts, lo_parts = [], []
-        for layer, m in mats.items():
+    if kind in ("tf32", "igr_tf32"):
+        def k_ordered(m):  # the rows (the product's K) reordered within each 8
             k = m.shape[0]
-            order = torch.arange(k).view(k // 8, 8)[:, list(K_ORDER)].reshape(-1)
-            stages = swizzle_128b(_layer_stages(m[order], layer == last, F32_K_BLOCK))
-            both = torch.stack([stages, stages], dim=2)  # (chunks, k blocks, hi / lo, rows, 32)
+            return m[torch.arange(k).view(k // 8, 8)[:, list(K_ORDER)].reshape(-1)]
+
+        staged = [_layer_stages(k_ordered(m), layer == last, F32_K_BLOCK) for layer, m in mats.items()]
+        if kind == "igr_tf32":
+            staged += [_layer_stages(k_ordered(mats[layer].T), False, F32_K_BLOCK)
+                       for layer in range(last - 1, 0, -1)]
+        parts, lo_parts = [], []
+        for stages in staged:
+            both = torch.stack([swizzle_128b(stages)] * 2, dim=2)  # (chunks, k blocks, hi / lo, rows, 32)
             is_lo = torch.zeros(both.shape, dtype=torch.bool)
             is_lo[:, :, 1] = True
             parts.append(both.reshape(-1))

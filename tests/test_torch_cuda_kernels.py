@@ -270,7 +270,7 @@ def test_igr_kernels_match_plain(device, hidden, layers, skip, beta, n, d_in, dt
     """f, grad f, and every dW and db against the plain versions, at the four
     padded widths (128, 256, 384, 512) and d_in 2-4. Limits: f32 1e-4 of
     each tensor's largest entry (summation order, carried on by sigma' with
-    a factor of up to beta / 4; the atomics' order); bf16 max 1e-2 of it and
+    a factor of up to beta / 4; the split-TF32 products); bf16 max 1e-2 of it and
     mean 1e-3 (a sum in another order can round to the neighbouring bf16
     value)."""
     gen = torch.Generator().manual_seed(hidden + n)
@@ -362,13 +362,64 @@ def test_igr_bwd_bf16_passes(device, hidden, skip, beta, d_in):
     x = (torch.rand(n, d_in, generator=gen) * 2 - 1).to(device)
     a = (torch.randn(n, generator=gen) / n).to(device)
     c = (torch.randn(n, d_in, generator=gen) / n).to(device)
-    _, _, (found_ws, found_partial) = fi._bwd_bf16(net, x, a, c)
+    _, _, (found_ws, found_partial) = fi._bwd_cuda(net, x, a, c)
     ws, partial = fi.images_plain(net, x, a, c)
     torch.cuda.synchronize()
     diff = (found_ws.float() - ws.float()).abs()
     assert float(diff.mean()) <= 1e-2 * float(ws.float().abs().mean())
     scale = float(partial.abs().max())
     assert float((found_partial - partial).abs().mean()) <= 1e-3 * scale
+    gw, gb = fi.dw_pass(net, ws, partial)
+    pw, pb = fi.dw_pass_plain(net, ws, partial)
+    assert float((gw - pw).abs().max()) <= 1e-5 * float(pw.abs().max())
+    assert float((gb - pb).abs().max()) <= 1e-5 * float(pb.abs().max())
+
+
+@pytest.mark.parametrize("beta", [100.0, 0.0])
+def test_igr_bwd_f32_is_reproducible(device, beta):
+    """The f32 backward sums dW and db in a fixed order too (its dW pass
+    owns tiles of dW and loops over the rows in order; db from per-warp
+    partial sums): two launches give the same gradients bit for bit, at N
+    = 4,999 (8x512) and at 5,461 (8x256, where the pass cuts each job's rows
+    into parts summed in order)."""
+    for hidden, n in ((512, 4999), (256, 5461)):
+        gen = torch.Generator().manual_seed(11)
+        model = ImplicitNet(hidden_dims=(hidden,) * 8, skip_in=(4,), beta=beta, radius_init=0.5,
+                            generator=gen, device=device)
+        net = fm.FusedNet(model, torch.float32)
+        x = (torch.rand(n, 3, generator=gen) * 2 - 1).to(device)
+        a = (torch.randn(n, generator=gen) / n).to(device)
+        c = (torch.randn(n, 3, generator=gen) / n).to(device)
+        one, two = fi.fused_param_grads(net, x, a, c), fi.fused_param_grads(net, x, a, c)
+        for p, q in zip(one, two):
+            for u, v in zip(p, q):
+                assert (u is None and v is None) or torch.equal(u, v)
+
+
+@pytest.mark.parametrize("hidden,skip,beta,d_in", [(512, (4,), 100.0, 3), (256, (2,), 0.0, 3),
+                                                   (128, (1,), 100.0, 2)])
+def test_igr_bwd_f32_passes(device, hidden, skip, beta, d_in):
+    """The f32 backward's two passes on their own: the first pass's
+    workspace ([h; tc] in the slot order, [dz; dtcz] as split images)
+    against ``images_plain`` (f32 values that differ by the summation
+    order: the mean difference within 1e-2 of the mean value, where a
+    misplaced row or column reads ~1; the per-warp db sums within 1e-3 of
+    the largest on average), and the dW pass on that same plain workspace
+    against ``dw_pass_plain`` (the split-TF32 products summed in f64:
+    within 1e-5 of each buffer's largest entry)."""
+    gen = torch.Generator().manual_seed(hidden)
+    model = ImplicitNet(d_in=d_in, hidden_dims=(hidden,) * 5, skip_in=skip, beta=beta,
+                        radius_init=0.5, generator=gen, device=device)
+    net = fm.FusedNet(model, torch.float32)
+    n = 1000
+    x = (torch.rand(n, d_in, generator=gen) * 2 - 1).to(device)
+    a = (torch.randn(n, generator=gen) / n).to(device)
+    c = (torch.randn(n, d_in, generator=gen) / n).to(device)
+    _, _, (found_ws, found_partial) = fi._bwd_cuda(net, x, a, c)
+    ws, partial = fi.images_plain(net, x, a, c)
+    torch.cuda.synchronize()
+    assert float((found_ws - ws).abs().mean()) <= 1e-2 * float(ws.abs().mean())
+    assert float((found_partial - partial).abs().mean()) <= 1e-3 * float(partial.abs().max())
     gw, gb = fi.dw_pass(net, ws, partial)
     pw, pb = fi.dw_pass_plain(net, ws, partial)
     assert float((gw - pw).abs().max()) <= 1e-5 * float(pw.abs().max())

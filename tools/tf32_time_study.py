@@ -56,13 +56,13 @@ SOFTPLUS = "return __fmul_rn(__fadd_rn(fmaxf(t, 0.f), log1pf(expf(-fabsf(t)))), 
 RNA = "__device__ __forceinline__ uint32_t tf32_rna(float v) { return (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u; }"
 VARIANTS = {  # name: [(file, text as shipped, replacement)]
     "shipped": [],
-    "hi_only": [("fused_mlp.cu", PRODUCE, PRODUCE.replace(", kF32StageBytes, NQ", ", kF32ImageBytes, NQ"))],
-    "max_act": [("fused_mlp.cu", SOFTPLUS, "return __fmul_rn(fmaxf(t, 0.f), rb);")],
+    "hi_only": [("fused_mlp.cu", PRODUCE, PRODUCE.replace(", kF32StageBytes, NQ", ", hopper::kTf32ImageBytes, NQ"))],
+    "max_act": [("hopper.cuh", SOFTPLUS, "return __fmul_rn(fmaxf(t, 0.f), rb);")],
     "one_pass": [("fused_mlp.cu", "constexpr int kF32Passes = 3;", "constexpr int kF32Passes = 1;")],
     "stages2": [("fused_mlp.cu", "constexpr int kF32Stages = 3;", "constexpr int kF32Stages = 2;")],
     "cvt_rna": [("hopper.cuh", RNA, "__device__ __forceinline__ uint32_t tf32_rna(float v) {\n  uint32_t r;\n"
                  "  asm(\"cvt.rna.tf32.f32 %0, %1;\" : \"=r\"(r) : \"f\"(v));\n  return r;\n}")],
-    "fdiv": [("fused_mlp.cu", SOFTPLUS,
+    "fdiv": [("hopper.cuh", SOFTPLUS,
               "return __fdiv_rn(__fadd_rn(fmaxf(t, 0.f), log1pf(expf(-fabsf(t)))), beta);")],
 }
 
