@@ -98,7 +98,28 @@ Phases, none of which is allowed to fail quietly:
     falls, then reconstruction from its checkpoint at cubesize 128 (median
     vertex radius reported against 0.85, not gated); (c) both configs once
     with the default precision: by the rule that decides when the kernels
-    run (training/trainer.py use_fused_igr) no kernel is launched.
+    run (training/trainer.py use_fused_igr) no kernel is launched. Every
+    one of these single-card training runs replays its captured step
+    (training/graphs.py): the kernels launch once per step and WARMUP times
+    before the capture.
+    (d) Each trainer graphed against its eager step (``train(eager=True)``),
+    from one seed at full width: supervised bfloat16 8x512 at batch 16384
+    and labelled IGRLOSS bfloat16 8x512 on configs/mesh_sdf.ini's sample
+    counts of the sphere r = 0.85 (exact labels), and the point-cloud
+    trainer at configs/pointcloud_igr.ini's 8x256 on 307,200 points of it,
+    GRAPH_EPOCHS epochs each: losses and parameters bit-equal (and the
+    supervised run's checkpoint, Adam's steps and rate on the card, resumes
+    a graphed run bit-equal to an uninterrupted one and loads into the
+    CPU's Adam). Then
+    GRAPH_TRACE_EPOCHS epochs of each under torch.profiler, read over the
+    trainer's ``training_loop`` range: every replay of the IGR and
+    point-cloud steps holds igr_fwd_kernel, igr_bwd_kernel and
+    igr_dw_kernel, and the host issues at most GRAPH_HOST_LAUNCHES launches
+    a step outside the graphs. Printed for eager and graphed: points/s,
+    seconds an epoch, the device's idle share traced and untraced, the
+    capture's seconds. The HashMLP, FFN, Siren and KAN configs of phase 4h
+    train one short epoch each way (the equality printed).
+    ``python3 chip_smoke.py --graphs`` runs this phase alone.
  4d. The culled exact signed distance through its entry point,
     signed_distance(method="culled"), on the 256^3 grid, counts zeroed
     before each run: against the rescaled icosphere(5) (20,480 faces) on
@@ -405,6 +426,16 @@ IGR_RELU_GRAD_MEAN_TOL = 1e-2
 IGR_RELU_BF16_GRAD_MAX_TOL = 5e-2
 IGR_RELU_CANDIDATES = 1 << 18  # uniform points "relu_clear" picks its points from
 IGR_EPOCHS = 5        # labelled IGRLOSS run, bfloat16
+# phase 4c (d): each trainer graphed against its eager step, epochs of each
+# untraced and traced run; the launches the host may issue a step outside
+# the graphs, over a traced epoch (per step the index row, the loss, two
+# generators' seed and offset, the graph; per epoch the permutation, the
+# mean, validation's replays and the best-epoch snapshot), stated before the
+# card's first run
+GRAPH_EPOCHS = 3
+GRAPH_TRACE_EPOCHS = 2
+GRAPH_HOST_LAUNCHES = 16
+GRAPH_FAMILY_BATCHES = 8  # steps of the other families' graphed epoch
 PCD_EPOCHS = 31       # point-cloud run, bfloat16; model_epoch30.ckpt holds the last weights
 PCD_POINTS = 307200
 # phase 4g: configs/circle_2d.ini's own 500 epochs (no cut); occupancy grids
@@ -2047,7 +2078,7 @@ def drive_pipeline(device, run_root, report):
     from sdf_representation_tpu_torch.ops import sdf_culled
     from sdf_representation_tpu_torch.ops import sdf_streams as ss
     from sdf_representation_tpu_torch.sampling import sampler
-    from sdf_representation_tpu_torch.training import PointCloudTrainer, Trainer
+    from sdf_representation_tpu_torch.training import PointCloudTrainer, Trainer, graphs
     from sdf_representation_tpu_torch.training import trainer as trainer_module
 
     root = run_root / "pipeline"
@@ -2234,9 +2265,12 @@ def drive_pipeline(device, run_root, report):
         wall = run(tag, str(path))
         steps = (n_train // 16384) * epochs
         # the rule (training/trainer.py use_fused_igr): the kernels run under
-        # bfloat16 on a card, once per step each; under the default precision
-        # the fast path is the shared-matmul derivation with torch autograd
-        only_launched(launches, tag, **({"igr_fwd": steps, "igr_bwd": steps} if precision == "bfloat16" else {}))
+        # bfloat16 on a card, once per step each (each replay of the step's
+        # graph, and the WARMUP eager steps before its capture); under the
+        # default precision the fast path is the shared-matmul derivation
+        # with torch autograd
+        want = steps + graphs.WARMUP
+        only_launched(launches, tag, **({"igr_fwd": want, "igr_bwd": want} if precision == "bfloat16" else {}))
         curve = np.loadtxt(pathlib.Path(Trainer(Configuration(str(path))).train_path) / "train_loss.txt")
         stats = dict(trainer_module.LAST_RUN)
         print(f"igr_train {precision}: {steps} steps, launches per step "
@@ -2271,7 +2305,8 @@ def drive_pipeline(device, run_root, report):
         path.write_text(text)
         wall = run(tag, str(path))
         steps = (PCD_POINTS // 16384) * epochs
-        only_launched(launches, tag, **({"igr_fwd": steps, "igr_bwd": steps} if precision == "bfloat16" else {}))
+        want = steps + graphs.WARMUP
+        only_launched(launches, tag, **({"igr_fwd": want, "igr_bwd": want} if precision == "bfloat16" else {}))
         t = PointCloudTrainer(Configuration(str(path)))
         log = (pathlib.Path(t.train_path) / "train_loss.txt").read_text().splitlines()
         curve = np.array([float(line.rsplit(" ", 1)[1]) for line in log])
@@ -2303,6 +2338,224 @@ def drive_pipeline(device, run_root, report):
         out["pcd"]["reconstruct_128"] = {"wall_s": wall, "faces": len(mesh.faces),
                                          "median_radius": float(np.median(radii))}
     report["pipeline"] = out
+    return launches
+
+
+def sphere_samples(rng):
+    """configs/mesh_sdf.ini's sample counts (100,000 uniform points, 307,200
+    + 307,200 near the surface) labelled with the exact distance and normal
+    of the sphere r = 0.85 (the rescaled icosphere's), split 9:1 as
+    data.dataset.load_data splits: an SDFDataset."""
+    from sdf_representation_tpu_torch.data.dataset import SDFDataset
+
+    uniform = rng.uniform(-1, 1, (100000, 3))
+    d = rng.normal(size=(614400, 3))
+    near = d / np.linalg.norm(d, axis=1, keepdims=True) * (0.85 + rng.normal(0, 0.02, (614400, 1)))
+    x = rng.permutation(np.concatenate([uniform, near]))
+    r = np.linalg.norm(x, axis=1, keepdims=True)
+    y = np.concatenate([r - 0.85, x / r], axis=1)
+    n_val = math.ceil(0.1 * len(x))
+    x, y = x.astype(np.float32), y.astype(np.float32)
+    return SDFDataset(x[n_val:], y[n_val:], x[:n_val], y[:n_val])
+
+
+def read_loop_trace(log_dir):
+    """The trace of one ``train`` call, read over its ``training_loop``
+    range (the loop ends with a host read, so its device work lies inside):
+    device-busy ms (the union of kernel intervals), the window, the idle
+    share, kernel launches by name, the host's launches (runtime calls that
+    launch a kernel, a copy, a set or a graph) and its graph launches."""
+    (path,) = pathlib.Path(log_dir).glob("*.pt.trace.json")
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    (loop,) = [e for e in events if e.get("cat") == "user_annotation" and e["name"] == "training_loop"]
+    lo, hi = loop["ts"], loop["ts"] + loop["dur"]
+    kernels = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                     if e.get("cat") == "kernel" and lo <= e["ts"] < hi)
+    busy, end = 0.0, -math.inf
+    for a, b, _ in kernels:
+        b = min(b, hi)
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name = {}
+    for *_, name in kernels:
+        by_name[name[:100]] = by_name.get(name[:100], 0) + 1
+    calls = [e["name"] for e in events if str(e.get("cat")).startswith("cuda_")  # the CUDA API
+             and lo <= e["ts"] < hi and re.match(r"cu(da)?(LaunchKernel|GraphLaunch|Memcpy|Memset)", e["name"])]
+    return {"window_ms": (hi - lo) / 1e3, "device_busy_ms": busy / 1e3,
+            "idle_share": 1 - busy / (hi - lo), "kernel_launches": len(kernels),
+            "kernels": {k: sum(n for name, n in by_name.items() if k in name)
+                        for k in ("igr_fwd_kernel", "igr_bwd_kernel", "igr_dw_kernel")},
+            "host_launches": len(calls), "graph_launches": calls.count("cudaGraphLaunch"),
+            "top5": sorted(by_name.items(), key=lambda kv: -kv[1])[:5]}
+
+
+def graphed_resume(trainer_for, data):
+    """A checkpoint the card wrote (Adam's steps and rate are device
+    tensors) resumes a graphed run on the card, which then ends with the
+    parameters of an uninterrupted graphed run, bit for bit; and it loads
+    into the CPU's Adam (graphs.load_optimizer_state), which then steps."""
+    from sdf_representation_tpu_torch.training import graphs
+    from sdf_representation_tpu_torch.training import checkpoint as ckpt
+
+    epochs = GRAPH_EPOCHS + 1
+    whole = trainer_for("whole", epochs)
+    whole.train(data)
+    first = trainer_for("resume", epochs)
+    first.config.epochs = GRAPH_EPOCHS  # the run directory names `epochs`
+    first.train(data)
+    state = ckpt.load_checkpoint(str(pathlib.Path(first.model_save_path) / "best_model.ckpt"))
+    again = trainer_for("resume", epochs, **{"continue": "True"})
+    result = again.train(data)
+    equal = all(torch.equal(v, whole.model.state_dict()[k]) for k, v in again.model.state_dict().items())
+    cpu = graphs.make_adam([torch.nn.Parameter(p.detach().cpu()) for p in again.model.parameters()],
+                           1.0, "cpu")
+    graphs.load_optimizer_state(cpu, state["optimizer"])
+    group = cpu.param_groups[0]
+    steps = {cpu.state[p]["step"].device.type for p in group["params"]}
+    for p in group["params"]:
+        p.grad = torch.ones_like(p)
+    cpu.step()
+    row = {"best_epoch": int(state["epoch"]), "epochs_resumed": result["epochs_run"],
+           "bit_equal_params": equal, "cpu_lr": group["lr"], "cpu_steps_on": sorted(steps),
+           "card_lr_saved_as": str(state["optimizer"]["param_groups"][0]["lr"].dtype)}
+    if not (equal and isinstance(group["lr"], float) and steps == {"cpu"}):
+        raise RuntimeError(f"phase 4c (d): resume from a card's checkpoint: {row}")
+    return row
+
+
+def drive_graphs(device, run_root, report):
+    """Phase 4c (d): the main path's three trainers at full width, each run
+    eagerly (``train(eager=True)``) and through its CUDA graphs
+    (training/graphs.py) from one seed for GRAPH_EPOCHS epochs: losses and
+    parameters bit-equal, and kernels 8-9 launched once a step (the graphed
+    run also WARMUP times before its capture). Then GRAPH_TRACE_EPOCHS
+    epochs of each under torch.profiler: in the graphed IGR and point-cloud
+    runs every replay holds igr_fwd_kernel, igr_bwd_kernel and
+    igr_dw_kernel, and the host issues at most GRAPH_HOST_LAUNCHES
+    launches a step outside the graphs. Printed for both: points/s, seconds
+    an epoch, the device's idle share traced and untraced (the traced
+    busy time an epoch over the untraced seconds an epoch), the capture's
+    seconds; the supervised run's checkpoint resumed (graphed_resume).
+    Returns the launches per run."""
+    from sdf_representation_tpu_torch.configgen import Configuration
+    from sdf_representation_tpu_torch.data.dataset import SDFDataset
+    from sdf_representation_tpu_torch.training import PointCloudTrainer, Trainer, graphs
+    from sdf_representation_tpu_torch.training import trainer as trainer_module
+    from sdf_representation_tpu_torch.utils import profiling
+
+    root = run_root / "graphs"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    rng = np.random.default_rng(SEED)
+    labelled = sphere_samples(rng)
+    d = rng.normal(size=(PCD_POINTS, 3))
+    cloud = (0.85 * d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    base = (REPO / "configs" / "mesh_sdf.ini").read_text()
+    runs = (("supervised", base, Trainer, labelled),
+            ("igr", with_keys(base.replace("weight_factor = 0.5\n", ""), loss_function="IGRLOSS"),
+             Trainer, labelled),
+            ("pcd", (REPO / "configs" / "pointcloud_igr.ini").read_text()
+             + "\n[TPU]\ntrain_matmul_precision = bfloat16\n", PointCloudTrainer, cloud))
+    out, launches = {}, {}
+    for name, text, cls, data in runs:
+        steps = (data.n_train if cls is Trainer else len(data)) // 16384
+        fused = name != "supervised"
+
+        def trainer_for(tag, epochs, **keys):
+            path = root / f"{name}_{tag}.ini"
+            path.write_text(with_keys(text, directory=f"{root}/{name}_{tag}/", epochs=epochs,
+                                      min_epochs=epochs, checkpointing=epochs, **keys))
+            return cls(Configuration(str(path)))
+
+        row, results, states = {}, {}, {}
+        # one eager epoch first, so that neither timed run pays for a first touch
+        trainer_for("warm", 1).train(data, eager=True)
+        for mode in ("eager", "graphed"):
+            tag = f"graphs/{name}/{mode}"
+            t = trainer_for(mode, GRAPH_EPOCHS)
+            with counted(launches, tag):
+                results[mode] = t.train(data, eager=mode == "eager")
+            stats = dict(trainer_module.LAST_RUN)
+            if stats["graphed"] != (mode == "graphed"):
+                raise RuntimeError(f"{tag}: graphed is {stats['graphed']}")
+            states[mode] = {k: v.detach().clone() for k, v in t.model.state_dict().items()}
+            want = steps * GRAPH_EPOCHS + (graphs.WARMUP if mode == "graphed" else 0)
+            only_launched(launches, tag, **({"igr_fwd": want, "igr_bwd": want} if fused else {}))
+            row[mode] = {"points_per_sec": stats["points_per_sec"],
+                         "s_per_epoch": stats["seconds"] / GRAPH_EPOCHS,
+                         "capture_s": stats["capture_s"], "launches": launches[tag]}
+        keys = ("train_losses", "val_losses") if cls is Trainer else ("losses",)
+        row["losses"] = {m: {k: results[m][k] for k in keys} for m in results}
+        row["bit_equal_losses"] = all(results["eager"][k] == results["graphed"][k] for k in keys)
+        row["bit_equal_params"] = all(torch.equal(states["eager"][k], states["graphed"][k])
+                                      for k in states["eager"])
+        row["max_abs_param_diff"] = max((states["eager"][k].float() - states["graphed"][k].float())
+                                        .abs().max().item() for k in states["eager"])
+        if name == "supervised":
+            row["resume"] = graphed_resume(trainer_for, data)
+        for mode in ("eager", "graphed"):
+            t = trainer_for(f"{mode}_trace", GRAPH_TRACE_EPOCHS)
+            log_dir = root / f"trace_{name}_{mode}"
+            torch.cuda.synchronize()
+            with profiling.trace(str(log_dir)):
+                t.train(data, eager=mode == "eager")
+                torch.cuda.synchronize()
+            reading = read_loop_trace(log_dir)
+            n_steps = steps * GRAPH_TRACE_EPOCHS
+            busy_epoch_ms = reading["device_busy_ms"] / GRAPH_TRACE_EPOCHS
+            row[mode].update(trace=reading, idle_share_traced=reading["idle_share"],
+                             idle_share_untraced=1 - busy_epoch_ms / (row[mode]["s_per_epoch"] * 1e3),
+                             device_busy_ms_per_epoch=busy_epoch_ms,
+                             host_launches_per_step=reading["host_launches"] / n_steps)
+        print(f"phase 4c (d) {name} ({report['card']}), {steps} steps an epoch: "
+              + json.dumps({k: v for k, v in row.items() if k != "losses"}), flush=True)
+        graphed = row["graphed"]
+        if not (row["bit_equal_losses"] and row["bit_equal_params"]):
+            raise RuntimeError(f"phase 4c (d) {name}: the graphed run differs from the eager one "
+                               f"(max |param diff| {row['max_abs_param_diff']:.3e}): {row['losses']}")
+        n_steps = steps * GRAPH_TRACE_EPOCHS
+        if fused and any(n != n_steps for n in graphed["trace"]["kernels"].values()):
+            raise RuntimeError(f"phase 4c (d) {name}: {n_steps} replays hold kernels "
+                               f"{graphed['trace']['kernels']}")
+        if graphed["trace"]["graph_launches"] < n_steps or \
+                graphed["host_launches_per_step"] > GRAPH_HOST_LAUNCHES:
+            raise RuntimeError(f"phase 4c (d) {name}: {graphed['trace']['graph_launches']} graph "
+                               f"launches, {graphed['host_launches_per_step']:.2f} host launches a step")
+        out[name] = row
+    # every other model family captures too (phase 4h trains them through the
+    # entry point): one epoch of each on GRAPH_FAMILY_BATCHES batches, eager
+    # and graphed, the equality printed
+    sub = SDFDataset(labelled.train_x[:GRAPH_FAMILY_BATCHES * 16384],
+                     labelled.train_y[:GRAPH_FAMILY_BATCHES * 16384],
+                     labelled.val_x[:16384], labelled.val_y[:16384])
+    for name, text in (
+            ("HashMLP", (REPO / "configs" / "mesh_sdf_hash.ini").read_text()),
+            *((model, with_keys(base, model=model, hidden_dim=hidden, num_hidden_layers=layers))
+              for model, hidden, layers in (("FeedForwardNetwork", 512, 8), ("Siren", 256, 5),
+                                            ("KAN", 64, 2)))):
+        row, curves, states = {}, {}, {}
+        for mode in ("eager", "graphed"):
+            path = root / f"{name}_{mode}.ini"
+            path.write_text(with_keys(text, directory=f"{root}/{name}_{mode}/", epochs=1,
+                                      min_epochs=1, checkpointing=1))
+            t = Trainer(Configuration(str(path)))
+            result = t.train(sub, eager=mode == "eager")
+            stats = dict(trainer_module.LAST_RUN)
+            curves[mode] = result["train_losses"] + result["val_losses"]
+            states[mode] = {k: v.detach().clone() for k, v in t.model.state_dict().items()}
+            row[mode] = {"graphed": stats["graphed"], "s_per_epoch": stats["seconds"],
+                         "capture_s": stats["capture_s"], "losses": curves[mode]}
+            if stats["graphed"] != (mode == "graphed") or not np.isfinite(curves[mode]).all():
+                raise RuntimeError(f"phase 4c (d) {name} {mode}: {row[mode]}")
+        row["bit_equal_losses"] = curves["eager"] == curves["graphed"]
+        row["bit_equal_params"] = all(torch.equal(states["eager"][k], states["graphed"][k])
+                                      for k in states["eager"])
+        print(f"phase 4c (d) {name}, one epoch of {GRAPH_FAMILY_BATCHES} steps ({report['card']}): "
+              + json.dumps(row), flush=True)
+        out[name] = row
+    report["graphs"] = out
     return launches
 
 
@@ -2645,9 +2898,9 @@ def trace_steps(run_root, data_dir):
     traces, launches = {}, {}
     epoch_trainer = Trainer(cfg)
 
-    def epoch():
+    def epoch():  # the eager epoch (phase 4c (d) traces the graphed ones)
         with contextlib.redirect_stdout(io.StringIO()):
-            epoch_trainer.train(dataset)
+            epoch_trainer.train(dataset, eager=True)
 
     traces["supervised_epoch"] = traced(root / "trace_epoch", epoch, "supervised epoch")
     # the trainer's own clock of its last (traced) epoch: the loop, validation, checkpoint
@@ -3623,6 +3876,8 @@ def main() -> int:
     runs = {f"reconstruct/{n}": run["launches"] for n, run in main_path.items()}
     stamp("phase 4b-4c: sample, train, audit, reconstruct, eikonal runs")
     runs.update(drive_pipeline(device, run_root, report))
+    stamp("phase 4c (d): the graphed trainers against their eager steps")
+    runs.update(drive_graphs_process(report))
     stamp("phase 4d: culled exact SDF")
     runs.update(drive_culled(device, report))
     stamp("phase 4e: sharded evaluators, data-parallel training")
@@ -4046,5 +4301,44 @@ def main() -> int:
     return 0
 
 
+def drive_graphs_process(report):
+    """Phase 4c (d) in a process of its own (``--graphs``), as phase 4i (f)
+    runs its traces: after a process's torch.profiler traces, its later ones
+    have held no device event. Returns the phase's launches per run."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--graphs"], cwd=REPO,
+                         capture_output=True, text=True, timeout=900)
+    print(res.stdout, end="", flush=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"phase 4c (d) failed ({res.returncode}): {res.stderr[-3000:]}")
+    child = json.loads((REPO / "build" / "chip_smoke_graphs.json").read_text())
+    report["graphs"] = {**child["graphs"], "process_s": time.perf_counter() - t0}
+    return child["launches"]
+
+
+def graphs_main() -> int:
+    """``python3 chip_smoke.py --graphs``: phase 4c (d) alone, after the
+    card's name and power limit and the build of csrc/fused_igr.cu; its
+    readings in build/chip_smoke_graphs.json."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    from sdf_representation_tpu_torch import kernels
+    from sdf_representation_tpu_torch.utils.device import resolve_device
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    report = {"card": card, "build_s": kernels.build_all(["fused_igr"])}
+    stamp("phase 4c (d): the graphed trainers against their eager steps")
+    report["launches"] = drive_graphs(resolve_device(), REPO / "build" / "chip_smoke_run", report)
+    (REPO / "build" / "chip_smoke_graphs.json").write_text(json.dumps(report, indent=1))
+    stamp("done")
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(rank_main(sys.argv[1:]) if sys.argv[1:2] == ["--rank"] else main())
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_main(sys.argv[1:]))
+    sys.exit(graphs_main() if sys.argv[1:] == ["--graphs"] else main())

@@ -7,8 +7,10 @@ Kept from the JAX package: every section and field name, the rule that
 reference config_reader.py:26-32), and the optional ``[TPU]`` keys.
 ``use_pallas`` keeps its name: here it means "use the hand-written kernels",
 and ``False`` is accepted only on the CPU, where the plain path runs anyway.
-``epochs_per_call`` is read and ignored: it sizes the JAX trainer's jitted
-multi-epoch block, which the port's eager loop does not have.
+``epochs_per_call`` sizes the labelled trainer's block, as it sizes the JAX
+trainer's jitted multi-epoch call: that many epochs and their validation
+run with the best epoch's state kept on the device, and the host reads the
+losses once per block (training/trainer.py, training/graphs.py).
 """
 
 from __future__ import annotations

@@ -140,7 +140,7 @@ class IGRLOSS:
             unit_normal = normal / (grad_norm[:, None] + 1e-12)
         cos = torch.sum(unit_normal * _unit(y_batch[:, 1:4]), dim=-1)
         near = torch.abs(true) < self.regularizer_threshold
-        floor = cos.new_tensor(1e-8)
+        floor = torch.full((), 1e-8, dtype=cos.dtype, device=cos.device)
         reg = torch.where(near, (1.0 - cos) ** 2, floor)
         eik = torch.where(near, (grad_norm - 1.0) ** 2, floor)
         return (
@@ -241,7 +241,7 @@ class GaussBonnetLoss:
             + self.lambda_g * (grad_norm - 1.0) ** 2
             + self.gauss_bonnet_weight * (curvature - 2.0 * math.pi * euler) ** 2
         )
-        reg = torch.where(near, terms, terms.new_tensor(1e-8))
+        reg = torch.where(near, terms, torch.full((), 1e-8, dtype=terms.dtype, device=terms.device))
         return torch.mean(sdf_loss) + torch.mean(reg)
 
 

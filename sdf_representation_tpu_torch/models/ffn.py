@@ -70,5 +70,5 @@ class FeedForwardNetwork(nn.Module):
             h = torch.relu(layer(h))
             if train and generator is not None and p > 0.0:
                 keep = torch.rand(h.shape, generator=generator, device=h.device) < 1.0 - p
-                h = torch.where(keep, h / h.new_tensor(1.0 - p), 0.0)
+                h = torch.where(keep, h / torch.full((), 1.0 - p, dtype=h.dtype, device=h.device), 0.0)
         return torch.tanh(self.out(h))[..., 0]

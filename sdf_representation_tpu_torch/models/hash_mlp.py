@@ -31,6 +31,7 @@ then bfloat16 arithmetic, as in JAX.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -42,6 +43,13 @@ _MASK32 = 0xFFFFFFFF
 # the 8 corner offsets, dx-major (the JAX order)
 _OFFSETS = ((0, 0, 0), (0, 0, 1), (0, 1, 0), (0, 1, 1),
             (1, 0, 0), (1, 0, 1), (1, 1, 0), (1, 1, 1))
+
+
+@functools.lru_cache(maxsize=None)
+def _offsets(device) -> torch.Tensor:
+    """``_OFFSETS`` as an int64 tensor, made once per device (a copy from
+    the host inside a captured training step would synchronise)."""
+    return torch.tensor(_OFFSETS, dtype=torch.int64, device=device)
 
 
 def hash_index(cx: torch.Tensor, cy: torch.Tensor, cz: torch.Tensor, table_size: int) -> torch.Tensor:
@@ -121,7 +129,7 @@ class HashMLP(nn.Module):
         with the JAX arithmetic: x01 = clip((x+1)/2), pos = x01*res,
         p0 = floor(pos), frac = pos - p0, all in x's dtype."""
         x01 = torch.clamp((x + 1.0) * 0.5, 0.0, 1.0)
-        offs = torch.tensor(_OFFSETS, dtype=torch.int64, device=x.device)  # (8, 3)
+        offs = _offsets(x.device)  # (8, 3)
         T = self.table_size
         idx_all, w_all = [], []
         for level in range(self.n_levels):

@@ -38,7 +38,7 @@ result is returned in float32 on the inputs' device.
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -99,7 +99,9 @@ def b_splines_uniform(x: torch.Tensor, g0: float, h: float, n_bases: int,
     if k not in (1, 2, 3):
         raise ValueError(f"closed form implemented for k in 1..3, got {k}")
     # g0 and h rounded to x's type first, as JAX's weakly typed scalars are
-    v = (x - x.new_tensor(g0)) / x.new_tensor(h) + k  # (B, in)
+    # (torch.full: no copy from the host, which a captured step cannot hold)
+    v = (x - torch.full((), g0, dtype=x.dtype, device=x.device)) \
+        / torch.full((), h, dtype=x.dtype, device=x.device) + k  # (B, in)
     c = torch.floor(v).long()[..., None] + torch.arange(-k - 3, 4, device=x.device)  # (B, in, k+7)
     valid = (c >= 0) & (c < n_bases)
     val = _cardinal(v[..., None] - c.to(x.dtype), k)
@@ -159,6 +161,8 @@ class KANLayer(nn.Module):
         if not self.standalone_scale_spline:
             coeff = coeff * self.scale_spline
         self.register_buffer("grid", grid.to(device))
+        # uses_closed_form's answer per type of the grid, until the grid changes
+        self._closed_form: Dict[torch.dtype, bool] = {}
         self.base_w = nn.Parameter(base_w.to(device))
         self.spline_w = nn.Parameter(coeff.to(device))
         if self.standalone_scale_spline:
@@ -181,9 +185,19 @@ class KANLayer(nn.Module):
 
     def uses_closed_form(self) -> bool:
         """Whether the stored grid is the default one (compared in float32),
-        for an order the closed form covers."""
-        return self.spline_order in (1, 2, 3) and bool(torch.equal(
-            self.grid.float(), self.default_grid(self.grid.device)))
+        for an order the closed form covers. Decided once per type of the
+        grid (a mixed-precision step's bfloat16 copy rounds the knots) and
+        kept until ``update_grid`` or loading changes the grid: the
+        comparison reads the device, which a captured training step cannot."""
+        dtype = self.grid.dtype
+        if dtype not in self._closed_form:
+            self._closed_form[dtype] = self.spline_order in (1, 2, 3) and bool(torch.equal(
+                self.grid.float(), self.default_grid(self.grid.device)))
+        return self._closed_form[dtype]
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self._closed_form.clear()
+        super()._load_from_state_dict(*args, **kwargs)
 
     def bases(self, x: torch.Tensor) -> torch.Tensor:
         if self.uses_closed_form():
@@ -229,6 +243,7 @@ class KANLayer(nn.Module):
         new_grid = torch.cat([lo, grid, hi], dim=0).T.contiguous()
         self.spline_w.copy_(curve2coeff(x, unreduced, new_grid, k))
         self.grid.copy_(new_grid)
+        self._closed_form.clear()
 
 
 class KAN(nn.Module):

@@ -182,7 +182,7 @@ class FusedNet:
         mats = [w.reshape(-1) for _, w_h, w_x, _ in self.layers for w in (w_h, w_x) if w is not None]
         biases = [b for *_, b in self.layers]
         return (torch.cat(mats).contiguous(), torch.cat(biases).contiguous(),
-                torch.tensor(self.layout, dtype=torch.int64, device=self.device))
+                _descriptor(tuple(tuple(row) for row in self.layout), self.device))
 
     @functools.cached_property
     def tiles(self) -> torch.Tensor:
@@ -249,6 +249,15 @@ class FusedNet:
         if index is None:
             return torch.zeros(1, dtype=self.dtype, device=self.device)
         return self.packed[0].index_select(0, index)
+
+
+@functools.lru_cache(maxsize=None)
+def _descriptor(layout: Tuple[Tuple[int, ...], ...], device) -> torch.Tensor:
+    """``FusedNet.packed``'s int64 descriptor, made once per layout and
+    device: a step builds a ``FusedNet`` per call, and a copy from the host
+    inside a captured step would be a synchronising copy from pageable
+    memory, which a CUDA graph cannot hold."""
+    return torch.tensor(layout, dtype=torch.int64, device=device)
 
 
 @functools.lru_cache(maxsize=None)

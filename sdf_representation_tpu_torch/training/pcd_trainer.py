@@ -22,10 +22,15 @@ the noise stay whole-batch draws on ``mesh[0]``. Under a process group
 generator, runs the forward on its rows, and rank 0 writes the files, as
 in the labelled trainer.
 
-An eager loop like ``Trainer.train``: the cloud lives on the device, every
-epoch draws a permutation from a generator seeded from (init_seed + 1,
-epoch), every step reseeds it from (init_seed + 1, epoch, step); losses stay
-on the device within an epoch: one host read per epoch.
+A loop like ``Trainer.train``: the cloud lives on the device, every epoch
+draws a permutation from a generator seeded from (init_seed + 1, epoch),
+every step reseeds it from (init_seed + 1, epoch, step); losses stay on the
+device within an epoch: one host read per epoch. On a card with one device
+every step is one replay of a CUDA graph (training/graphs.py), the subsample
+and the noise drawn inside it from the step's registered generator; under a
+mesh of several devices or a process group, on the CPU, or with
+``train(eager=True)``, the step runs as a plain call. The JAX trainer has no
+multi-epoch block here, and neither has this one.
 
 The eikonal term's (f, grad_x f) runs through the fused kernels of
 ops/fused_igr.py under the labelled trainer's rule (``use_fused_igr``: an
@@ -57,6 +62,7 @@ import torch
 from ..ops.diffops import sdf_and_gradient_fwd
 from ..parallel.mesh import ProcessMesh, allreduce_grads, count_once
 from . import checkpoint as ckpt
+from . import graphs
 from .trainer import LAST_RUN, Trainer, bind_apply, use_fused_igr
 
 
@@ -122,7 +128,9 @@ class PointCloudTrainer(Trainer):
 
         return step
 
-    def train(self, points: Optional[np.ndarray] = None) -> Dict[str, Any]:
+    def train(self, points: Optional[np.ndarray] = None, *, eager: bool = False) -> Dict[str, Any]:
+        """``eager``: run every step as a plain call where a card would
+        replay a graph (the reference the graph is held against)."""
         c = self.config
         t_load = time.time()
         if points is None:
@@ -134,7 +142,7 @@ class PointCloudTrainer(Trainer):
         batch = min(c.batchsize, n)
         n_batches = max(1, n // batch)
 
-        optimizer = torch.optim.Adam(self.model.parameters(), lr=c.lr, betas=(0.9, 0.999), eps=1e-8)
+        optimizer = graphs.make_adam(self.model.parameters(), c.lr, self.device)
         start_epoch = 0
         losses_hist: list = []
         best_path = os.path.join(self.model_save_path, "best_model.ckpt")
@@ -142,7 +150,7 @@ class PointCloudTrainer(Trainer):
         if c.contd and os.path.exists(best_path):
             state = ckpt.load_checkpoint(best_path)
             self.model.load_state_dict(state["model"])
-            optimizer.load_state_dict(state["optimizer"])
+            graphs.load_optimizer_state(optimizer, state["optimizer"])
             start_epoch = int(state["epoch"]) + 1
             losses_hist = list(state["losses"])
             print(f"Resumed from {best_path} at epoch {start_epoch}")
@@ -152,28 +160,34 @@ class PointCloudTrainer(Trainer):
                     "epoch": epoch, "losses": list(losses_hist)}
 
         step = self._make_step(optimizer, batch)
-        gen = torch.Generator(device=self.device)
+        runner = graphs.StepRunner(lambda idx, epoch, gen: step(X[idx], gen), self.device)
+        captured = self._captures(eager)
+        t_capture = time.perf_counter()
+        if captured:
+            runner.capture(torch.arange(batch, device=self.device),
+                           lambda: graphs.state_tensors(self.model, {}, optimizer))
+            torch.cuda.synchronize(self.device)
+        capture_s = time.perf_counter() - t_capture
         log = os.path.join(self.train_path, "train_loss.txt")
         t_start = time.time()
         final_epoch = max(start_epoch - 1, 0)  # a resume with nothing left keeps its epoch
-        for epoch in range(start_epoch, c.epochs):
-            final_epoch = epoch
-            losses = []
-            for i, idx in enumerate(self._epoch_batches(epoch, n, batch)):
-                gen.manual_seed(self._step_seed(epoch, i))
-                losses.append(step(X[idx], gen))
-            train_loss = float(torch.stack(losses).mean())  # the epoch's one host read
-            losses_hist.append(train_loss)
-            if not self.writes:
-                continue
-            with open(log, "a") as f:
-                f.write(f"Epoch {epoch + 1}/{c.epochs}: train loss {train_loss}\n")
-            if epoch % int(1.5 * c.checkpointing) == 0:
-                ckpt.save_checkpoint(best_path, state_at(epoch))
-            if epoch % c.checkpointing == 0:
-                ckpt.save_checkpoint(
-                    os.path.join(self.model_save_path, f"model_epoch{epoch}.ckpt"), state_at(epoch))
-                self._plot_losses(losses_hist, losses_hist)
+        # the loop's window in a torch.profiler trace (chip_smoke.py reads it)
+        with torch.profiler.record_function("training_loop"):
+            for epoch in range(start_epoch, c.epochs):
+                final_epoch = epoch
+                # the epoch's one host read
+                train_loss = float(self._run_epoch(runner, epoch, n, batch))
+                losses_hist.append(train_loss)
+                if not self.writes:
+                    continue
+                with open(log, "a") as f:
+                    f.write(f"Epoch {epoch + 1}/{c.epochs}: train loss {train_loss}\n")
+                if epoch % int(1.5 * c.checkpointing) == 0:
+                    ckpt.save_checkpoint(best_path, state_at(epoch))
+                if epoch % c.checkpointing == 0:
+                    ckpt.save_checkpoint(
+                        os.path.join(self.model_save_path, f"model_epoch{epoch}.ckpt"), state_at(epoch))
+                    self._plot_losses(losses_hist, losses_hist)
         if self.writes:  # final save so short runs always leave a checkpoint
             ckpt.save_checkpoint(best_path, state_at(final_epoch))
 
@@ -181,8 +195,9 @@ class PointCloudTrainer(Trainer):
         n_epochs_run = max(0, c.epochs - start_epoch)
         throughput = n_batches * batch * n_epochs_run / max(elapsed, 1e-9)
         print(f"Training done: {n_epochs_run} epochs, {elapsed:.1f}s, {throughput:,.0f} points/sec")
+        LAST_RUN.clear()
         LAST_RUN.update(load_seconds=t_start - t_load, epochs_run=n_epochs_run, seconds=elapsed,
-                        points_per_sec=throughput)
+                        points_per_sec=throughput, graphed=captured, capture_s=capture_s)
         return {"losses": losses_hist, "last_epoch": final_epoch, "epochs_run": n_epochs_run,
                 "points_per_sec": throughput}
 

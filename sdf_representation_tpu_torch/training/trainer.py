@@ -15,7 +15,23 @@ training, checkpoints and the mode dispatch of ``run``.
     validation epoch is kept as best_model.ckpt; early stop on
     ``min_epochs`` / ``patience``; model_epoch{E}.ckpt every ``checkpointing``
     epochs; checkpoints carry optimizer and scheduler state through resume.
-  * losses stay on the device within an epoch: one host read per epoch.
+  * ``epochs_per_call`` epochs and their validation run as one block, as
+    the JAX trainer's multi-epoch call does (its trainer.py:566-665): the
+    best-validation epoch's parameters, ``aux`` scalars, optimizer and
+    scheduler state are kept on the device within the block
+    (``graphs.BestSnapshot``), the host reads the losses once per block, then
+    writes the loss log, ``best_model.ckpt`` from that snapshot (its epoch and
+    history), ``model_epoch{E}.ckpt`` at the JAX cadence ``(block_end %
+    checkpointing) < block or block >= checkpointing``, and on an early stop
+    inside a block adopts the device's best, as JAX does; a final partial
+    block ends at ``epochs``. The trajectory does not depend on the block:
+    ``epochs_per_call = k`` gives the losses and parameters of ``k = 1``.
+  * on a card with one device every training step and every validation
+    batch is one replay of a CUDA graph (training/graphs.py: the JAX
+    trainer's jitted epoch); under a mesh of several devices or a process
+    group, with ``debug_nans``, on the CPU, or when ``train(eager=True)``
+    asks, the same step runs as a plain call. Adam is ``capturable`` on a
+    card either way (``graphs.make_adam``).
   * a loss's learnable scalars (``needs_aux``: GaussBonnetLoss's Euler
     characteristic, initial value 2.0) are parameters beside the model's:
     given to Adam, saved in the checkpoints under ``"aux"`` (a key that
@@ -24,11 +40,9 @@ training, checkpoints and the mode dispatch of ``run``.
     (init_seed + 1, epoch, step) for losses that draw points (IGRLOSSPCD);
     validation seeds it with 0.
 
-Not carried over from the JAX trainer: its jitted multi-epoch block
-(``epochs_per_call``), which exists to amortise dispatch latency there; the
-key is read and ignored. The matrix products of the supervised step are
-library matmuls here as they are XLA's there: that step has no hand-written
-kernel in either package. The eikonal (IGR) step of an ImplicitNet does:
+The matrix products of the supervised step are library matmuls here as
+they are XLA's there: that step has no hand-written kernel in either
+package. The eikonal (IGR) step of an ImplicitNet does:
 (f, grad_x f) and its parameter gradients run through the hand-written
 kernels of ops/fused_igr.py under the JAX package's rule
 (``use_fused_igr``): ``train_matmul_precision = bfloat16``, not the
@@ -67,6 +81,7 @@ a backward that makes a NaN raises.
 
 from __future__ import annotations
 
+import copy
 import inspect
 import math
 import os
@@ -86,6 +101,7 @@ from ..parallel.multihost import process_count
 from ..utils.device import matmul_precision, resolve_device
 from ..utils.files import create_directory
 from . import checkpoint as ckpt
+from . import graphs
 
 # train_matmul_precision names besides None and "bfloat16" (the mixed-
 # precision step), each with the torch float32 matmul precision its step
@@ -94,9 +110,10 @@ _TORCH_PRECISION = {"bfloat16_mxu": "medium", "float32": "highest", "highest": "
                     "tensorfloat32": "high", "high": "high", "default": None}
 PRECISIONS = (None, "bfloat16", *_TORCH_PRECISION)
 
-# the last ``Trainer.train``: seconds up to the dataset on the device, epochs
-# run, seconds in the epoch loop (closed by the last epoch's host read),
-# points per second over those seconds
+# the last ``Trainer.train`` / ``PointCloudTrainer.train``: seconds up to the
+# dataset on the device, epochs run, seconds in the epoch loop (closed by the
+# last host read), points per second over those seconds, whether the steps
+# were graph replays and the seconds their capture took (before the loop)
 LAST_RUN: dict = {}
 
 
@@ -126,7 +143,8 @@ def takes_train(model) -> bool:
 
 
 def bind_apply(model, precision: Optional[str] = None, fused_igr: bool = False,
-               mesh=None, generator: Optional[torch.Generator] = None
+               mesh=None, generator: Optional[torch.Generator] = None,
+               masks: Optional[graphs.DropoutMasks] = None
                ) -> Callable[[torch.Tensor], torch.Tensor]:
     """The forward a training step differentiates: the module, or for
     "bfloat16" the module run on bfloat16 copies of every float32 leaf of
@@ -137,7 +155,9 @@ def bind_apply(model, precision: Optional[str] = None, fused_igr: bool = False,
     step's; validation passes none, and the JAX apply drops nothing without
     an rng): every call of the returned forward draws the same masks, as
     the JAX step's apply is a function of its rng, so the value and the
-    forward-mode passes of an eikonal loss see one network.
+    forward-mode passes of an eikonal loss see one network. A step that is
+    bound once and run many times passes ``masks`` instead
+    (``graphs.DropoutMasks``, reseeded per step), which a graph can hold.
 
     For an ImplicitNet the callable advertises the (f, grad_x f) fast path
     that ``ops.diffops.sdf_and_gradient_fwd`` consumes as
@@ -168,14 +188,15 @@ def bind_apply(model, precision: Optional[str] = None, fused_igr: bool = False,
     # every call of one step's forward draws the same masks (JAX's apply is a
     # function of its rng), from a stream apart from the loss's draws: the
     # step generator's seed with its top bit flipped
-    drop_seed = (generator.initial_seed() ^ (1 << 63)
-                 if generator is not None and takes_train(model) else None)
+    if not takes_train(model):
+        masks = None
+    elif masks is None and generator is not None:
+        masks = graphs.DropoutMasks(generator.device)
+        masks.reseed(generator.initial_seed() ^ (1 << 63))
 
     def kwargs() -> dict:
-        if drop_seed is None:
-            return {}
-        masks = torch.Generator(device=generator.device).manual_seed(drop_seed)
-        return {"generator": masks, "train": True}
+        gen = None if masks is None else masks.next()
+        return {} if gen is None else {"generator": gen, "train": True}
 
     def cast(t: torch.Tensor) -> torch.Tensor:
         return t.to(torch.bfloat16) if mixed and t.dtype == torch.float32 else t
@@ -262,21 +283,25 @@ def make_train_step(model, loss_fn, optimizer: torch.optim.Optimizer,
     batch; the terms every rank computes whole (the Lipschitz bound, the
     loss's ``aux`` scalars) keep their gradients on rank 0 only
     (``count_once``), and one all-reduce sums the gradients before the
-    update, so every rank makes the same update."""
+    update, so every rank makes the same update.
+
+    ``step.body`` is the same step without reseeding the dropout masks
+    (``step.masks``, None for a model without dropout): what
+    ``graphs.StepRunner`` captures, the masks reseeded apart."""
     if precision not in PRECISIONS:
         raise ValueError(f"train_matmul_precision must be one of {PRECISIONS}, got {precision!r}")
     fused = use_fused_igr(model, precision)
-    apply = bind_apply(model, precision, fused, mesh)
-    per_step = takes_train(model)
+    masks = (graphs.DropoutMasks(next(model.parameters()).device) if takes_train(model)
+             else None)
+    apply = bind_apply(model, precision, fused, mesh, masks=masks)
     lipschitz = getattr(model, "lipschitz", False) and model.lipschitz_weight > 0
     params = [p for g in optimizer.param_groups for p in g["params"]]
     group = isinstance(mesh, ProcessMesh)
 
-    def step(xb: torch.Tensor, yb: torch.Tensor, epoch: int, generator=None) -> torch.Tensor:
+    def body(xb: torch.Tensor, yb: torch.Tensor, epoch, generator=None) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
-        fn = bind_apply(model, precision, fused, mesh, generator) if per_step else apply
         with _matmul_precision(precision):
-            value = loss_fn(fn, xb, yb, epoch, generator=generator,
+            value = loss_fn(apply, xb, yb, epoch, generator=generator,
                             aux=None if aux is None else {k: count_once(v, mesh)
                                                           for k, v in aux.items()})
             if lipschitz:
@@ -289,6 +314,14 @@ def make_train_step(model, loss_fn, optimizer: torch.optim.Optimizer,
         optimizer.step()
         return value.detach()
 
+    def step(xb: torch.Tensor, yb: torch.Tensor, epoch: int, generator=None) -> torch.Tensor:
+        if masks is not None:
+            masks.reseed(None if generator is None else generator.initial_seed() ^ (1 << 63))
+        return body(xb, yb, epoch, generator)
+
+    # what a graph captures (training/graphs.py): the step without its
+    # reseeding, and the dropout generators it reseeds
+    step.body, step.masks = body, masks
     return step
 
 
@@ -453,12 +486,13 @@ class Trainer:
     # -- training ----------------------------------------------------------
 
     def _make_optimizer(self) -> Tuple[torch.optim.Optimizer, Optional[Any]]:
-        """(Adam, scheduler): the scheduler, stepped once per epoch, halves
-        (``lr_gamma``) the rate every ``lr_step`` epochs; None without
-        ``lr_step``."""
+        """(Adam, scheduler): Adam as ``graphs.make_adam`` makes it
+        (capturable on a card); the scheduler, stepped once per epoch,
+        halves (``lr_gamma``) the rate every ``lr_step`` epochs; None
+        without ``lr_step``."""
         c = self.config
-        optimizer = torch.optim.Adam([*self.model.parameters(), *self.aux.values()], lr=c.lr,
-                                     betas=(0.9, 0.999), eps=1e-8)
+        optimizer = graphs.make_adam([*self.model.parameters(), *self.aux.values()], c.lr,
+                                     self.device)
         scheduler = None
         if c.lr_step and c.lr_step > 0:
             scheduler = torch.optim.lr_scheduler.StepLR(
@@ -478,25 +512,39 @@ class Trainer:
         """Seed of one step's generator: (init_seed + 1, epoch, step)."""
         return ((self.init_seed + 1) << 44) + ((epoch + 1) << 20) + step
 
-    def _validate(self, loss_fn, Xv, Yv, batch: int, epoch: int) -> Optional[torch.Tensor]:
-        """Mean float32 loss over min(batch, n_val)-sized validation batches
-        (the remainder dropped); None without validation data."""
-        n_val = Xv.shape[0]
-        if n_val == 0:
-            return None
-        vb = min(batch, n_val)
-        n_vbatches = max(1, n_val // vb)
-        apply = bind_apply(self.model, mesh=self.mesh)
-        gen = torch.Generator(device=self.device)
-        losses = []
-        with torch.no_grad():
-            for i in range(n_vbatches):
-                gen.manual_seed(0)
-                losses.append(loss_fn(apply, Xv[i * vb:(i + 1) * vb], Yv[i * vb:(i + 1) * vb],
-                                      epoch, generator=gen, aux=self.aux))
-        return torch.stack(losses).mean()
+    def _captures(self, eager: bool) -> bool:
+        """Whether the training steps and validation batches run as CUDA
+        graph replays (training/graphs.py): on a card with one device,
+        unless ``eager`` or ``debug_nans`` (anomaly detection reads every
+        backward on the host). Under a mesh of several devices or a process
+        group they stay eager (a sharded step copies between devices, and
+        gloo's collectives cannot be captured), and one line says so."""
+        if eager or self.device.type != "cuda":
+            return False
+        if isinstance(self.mesh, ProcessMesh) or (self.mesh is not None and len(self.mesh) > 1):
+            print("training steps run eagerly: steps over a mesh of several devices or a process "
+                  "group are not captured as CUDA graphs")
+            return False
+        if self.config.debug_nans:
+            print("training steps run eagerly: debug_nans reads every backward on the host")
+            return False
+        return True
 
-    def train(self, dataset: Optional[SDFDataset] = None) -> Dict[str, Any]:
+    def _run_epoch(self, runner: graphs.StepRunner, epoch: int, n_train: int,
+                   batch: int) -> torch.Tensor:
+        """One epoch's steps -> their mean loss (a 0-d tensor on the device),
+        the per-step losses summed in step order."""
+        rows = self._epoch_batches(epoch, n_train, batch)
+        losses = torch.empty(rows.shape[0], dtype=torch.float32, device=self.device)
+        for i in range(rows.shape[0]):
+            losses[i] = runner(rows[i], epoch, self._step_seed(epoch, i))
+        return losses.mean()
+
+    def train(self, dataset: Optional[SDFDataset] = None, *, eager: bool = False) -> Dict[str, Any]:
+        """Train for the config's epochs in blocks of ``epochs_per_call``.
+        ``eager``: run every step and validation batch as a plain call where
+        a card would replay a graph (the reference the tests and
+        chip_smoke.py hold the graphs against)."""
         c = self.config
         loss_fn = c.make_loss()
         t_load = time.time()
@@ -529,7 +577,7 @@ class Trainer:
                 for name, value in state.get("aux", {}).items():
                     self.aux[name].copy_(value)
             if "optimizer" in state:  # optimizer state resumes
-                optimizer.load_state_dict(state["optimizer"])
+                graphs.load_optimizer_state(optimizer, state["optimizer"])
                 if scheduler is not None and state.get("scheduler") is not None:
                     scheduler.load_state_dict(state["scheduler"])
             start_epoch = int(state["epoch"]) + 1
@@ -541,10 +589,33 @@ class Trainer:
         batch = min(c.batchsize, dataset.n_train)
         step = make_train_step(self.model, loss_fn, optimizer, c.train_matmul_precision,
                                aux=self.aux, mesh=self.mesh)
-        step_gen = torch.Generator(device=dev)
+        runner = graphs.StepRunner(lambda idx, e, g: step.body(X[idx], Y[idx], e, g), dev,
+                                   step.masks)
+        validate = None
+        if dataset.n_val:
+            # min(batch, n_val)-sized validation batches, the remainder dropped
+            vb = min(batch, dataset.n_val)
+            apply = bind_apply(self.model, mesh=self.mesh)
+
+            def val_body(idx, epoch, generator):
+                with torch.no_grad():
+                    return loss_fn(apply, Xv[idx], Yv[idx], epoch, generator=generator, aux=self.aux)
+
+            validate = graphs.ValRunner(
+                val_body, torch.arange(dataset.n_val // vb * vb, device=dev).view(-1, vb))
+        captured = self._captures(eager)
+        t_capture = time.perf_counter()
+        if captured:
+            runner.capture(torch.arange(batch, device=dev),
+                           lambda: graphs.state_tensors(self.model, self.aux, optimizer))
+            if validate is not None:
+                validate.capture()
+            torch.cuda.synchronize(dev)
+        capture_s = time.perf_counter() - t_capture
         loss_log = os.path.join(self.train_path, "train_loss.txt")
         epochs_no_improve = 0
         points_per_epoch = (dataset.n_train // batch) * batch
+        epochs_per_call = max(1, c.epochs_per_call)
 
         def state_at(epoch: int) -> Dict[str, Any]:
             aux = {name: p.detach().clone() for name, p in self.aux.items()}
@@ -559,42 +630,95 @@ class Trainer:
                 "best_val": best_val,
             }
 
+        def host_record() -> Dict[str, Any]:
+            """What the device snapshot does not hold: a rate kept as a float
+            (CPU) and the scheduler's state, per epoch."""
+            return {"lr": [None if isinstance(g["lr"], torch.Tensor) else g["lr"]
+                           for g in optimizer.param_groups],
+                    "scheduler": None if scheduler is None else copy.deepcopy(scheduler.state_dict())}
+
+        def best_state(snap: graphs.BestSnapshot, k: int, epoch: int, tl: list, vl: list):
+            """The block's best epoch ``k`` from the device snapshot."""
+            best = snap.swap({"model": self.model.state_dict(keep_vars=True), "aux": dict(self.aux),
+                              "optimizer": optimizer.state_dict()})
+            for group, lr in zip(best["optimizer"]["param_groups"], snap.host[k]["lr"]):
+                if lr is not None:
+                    group["lr"] = lr
+            return {"model": best["model"], **({"aux": best["aux"]} if self.aux else {}),
+                    "epoch": epoch, "optimizer": best["optimizer"],
+                    "scheduler": snap.host[k]["scheduler"], "train_losses": tl,
+                    "val_losses": vl, "best_val": best_val}
+
         t_start = time.time()
         final_epoch = start_epoch - 1
-        for epoch in range(start_epoch, c.epochs):
-            final_epoch = epoch
-            losses = []
-            for i, idx in enumerate(self._epoch_batches(epoch, dataset.n_train, batch)):
-                step_gen.manual_seed(self._step_seed(epoch, i))
-                losses.append(step(X[idx], Y[idx], epoch, step_gen))
-            if scheduler is not None:
-                scheduler.step()
-            train_loss = torch.stack(losses).mean()
-            val_loss = self._validate(loss_fn, Xv, Yv, batch, epoch)
-            # the epoch's one host read
-            train_loss, val_loss = torch.stack(
-                [train_loss, train_loss if val_loss is None else val_loss]).tolist()
-            train_losses.append(train_loss)
-            val_losses.append(val_loss)
-            if self.writes:
-                with open(loss_log, "a") as f:
-                    f.write(f"{epoch} {train_loss} {val_loss}\n")
-            if val_loss < best_val:
-                best_val = val_loss
-                epochs_no_improve = 0
+        snap: Optional[graphs.BestSnapshot] = None
+        epoch0, stop = start_epoch, False
+        # the loop's window in a torch.profiler trace (chip_smoke.py reads it)
+        with torch.profiler.record_function("training_loop"):
+            while epoch0 < c.epochs and not stop:
+                # one block (JAX trainer.py:585-667): its epochs on the device,
+                # then one host read of its losses and best epoch
+                block = min(epochs_per_call, c.epochs - epoch0)
+                tls, vls = [], []
+                for k in range(block):
+                    epoch = epoch0 + k
+                    train_loss = self._run_epoch(runner, epoch, dataset.n_train, batch)
+                    if scheduler is not None:
+                        scheduler.step()
+                    val_loss = train_loss if validate is None else validate(epoch)
+                    if snap is None:  # Adam's state exists after the first step
+                        snap = graphs.BestSnapshot(
+                            graphs.state_tensors(self.model, self.aux, optimizer))
+                    if k == 0:
+                        snap.start(best_val)
+                    snap.offer(k, val_loss, host_record())
+                    tls.append(train_loss)
+                    vls.append(val_loss)
+                read = torch.cat([torch.stack(tls), torch.stack(vls),
+                                  snap.idx.to(torch.float32).reshape(1)]).tolist()
+                tl_vec, vl_vec, best_k = read[:block], read[block:2 * block], int(read[-1])
+
+                lines = []
+                for k in range(block):
+                    epoch = epoch0 + k
+                    final_epoch = epoch
+                    train_losses.append(tl_vec[k])
+                    val_losses.append(vl_vec[k])
+                    lines.append(f"{epoch} {tl_vec[k]} {vl_vec[k]}\n")
+                    if vl_vec[k] < best_val:
+                        best_val = vl_vec[k]
+                        epochs_no_improve = 0
+                    else:
+                        epochs_no_improve += 1
+                    if epoch >= c.minepochs and epochs_no_improve >= c.patience:
+                        print(f"Early stopping at epoch {epoch}")
+                        stop = True
+                        break
                 if self.writes:
-                    ckpt.save_checkpoint(best_path, state_at(epoch))
-            else:
-                epochs_no_improve += 1
-            if (epoch + 1) % c.checkpointing == 0 and self.writes:
-                ckpt.save_checkpoint(
-                    os.path.join(self.model_save_path, f"model_epoch{epoch}.ckpt"),
-                    state_at(epoch),
-                )
-                self._plot_losses(train_losses, val_losses)
-            if epoch >= c.minepochs and epochs_no_improve >= c.patience:
-                print(f"Early stopping at epoch {epoch}")
-                break
+                    with open(loss_log, "a") as f:
+                        f.writelines(lines)
+                if best_k >= 0:
+                    # the device kept the block's best epoch (it compares the
+                    # same float32 losses as the host loop, so every improvement
+                    # the host saw is one): save THAT state. After an early stop
+                    # inside the block it may come from an epoch after the stop
+                    # (JAX trainer.py:624-657): adopt it, with the history
+                    # reaching its epoch
+                    best_val = vl_vec[best_k]
+                    hist_end = max(final_epoch - epoch0, best_k) + 1
+                    kept = len(train_losses) - (final_epoch - epoch0 + 1)
+                    if self.writes:
+                        ckpt.save_checkpoint(best_path, best_state(
+                            snap, best_k, epoch0 + best_k, train_losses[:kept] + tl_vec[:hist_end],
+                            val_losses[:kept] + vl_vec[:hist_end]))
+                block_end = epoch0 + block
+                if ((block_end % c.checkpointing) < block or block >= c.checkpointing) and self.writes:
+                    ckpt.save_checkpoint(
+                        os.path.join(self.model_save_path, f"model_epoch{final_epoch}.ckpt"),
+                        state_at(final_epoch),
+                    )
+                    self._plot_losses(train_losses, val_losses)
+                epoch0 = block_end
 
         elapsed = time.time() - t_start
         n_epochs_run = final_epoch - start_epoch + 1
@@ -605,8 +729,10 @@ class Trainer:
         )
         if self.writes:
             self._plot_losses(train_losses, val_losses)
+        LAST_RUN.clear()
         LAST_RUN.update(load_seconds=t_start - t_load, epochs_run=n_epochs_run, seconds=elapsed,
-                        points_per_sec=throughput)
+                        points_per_sec=throughput, graphed=captured, capture_s=capture_s,
+                        epochs_per_call=epochs_per_call)
         return {
             "train_losses": train_losses,
             "val_losses": val_losses,
