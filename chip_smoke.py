@@ -110,15 +110,28 @@ Phases, none of which is allowed to fail quietly:
     GRAPH_EPOCHS epochs each: losses and parameters bit-equal (and the
     supervised run's checkpoint, Adam's steps and rate on the card, resumes
     a graphed run bit-equal to an uninterrupted one and loads into the
-    CPU's Adam). Then
-    GRAPH_TRACE_EPOCHS epochs of each under torch.profiler, read over the
-    trainer's ``training_loop`` range: every replay of the IGR and
+    CPU's Adam). Then GRAPH_TRACE_EPOCHS epochs of each graphed run (one
+    of each eager run) under torch.profiler, read over the trainer's
+    ``training_loop`` range: every replay of the IGR and
     point-cloud steps holds igr_fwd_kernel, igr_bwd_kernel and
     igr_dw_kernel, and the host issues at most GRAPH_HOST_LAUNCHES launches
     a step outside the graphs. Printed for eager and graphed: points/s,
     seconds an epoch, the device's idle share traced and untraced, the
     capture's seconds. The HashMLP, FFN, Siren and KAN configs of phase 4h
     train one short epoch each way (the equality printed).
+    (e) The sharded steps, each the same way (eager against graphed,
+    GRAPH_EPOCHS, counts zeroed, then traced): Trainer(mesh=card x 2) and
+    x 4 on the labelled IGRLOSS run and PointCloudTrainer(mesh=card x 4),
+    each whole sharded step one graph whose replays hold k igr_fwd_kernel,
+    k igr_bwd_kernel and k igr_dw_kernel (k shards; here and in (d) a
+    graphed trace that lost some replays' device events is taken again,
+    GRAPH_TRACE_TRIES in all); then a process group
+    of one rank over NCCL (phase 4j (a)'s): the labelled IGRLOSS run on the
+    group's data axis, the collectives inside the graph (its graphed run
+    also bit-equal to (d)'s with no group), and supervised epochs of
+    configs/mesh_sdf.ini through the entry point (graphed; eager through
+    Trainer.train on the same CSVs). The host's launches a step outside the
+    graphs: at most GRAPH_HOST_LAUNCHES in every graphed run.
     ``python3 chip_smoke.py --graphs`` runs this phase alone.
  4d. The culled exact signed distance through its entry point,
     signed_distance(method="culled"), on the 256^3 grid, counts zeroed
@@ -149,8 +162,10 @@ Phases, none of which is allowed to fail quietly:
     shard's launch against its plain version. Data-parallel training
     through the trainers the command line builds: labelled IGRLOSS at
     8x512, bfloat16, Trainer(mesh=card x 2), 2 epochs, and the point-cloud
-    trainer at 8x256, bfloat16, mesh=card x 4, phase 4c's epochs: igr_fwd
-    and igr_bwd launch once per shard and step, the loss falls, the
+    trainer at 8x256, bfloat16, mesh=card x 4, phase 4c's epochs, each step
+    a replay of the whole sharded step's graph: igr_fwd and igr_bwd launch
+    once per shard and step (and WARMUP steps' worth before the capture),
+    the loss falls, the
     point-cloud field's mesh at 128^3 sits on the cloud (median vertex
     radius within 1% of 0.85). One f32 IGRLOSS gradient through
     make_fused_value_and_grad_sharded (x2, x4) against the single-device op:
@@ -263,8 +278,10 @@ Phases, none of which is allowed to fail quietly:
     group's data axis and one supervised epoch of configs/mesh_sdf.ini's
     8x512 net through the entry point, losses and parameters bit-equal to
     the same runs with no group (run here first), one igr_fwd and one
-    igr_bwd per step; (b) gloo, two ranks on the one card (device cuda:0 and
-    backend gloo asked for): the point-cloud run (8x256, bfloat16,
+    igr_bwd per step, each step a graph replay (and WARMUP steps' worth
+    before the capture); (b) gloo, two ranks on the one card (device cuda:0
+    and backend gloo asked for; the steps eager, as the gloo rule prints):
+    the point-cloud run (8x256, bfloat16,
     MH_PCD_EPOCHS epochs) and the labelled IGRLOSS run, the ranks' parameters
     bit-equal to each other, one igr_fwd and one igr_bwd per rank and step,
     losses within MH_LOSS_RTOL and parameters within MH_PARAM_RATIO (see
@@ -426,15 +443,21 @@ IGR_RELU_GRAD_MEAN_TOL = 1e-2
 IGR_RELU_BF16_GRAD_MAX_TOL = 5e-2
 IGR_RELU_CANDIDATES = 1 << 18  # uniform points "relu_clear" picks its points from
 IGR_EPOCHS = 5        # labelled IGRLOSS run, bfloat16
-# phase 4c (d): each trainer graphed against its eager step, epochs of each
-# untraced and traced run; the launches the host may issue a step outside
-# the graphs, over a traced epoch (per step the index row, the loss, two
-# generators' seed and offset, the graph; per epoch the permutation, the
-# mean, validation's replays and the best-epoch snapshot), stated before the
-# card's first run
+# phase 4c (d), (e): each trainer graphed against its eager step, epochs of
+# each untraced run and of each graphed traced run (an eager one is traced
+# for one epoch); the launches the host may issue a step
+# outside the graphs, over a traced epoch (per step the index row, the loss,
+# two generators' seed and offset, the graph; per epoch the permutation, the
+# mean, validation's replays and the best-epoch snapshot): 16 before the
+# card's first run of the single-device graphs, which read 9.0-10.2; 12
+# since the sharded steps' graphs, whose host work a step is the same
 GRAPH_EPOCHS = 3
 GRAPH_TRACE_EPOCHS = 2
-GRAPH_HOST_LAUNCHES = 16
+# tries of a graphed trace that lost some replays' device events: the
+# point-cloud x4 trace (~41,500 kernels in ~0.3 s) lost some in 2 of its
+# first 6 tries (3 whole replays; ~700 kernels)
+GRAPH_TRACE_TRIES = 5
+GRAPH_HOST_LAUNCHES = 12
 GRAPH_FAMILY_BATCHES = 8  # steps of the other families' graphed epoch
 PCD_EPOCHS = 31       # point-cloud run, bfloat16; model_epoch30.ckpt holds the last weights
 PCD_POINTS = 307200
@@ -945,14 +968,13 @@ def drive_sharded(device, run_root, model, report):
     Returns (launches per run, what phase 5 times)."""
     from sdf_representation_tpu_torch import cli
     from sdf_representation_tpu_torch.configgen import Configuration
-    from sdf_representation_tpu_torch.geometry.mesh_io import load_mesh
     from sdf_representation_tpu_torch.losses.losses import IGRLOSS
     from sdf_representation_tpu_torch.ops import fused_igr as fi
     from sdf_representation_tpu_torch.ops import fused_mlp as fm
     from sdf_representation_tpu_torch.ops import sharded_eval as se
     from sdf_representation_tpu_torch.ops import sparse_grid as sg
     from sdf_representation_tpu_torch.parallel.mesh import gather
-    from sdf_representation_tpu_torch.training import PointCloudTrainer, Trainer
+    from sdf_representation_tpu_torch.training import PointCloudTrainer, Trainer, graphs
     from sdf_representation_tpu_torch.training import trainer as trainer_module
 
     launches, out = {}, {}
@@ -1113,12 +1135,17 @@ def drive_sharded(device, run_root, model, report):
         with counted(launches, tag):
             result = trainer.train()
         steps = ((n_train if cls is Trainer else PCD_POINTS) // 16384) * epochs
-        only_launched(launches, tag, igr_fwd=k * steps, igr_bwd=k * steps)
+        # each step a replay of the whole sharded step's graph (training/graphs.py),
+        # which counts k launches of each kernel; the warm-up's eager steps launch too
+        only_launched(launches, tag, igr_fwd=k * (steps + graphs.WARMUP),
+                      igr_bwd=k * (steps + graphs.WARMUP))
         curve = result["train_losses"] if cls is Trainer else result["losses"]
         stats = dict(trainer_module.LAST_RUN)
-        print(f"{tag}: {steps} steps, launches per step {launches[tag]['igr_fwd'] / steps:g} igr_fwd, "
-              f"{launches[tag]['igr_bwd'] / steps:g} igr_bwd, {stats}, train loss "
+        print(f"{tag}: {steps} steps + {graphs.WARMUP} warm-up, launches {launches[tag]['igr_fwd']} "
+              f"igr_fwd, {launches[tag]['igr_bwd']} igr_bwd, {stats}, train loss "
               + " ".join(f"{v:.3e}" for v in curve), flush=True)
+        if not stats["graphed"]:
+            raise RuntimeError(f"{tag}: the sharded steps on one card were not graph replays")
         if not (len(curve) == epochs and np.isfinite(curve).all() and curve[-1] < curve[0]):
             raise RuntimeError(f"{tag}: the loss did not fall: {curve}")
         out["data_parallel"][tag] = {**stats, "steps": steps, "train_loss": list(curve)}
@@ -1132,14 +1159,14 @@ def drive_sharded(device, run_root, model, report):
         if cli.main([str(rec)]) != 0:
             raise RuntimeError("dp_pcd_reconstruct: the entry point failed")
     only_launched(launches, "dp_pcd_reconstruct/128", fused_grid=1)
-    mesh = load_mesh(str(pathlib.Path(trainer.postprocess_save_path)
-                         / f"reconstructed_epoch{PCD_EPOCHS - 1}.stl"))
-    radius = float(np.median(np.linalg.norm(mesh.vertices, axis=1)))
-    print(f"mesh from the data-parallel point-cloud field, 128^3: {len(mesh.faces)} faces, median "
+    verts, n_faces = stl_vertices(pathlib.Path(trainer.postprocess_save_path)
+                                  / f"reconstructed_epoch{PCD_EPOCHS - 1}.stl", device)
+    radius = float(np.median(np.linalg.norm(verts, axis=1)))
+    print(f"mesh from the data-parallel point-cloud field, 128^3: {n_faces} faces, median "
           f"vertex radius {radius:.4f} (the cloud's sphere: 0.85, tolerance 1%)", flush=True)
-    if len(mesh.faces) < 100 or abs(radius - 0.85) > 0.0085:
+    if n_faces < 100 or abs(radius - 0.85) > 0.0085:
         raise RuntimeError("dp_pcd_reconstruct: the mesh does not sit on the cloud")
-    out["data_parallel"]["pcd_reconstruct_128"] = {"faces": len(mesh.faces), "median_radius": radius}
+    out["data_parallel"]["pcd_reconstruct_128"] = {"faces": n_faces, "median_radius": radius}
 
     # one f32 step of the sharded fused op against the single-device one
     gen = torch.Generator().manual_seed(SEED)
@@ -1511,6 +1538,24 @@ def canon_soup(verts, faces):
     return arr[np.lexsort(arr.T[::-1])]
 
 
+def stl_vertices(path, device):
+    """(the welded vertices, float64 numpy, and the face count) of a binary
+    STL that the port wrote, as geometry.mesh_io.load_mesh gives them: the
+    triangles' corners merged where they agree to 8 decimals. The merge is
+    sorted on the card: load_mesh's numpy sort of 66 M corners (the
+    HashMLP's 1024^3 mesh) takes minutes of the host."""
+    with open(path, "rb") as f:
+        f.seek(80)
+        n = int(np.frombuffer(f.read(4), dtype="<u4")[0])
+        rec = np.frombuffer(f.read(n * 50), dtype=np.uint8).reshape(n, 50)
+    corners = torch.from_numpy(rec[:, 12:48].copy().view("<f4").reshape(-1, 3)).to(device,
+                                                                                   torch.float64)
+    _, inverse = torch.unique(torch.round(corners, decimals=8), dim=0, return_inverse=True)
+    first = torch.full((int(inverse.max()) + 1,), len(corners), device=device).scatter_reduce_(
+        0, inverse, torch.arange(len(corners), device=device), "amin")
+    return corners[first].cpu().numpy(), n
+
+
 def canon_mesh(verts, faces):
     """The orientation-keeping canonical soup of tests/test_giga_extract.py
     (_canon): each face rotated so that its lexicographically smallest
@@ -1821,7 +1866,6 @@ def drive_marching(device, run_root, model, checks, report):
     from sdf_representation_tpu_torch import cli
     from sdf_representation_tpu_torch.configgen import Configuration
     from sdf_representation_tpu_torch.evaluations import reconstruct
-    from sdf_representation_tpu_torch.geometry.mesh_io import load_mesh
     from sdf_representation_tpu_torch.ops import fused_mlp as fm
     from sdf_representation_tpu_torch.ops import giga_extract as ge
     from sdf_representation_tpu_torch.ops import marching_device as md
@@ -2021,21 +2065,21 @@ def drive_marching(device, run_root, model, checks, report):
             raise RuntimeError(f"{tag}: not the giga route's stages: {stages}")
         if not stl.exists():
             raise RuntimeError(f"{tag}: the entry point wrote no STL")
-        mesh = load_mesh(str(stl))
+        vertices, n_faces = stl_vertices(stl, device)
         stl.unlink()
-        verts = torch.as_tensor(mesh.vertices, dtype=torch.float32, device=device)
+        verts = torch.as_tensor(vertices, dtype=torch.float32, device=device)
         with torch.no_grad():
             f = torch.cat([model(v).abs() for v in verts.split(1 << 20)])
         p99 = float(np.quantile(f.cpu().numpy(), 0.99))
         bound = 2.0 / 1023 + checks[f"fused_points/{dt}"]
         if dt == "bfloat16":
             bound += math.sqrt(3.0) * 2.0 ** -9
-        row = {"wall_s": wall, "stages_s": stages, "faces": len(mesh.faces),
-               "vertices": len(mesh.vertices), "slabs": len(plan),
+        row = {"wall_s": wall, "stages_s": stages, "faces": n_faces,
+               "vertices": len(vertices), "slabs": len(plan),
                "max_memory_allocated": peak, "p99_abs_f": p99, "p99_bound": bound}
         out["reconstruct_1024"][dt] = row
         print(f"phase 4f (c) {tag}: " + json.dumps(row), flush=True)
-        if not (len(mesh.faces) > 1000 and torch.isfinite(verts).all() and verts.abs().max() <= 1
+        if not (n_faces > 1000 and torch.isfinite(verts).all() and verts.abs().max() <= 1
                 and p99 < bound):
             raise RuntimeError(f"{tag}: the 1024^3 mesh fails its checks: {row}")
     report["phase_4f"] = out
@@ -2070,7 +2114,7 @@ def drive_pipeline(device, run_root, report):
     from sdf_representation_tpu_torch.configgen import Configuration
     from sdf_representation_tpu_torch.data.dataset import frame_from_csv
     from sdf_representation_tpu_torch.evaluations import post_process, reconstruct
-    from sdf_representation_tpu_torch.geometry.mesh_io import load_mesh, save_mesh
+    from sdf_representation_tpu_torch.geometry.mesh_io import save_mesh
     from sdf_representation_tpu_torch.geometry.primitives import make_icosphere
     from sdf_representation_tpu_torch.geometry.rescale import rescale_mesh
     from sdf_representation_tpu_torch.ops import fused_igr as fi
@@ -2232,22 +2276,22 @@ def drive_pipeline(device, run_root, report):
                    "--compute-dtype", dtype)
         if launches[tag]["sparse_blocks"] + launches[tag]["fused_grid"] < 1:
             raise RuntimeError(f"{tag}: no evaluation kernel was launched")
-        mesh = load_mesh(str(stl))
-        radii = np.linalg.norm(mesh.vertices, axis=1)
+        vertices, n_faces = stl_vertices(stl, device)
+        radii = np.linalg.norm(vertices, axis=1)
         stages = dict(reconstruct.LAST_STAGE_SECONDS)
         print(f"mesh from the trained field, {cubesize}^3 ({dtype}; launches {launches[tag]}): "
-              f"{len(mesh.faces)} faces, vertex radius "
+              f"{n_faces} faces, vertex radius "
               f"median {np.median(radii):.4f} (the labelled sphere: 0.85), within 0.02 of it "
               f"{np.mean(np.abs(radii - 0.85) < 0.02):.3f} of the vertices, stages (s) {stages}"
               + ("; with the host marcher (PERF.md §5): evaluate 0.200 s, march 1.657 s"
                  if cubesize == 256 else ""), flush=True)
         if ("decode" in stages) != (cubesize == 256):
             raise RuntimeError(f"{tag}: marched on the wrong side: stages {stages}")
-        if len(mesh.faces) < 1000 or not np.isfinite(mesh.vertices).all() \
-                or np.abs(mesh.vertices).max() > 1 or abs(np.median(radii) - 0.85) > 0.1:
+        if n_faces < 1000 or not np.isfinite(vertices).all() \
+                or np.abs(vertices).max() > 1 or abs(np.median(radii) - 0.85) > 0.1:
             raise RuntimeError(f"{tag}: the mesh is not a sphere of radius ~0.85")
         out["reconstruct_trained"][tag.split("/", 1)[1]] = {
-            "wall_s": wall, "faces": len(mesh.faces), "median_radius": float(np.median(radii)),
+            "wall_s": wall, "faces": n_faces, "median_radius": float(np.median(radii)),
             "stages_s": stages, "launches": launches[tag]}
 
     # -- 4c. the eikonal path: labelled IGRLOSS, then the point-cloud trainer ----
@@ -2326,34 +2370,43 @@ def drive_pipeline(device, run_root, report):
         tag = "pcd_reconstruct/128"
         wall = run(tag, str(rec))
         only_launched(launches, tag, fused_grid=1)
-        mesh = load_mesh(str(pathlib.Path(t.postprocess_save_path)
-                             / f"reconstructed_epoch{PCD_EPOCHS - 1}.stl"))
-        radii = np.linalg.norm(mesh.vertices, axis=1)
-        print(f"mesh from the point-cloud field, 128^3: {len(mesh.faces)} faces, vertex radius "
+        vertices, n_faces = stl_vertices(pathlib.Path(t.postprocess_save_path)
+                                         / f"reconstructed_epoch{PCD_EPOCHS - 1}.stl", device)
+        radii = np.linalg.norm(vertices, axis=1)
+        print(f"mesh from the point-cloud field, 128^3: {n_faces} faces, vertex radius "
               f"median {np.median(radii):.4f} (the cloud's sphere: 0.85; reported, not gated: "
               f"{PCD_EPOCHS} epochs of IGR do not make a clean surface), within 0.02 of it "
               f"{np.mean(np.abs(radii - 0.85) < 0.02):.3f} of the vertices", flush=True)
-        if len(mesh.faces) < 100 or not np.isfinite(mesh.vertices).all():
+        if n_faces < 100 or not np.isfinite(vertices).all():
             raise RuntimeError(f"{tag}: no finite mesh came out")
-        out["pcd"]["reconstruct_128"] = {"wall_s": wall, "faces": len(mesh.faces),
+        out["pcd"]["reconstruct_128"] = {"wall_s": wall, "faces": n_faces,
                                          "median_radius": float(np.median(radii))}
     report["pipeline"] = out
     return launches
 
 
-def sphere_samples(rng):
-    """configs/mesh_sdf.ini's sample counts (100,000 uniform points, 307,200
-    + 307,200 near the surface) labelled with the exact distance and normal
-    of the sphere r = 0.85 (the rescaled icosphere's), split 9:1 as
-    data.dataset.load_data splits: an SDFDataset."""
-    from sdf_representation_tpu_torch.data.dataset import SDFDataset
-
+def sphere_points(rng):
+    """configs/mesh_sdf.ini's sample counts of the sphere r = 0.85 (the
+    rescaled icosphere's): 100,000 uniform points and 307,200 + 307,200
+    near its surface; and their labels, the exact distance and normal."""
     uniform = rng.uniform(-1, 1, (100000, 3))
     d = rng.normal(size=(614400, 3))
     near = d / np.linalg.norm(d, axis=1, keepdims=True) * (0.85 + rng.normal(0, 0.02, (614400, 1)))
-    x = rng.permutation(np.concatenate([uniform, near]))
+    return uniform, near
+
+
+def sphere_labels(x):
     r = np.linalg.norm(x, axis=1, keepdims=True)
-    y = np.concatenate([r - 0.85, x / r], axis=1)
+    return np.concatenate([r - 0.85, x / r], axis=1)
+
+
+def sphere_samples(rng):
+    """sphere_points labelled and split 9:1 as data.dataset.load_data
+    splits: an SDFDataset."""
+    from sdf_representation_tpu_torch.data.dataset import SDFDataset
+
+    x = rng.permutation(np.concatenate(sphere_points(rng)))
+    y = sphere_labels(x)
     n_val = math.ceil(0.1 * len(x))
     x, y = x.astype(np.float32), y.astype(np.float32)
     return SDFDataset(x[n_val:], y[n_val:], x[:n_val], y[:n_val])
@@ -2425,26 +2478,128 @@ def graphed_resume(trainer_for, data):
     return row
 
 
-def drive_graphs(device, run_root, report):
-    """Phase 4c (d): the main path's three trainers at full width, each run
-    eagerly (``train(eager=True)``) and through its CUDA graphs
-    (training/graphs.py) from one seed for GRAPH_EPOCHS epochs: losses and
-    parameters bit-equal, and kernels 8-9 launched once a step (the graphed
-    run also WARMUP times before its capture). Then GRAPH_TRACE_EPOCHS
-    epochs of each under torch.profiler: in the graphed IGR and point-cloud
-    runs every replay holds igr_fwd_kernel, igr_bwd_kernel and
-    igr_dw_kernel, and the host issues at most GRAPH_HOST_LAUNCHES
-    launches a step outside the graphs. Printed for both: points/s, seconds
-    an epoch, the device's idle share traced and untraced (the traced
-    busy time an epoch over the untraced seconds an epoch), the capture's
-    seconds; the supervised run's checkpoint resumed (graphed_resume).
-    Returns the launches per run."""
-    from sdf_representation_tpu_torch.configgen import Configuration
-    from sdf_representation_tpu_torch.data.dataset import SDFDataset
-    from sdf_representation_tpu_torch.training import PointCloudTrainer, Trainer, graphs
+def eager_and_graphed(name, run, steps, k, fused, launches, trace_root, card):
+    """One training run made eagerly and through its CUDA graphs from one
+    seed, GRAPH_EPOCHS epochs: ``run(tag, epochs, eager)`` trains a fresh
+    trainer (its run directory named by ``tag``) and returns (its loss
+    record, its final parameters). Counts zeroed before each run: kernels
+    8-9 (``fused``) launch ``k`` times a step (once per shard, or once on a
+    rank's rows: k = 1), the graphed run also WARMUP steps' worth before
+    its capture. Then GRAPH_TRACE_EPOCHS epochs of the graphed run (one of
+    the eager run) under torch.profiler, read over the trainer's
+    ``training_loop`` range: every replay holds k igr_fwd_kernel, k
+    igr_bwd_kernel and k igr_dw_kernel (``fused``; a graphed trace that
+    lacks some is taken again, GRAPH_TRACE_TRIES in all), and the host
+    issues at most GRAPH_HOST_LAUNCHES launches a step outside the graphs.
+    Losses and parameters must be bit-equal.
+    Returns (the row, the graphed run's loss record and parameters); the
+    row holds for both runs points/s, seconds an epoch, the device's busy
+    ms an epoch and idle share traced and untraced (the traced busy time
+    an epoch over the untraced seconds an epoch), host launches a step and
+    the capture's seconds."""
+    from sdf_representation_tpu_torch.training import graphs
     from sdf_representation_tpu_torch.training import trainer as trainer_module
     from sdf_representation_tpu_torch.utils import profiling
 
+    row, results, states = {}, {}, {}
+    run("warm", 1, True)  # one eager epoch first: neither timed run pays for a first touch
+    for mode in ("eager", "graphed"):
+        tag = f"graphs/{name}/{mode}"
+        with counted(launches, tag):
+            results[mode], states[mode] = run(mode, GRAPH_EPOCHS, mode == "eager")
+        stats = dict(trainer_module.LAST_RUN)
+        if stats["graphed"] != (mode == "graphed"):
+            raise RuntimeError(f"{tag}: graphed is {stats['graphed']}")
+        want = k * (steps * GRAPH_EPOCHS + (graphs.WARMUP if mode == "graphed" else 0))
+        only_launched(launches, tag, **({"igr_fwd": want, "igr_bwd": want} if fused else {}))
+        row[mode] = {"points_per_sec": stats["points_per_sec"],
+                     "s_per_epoch": stats["seconds"] / GRAPH_EPOCHS,
+                     "capture_s": stats["capture_s"], "launches": launches[tag]}
+    row["losses"] = results
+    row["bit_equal_losses"] = results["eager"] == results["graphed"]
+    row["bit_equal_params"] = all(torch.equal(states["eager"][key], states["graphed"][key])
+                                  for key in states["eager"])
+    row["max_abs_param_diff"] = max((states["eager"][key].float() - states["graphed"][key].float())
+                                    .abs().max().item() for key in states["eager"])
+    # the eager run traced for one epoch: its 300-1,200 launches a step make a
+    # trace whose export and reading cost seconds an epoch
+    for mode, epochs in (("eager", 1), ("graphed", GRAPH_TRACE_EPOCHS)):
+        log_dir = trace_root / f"trace_{name}_{mode}"
+        for attempt in range(1, GRAPH_TRACE_TRIES + 1):
+            shutil.rmtree(log_dir, ignore_errors=True)
+            torch.cuda.synchronize()
+            with profiling.trace(str(log_dir)):
+                run(f"{mode}_trace{attempt}", epochs, mode == "eager")
+                torch.cuda.synchronize()
+            reading = read_loop_trace(log_dir)
+            # torch.profiler now and then loses device events of a graph's
+            # replays (PERF.md §7): a graphed trace with fewer of kernels 8-9
+            # than its replays launched is taken again
+            if mode == "eager" or not fused or \
+                    all(n >= k * steps * epochs for n in reading["kernels"].values()):
+                break
+            print(f"phase 4c (d) {name}: graphed trace {attempt} of {GRAPH_TRACE_TRIES} holds "
+                  f"{reading['kernels']} of {steps * epochs} replays' kernels 8-9 "
+                  f"({reading['kernel_launches']} kernels)", flush=True)
+        reading["attempts"] = attempt
+        busy_epoch_ms = reading["device_busy_ms"] / epochs
+        row[mode].update(trace=reading, idle_share_traced=reading["idle_share"],
+                         idle_share_untraced=1 - busy_epoch_ms / (row[mode]["s_per_epoch"] * 1e3),
+                         device_busy_ms_per_epoch=busy_epoch_ms,
+                         host_launches_per_step=reading["host_launches"] / (steps * epochs))
+    print(f"phase 4c (d) {name} ({card}), {steps} steps an epoch, {k} launch(es) of kernels 8-9 a "
+          "step: " + json.dumps({key: v for key, v in row.items() if key != "losses"}), flush=True)
+    graphed, n_steps = row["graphed"], steps * GRAPH_TRACE_EPOCHS
+    if not (row["bit_equal_losses"] and row["bit_equal_params"]):
+        raise RuntimeError(f"phase 4c (d) {name}: the graphed run differs from the eager one "
+                           f"(max |param diff| {row['max_abs_param_diff']:.3e}): {row['losses']}")
+    if fused and any(n != k * n_steps for n in graphed["trace"]["kernels"].values()):
+        raise RuntimeError(f"phase 4c (d) {name}: {n_steps} replays hold kernels "
+                           f"{graphed['trace']['kernels']}, not {k} of each a replay")
+    if graphed["trace"]["graph_launches"] < n_steps or \
+            graphed["host_launches_per_step"] > GRAPH_HOST_LAUNCHES:
+        raise RuntimeError(f"phase 4c (d) {name}: {graphed['trace']['graph_launches']} graph "
+                           f"launches, {graphed['host_launches_per_step']:.2f} host launches a step")
+    return row, (results["graphed"], states["graphed"])
+
+
+def write_sphere_csvs(data_path, rng):
+    """sphere_points and their labels as the sampler writes its three CSVs
+    (uniform, surface, narrow: x, y, z, S, nx, ny, nz) into data_path, for
+    a run through the entry point."""
+    from sdf_representation_tpu_torch.sampling.sampler import Frame
+
+    uniform, near = sphere_points(rng)
+    for name, x in (("uniform", uniform), ("surface", near[:307200]), ("narrow", near[307200:])):
+        Frame(("x", "y", "z", "S", "nx", "ny", "nz"), np.concatenate([x, sphere_labels(x)], axis=1)
+              ).to_csv(str(pathlib.Path(data_path) / f"{name}.csv"))
+
+
+def drive_graphs(device, run_root, report):
+    """Phase 4c (d): the main path's trainers at full width, each run
+    eagerly (``train(eager=True)``) and through its CUDA graphs
+    (training/graphs.py) from one seed (eager_and_graphed): (d) on one
+    device, the supervised, labelled IGRLOSS and point-cloud trainers, the
+    supervised run's checkpoint resumed (graphed_resume), and one epoch of
+    every other model family; (e) the sharded steps: Trainer(mesh=card x 2)
+    and x 4 (labelled IGRLOSS) and PointCloudTrainer(mesh=card x 4), each
+    whole sharded step one graph, kernels 8-9 once per shard in every
+    replay; then, under a process group of one rank over NCCL (phase 4j
+    (a)'s), the labelled IGRLOSS run on the group's data axis, which must
+    also be bit-equal to (d)'s run with no group, and supervised epochs
+    of configs/mesh_sdf.ini through the entry point (graphed; its eager
+    run through Trainer.train(eager=True) on the same CSVs).
+    Returns the launches per run."""
+    from sdf_representation_tpu_torch import cli
+    from sdf_representation_tpu_torch.configgen import Configuration
+    from sdf_representation_tpu_torch.data.dataset import SDFDataset
+    from sdf_representation_tpu_torch.parallel.mesh import process_mesh
+    from sdf_representation_tpu_torch.parallel.multihost import initialize_multihost
+    from sdf_representation_tpu_torch.training import PointCloudTrainer, Trainer
+    from sdf_representation_tpu_torch.training import checkpoint as ckpt
+    from sdf_representation_tpu_torch.training import trainer as trainer_module
+
+    card = report["card"]
     root = run_root / "graphs"
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
@@ -2453,77 +2608,43 @@ def drive_graphs(device, run_root, report):
     d = rng.normal(size=(PCD_POINTS, 3))
     cloud = (0.85 * d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
     base = (REPO / "configs" / "mesh_sdf.ini").read_text()
-    runs = (("supervised", base, Trainer, labelled),
-            ("igr", with_keys(base.replace("weight_factor = 0.5\n", ""), loss_function="IGRLOSS"),
-             Trainer, labelled),
-            ("pcd", (REPO / "configs" / "pointcloud_igr.ini").read_text()
-             + "\n[TPU]\ntrain_matmul_precision = bfloat16\n", PointCloudTrainer, cloud))
-    out, launches = {}, {}
-    for name, text, cls, data in runs:
-        steps = (data.n_train if cls is Trainer else len(data)) // 16384
-        fused = name != "supervised"
+    igr_text = with_keys(base.replace("weight_factor = 0.5\n", ""), loss_function="IGRLOSS")
+    pcd_text = ((REPO / "configs" / "pointcloud_igr.ini").read_text()
+                + "\n[TPU]\ntrain_matmul_precision = bfloat16\n")
 
-        def trainer_for(tag, epochs, **keys):
+    def state_of(model):
+        return {key: v.detach().clone() for key, v in model.state_dict().items()}
+
+    def trainer_runs(name, text, cls, data, mesh=None):
+        """(trainer_for, run) of eager_and_graphed for ``cls`` on ``data``."""
+        keys = ("train_losses", "val_losses") if cls is Trainer else ("losses",)
+
+        def trainer_for(tag, epochs, **changes):
             path = root / f"{name}_{tag}.ini"
             path.write_text(with_keys(text, directory=f"{root}/{name}_{tag}/", epochs=epochs,
-                                      min_epochs=epochs, checkpointing=epochs, **keys))
-            return cls(Configuration(str(path)))
+                                      min_epochs=epochs, checkpointing=epochs, **changes))
+            return cls(Configuration(str(path)), mesh=mesh)
 
-        row, results, states = {}, {}, {}
-        # one eager epoch first, so that neither timed run pays for a first touch
-        trainer_for("warm", 1).train(data, eager=True)
-        for mode in ("eager", "graphed"):
-            tag = f"graphs/{name}/{mode}"
-            t = trainer_for(mode, GRAPH_EPOCHS)
-            with counted(launches, tag):
-                results[mode] = t.train(data, eager=mode == "eager")
-            stats = dict(trainer_module.LAST_RUN)
-            if stats["graphed"] != (mode == "graphed"):
-                raise RuntimeError(f"{tag}: graphed is {stats['graphed']}")
-            states[mode] = {k: v.detach().clone() for k, v in t.model.state_dict().items()}
-            want = steps * GRAPH_EPOCHS + (graphs.WARMUP if mode == "graphed" else 0)
-            only_launched(launches, tag, **({"igr_fwd": want, "igr_bwd": want} if fused else {}))
-            row[mode] = {"points_per_sec": stats["points_per_sec"],
-                         "s_per_epoch": stats["seconds"] / GRAPH_EPOCHS,
-                         "capture_s": stats["capture_s"], "launches": launches[tag]}
-        keys = ("train_losses", "val_losses") if cls is Trainer else ("losses",)
-        row["losses"] = {m: {k: results[m][k] for k in keys} for m in results}
-        row["bit_equal_losses"] = all(results["eager"][k] == results["graphed"][k] for k in keys)
-        row["bit_equal_params"] = all(torch.equal(states["eager"][k], states["graphed"][k])
-                                      for k in states["eager"])
-        row["max_abs_param_diff"] = max((states["eager"][k].float() - states["graphed"][k].float())
-                                        .abs().max().item() for k in states["eager"])
+        def run(tag, epochs, eager):
+            t = trainer_for(tag, epochs)
+            result = t.train(data, eager=eager)
+            return {key: result[key] for key in keys}, state_of(t.model)
+
+        return trainer_for, run
+
+    out, launches = {}, {}
+    # -- (d) one device -------------------------------------------------------
+    for name, text, cls, data in (("supervised", base, Trainer, labelled),
+                                  ("igr", igr_text, Trainer, labelled),
+                                  ("pcd", pcd_text, PointCloudTrainer, cloud)):
+        steps = (data.n_train if cls is Trainer else len(data)) // 16384
+        trainer_for, run = trainer_runs(name, text, cls, data)
+        out[name], graphed = eager_and_graphed(name, run, steps, 1, name != "supervised", launches,
+                                               root, card)
         if name == "supervised":
-            row["resume"] = graphed_resume(trainer_for, data)
-        for mode in ("eager", "graphed"):
-            t = trainer_for(f"{mode}_trace", GRAPH_TRACE_EPOCHS)
-            log_dir = root / f"trace_{name}_{mode}"
-            torch.cuda.synchronize()
-            with profiling.trace(str(log_dir)):
-                t.train(data, eager=mode == "eager")
-                torch.cuda.synchronize()
-            reading = read_loop_trace(log_dir)
-            n_steps = steps * GRAPH_TRACE_EPOCHS
-            busy_epoch_ms = reading["device_busy_ms"] / GRAPH_TRACE_EPOCHS
-            row[mode].update(trace=reading, idle_share_traced=reading["idle_share"],
-                             idle_share_untraced=1 - busy_epoch_ms / (row[mode]["s_per_epoch"] * 1e3),
-                             device_busy_ms_per_epoch=busy_epoch_ms,
-                             host_launches_per_step=reading["host_launches"] / n_steps)
-        print(f"phase 4c (d) {name} ({report['card']}), {steps} steps an epoch: "
-              + json.dumps({k: v for k, v in row.items() if k != "losses"}), flush=True)
-        graphed = row["graphed"]
-        if not (row["bit_equal_losses"] and row["bit_equal_params"]):
-            raise RuntimeError(f"phase 4c (d) {name}: the graphed run differs from the eager one "
-                               f"(max |param diff| {row['max_abs_param_diff']:.3e}): {row['losses']}")
-        n_steps = steps * GRAPH_TRACE_EPOCHS
-        if fused and any(n != n_steps for n in graphed["trace"]["kernels"].values()):
-            raise RuntimeError(f"phase 4c (d) {name}: {n_steps} replays hold kernels "
-                               f"{graphed['trace']['kernels']}")
-        if graphed["trace"]["graph_launches"] < n_steps or \
-                graphed["host_launches_per_step"] > GRAPH_HOST_LAUNCHES:
-            raise RuntimeError(f"phase 4c (d) {name}: {graphed['trace']['graph_launches']} graph "
-                               f"launches, {graphed['host_launches_per_step']:.2f} host launches a step")
-        out[name] = row
+            out[name]["resume"] = graphed_resume(trainer_for, data)
+        if name == "igr":
+            single_igr = graphed
     # every other model family captures too (phase 4h trains them through the
     # entry point): one epoch of each on GRAPH_FAMILY_BATCHES batches, eager
     # and graphed, the equality printed
@@ -2544,17 +2665,72 @@ def drive_graphs(device, run_root, report):
             result = t.train(sub, eager=mode == "eager")
             stats = dict(trainer_module.LAST_RUN)
             curves[mode] = result["train_losses"] + result["val_losses"]
-            states[mode] = {k: v.detach().clone() for k, v in t.model.state_dict().items()}
+            states[mode] = state_of(t.model)
             row[mode] = {"graphed": stats["graphed"], "s_per_epoch": stats["seconds"],
                          "capture_s": stats["capture_s"], "losses": curves[mode]}
             if stats["graphed"] != (mode == "graphed") or not np.isfinite(curves[mode]).all():
                 raise RuntimeError(f"phase 4c (d) {name} {mode}: {row[mode]}")
         row["bit_equal_losses"] = curves["eager"] == curves["graphed"]
-        row["bit_equal_params"] = all(torch.equal(states["eager"][k], states["graphed"][k])
-                                      for k in states["eager"])
-        print(f"phase 4c (d) {name}, one epoch of {GRAPH_FAMILY_BATCHES} steps ({report['card']}): "
+        row["bit_equal_params"] = all(torch.equal(states["eager"][key], states["graphed"][key])
+                                      for key in states["eager"])
+        print(f"phase 4c (d) {name}, one epoch of {GRAPH_FAMILY_BATCHES} steps ({card}): "
               + json.dumps(row), flush=True)
         out[name] = row
+
+    # -- (e) the sharded steps: the card listed k times ------------------------
+    for name, text, cls, data, k in (("igr_x2", igr_text, Trainer, labelled, 2),
+                                     ("igr_x4", igr_text, Trainer, labelled, 4),
+                                     ("pcd_x4", pcd_text, PointCloudTrainer, cloud, 4)):
+        steps = (data.n_train if cls is Trainer else len(data)) // 16384
+        _, run = trainer_runs(name, text, cls, data, mesh=(device,) * k)
+        out[name], _ = eager_and_graphed(name, run, steps, k, True, launches, root, card)
+
+    # -- (e) one rank over NCCL: the group's data axis ---------------------------
+    initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0)
+    try:
+        group = process_mesh()
+        steps = labelled.n_train // 16384
+        _, run = trainer_runs("igr_nccl", igr_text, Trainer, labelled, mesh=group)
+        out["igr_nccl"], graphed = eager_and_graphed("igr_nccl", run, steps, 1, True, launches,
+                                                     root, card)
+        out["igr_nccl"]["bit_equal_to_no_group"] = (
+            graphed[0] == single_igr[0]
+            and all(torch.equal(graphed[1][key], single_igr[1][key]) for key in single_igr[1]))
+        print(f"phase 4c (e) igr_nccl: the rank's graphed run bit-equal to (d)'s graphed run with "
+              f"no group: {out['igr_nccl']['bit_equal_to_no_group']}", flush=True)
+        if not out["igr_nccl"]["bit_equal_to_no_group"]:
+            raise RuntimeError("phase 4c (e) igr_nccl: one rank over NCCL differs from no group")
+
+        # supervised epochs through the entry point on CSVs of the sphere
+        csvs = None
+
+        def run_sup(tag, epochs, eager):
+            nonlocal csvs
+            path = root / f"sup_nccl_{tag}.ini"
+            path.write_text(with_keys(base, directory=f"{root}/sup_nccl_{tag}/", epochs=epochs,
+                                      min_epochs=epochs, checkpointing=epochs))
+            t = Trainer(Configuration(str(path)), mesh=group)
+            data_path = pathlib.Path(t.data_path)
+            if csvs is None:
+                write_sphere_csvs(data_path, np.random.default_rng(SEED))
+                csvs = [data_path / f"{n}.csv" for n in ("uniform", "surface", "narrow")]
+            elif not (data_path / "uniform.csv").exists():
+                for src in csvs:
+                    os.link(src, data_path / src.name)
+            if eager:
+                t.train(eager=True)
+            elif cli.main([str(path)]) != 0:
+                raise RuntimeError("phase 4c (e) sup_nccl: the entry point failed")
+            train_path = pathlib.Path(t.train_path)
+            state = ckpt.load_checkpoint(str(train_path / "models" / "best_model.ckpt"))["model"]
+            return (train_path / "train_loss.txt").read_text(), state
+
+        n_rows = 714400
+        steps = (n_rows - math.ceil(0.1 * n_rows)) // 16384
+        out["sup_nccl"], _ = eager_and_graphed("sup_nccl", run_sup, steps, 1, False, launches, root,
+                                               card)
+    finally:
+        torch.distributed.destroy_process_group()
     report["graphs"] = out
     return launches
 
@@ -2596,7 +2772,7 @@ def drive_families(device, run_root, report):
     from sdf_representation_tpu_torch import cli
     from sdf_representation_tpu_torch.configgen import Configuration
     from sdf_representation_tpu_torch.evaluations import post_process, reconstruct
-    from sdf_representation_tpu_torch.geometry.mesh_io import load_mesh, save_mesh
+    from sdf_representation_tpu_torch.geometry.mesh_io import save_mesh
     from sdf_representation_tpu_torch.geometry.primitives import make_icosphere
     from sdf_representation_tpu_torch.ops import giga_extract
     from sdf_representation_tpu_torch.ops import hash_grid_eval as hge
@@ -2672,16 +2848,16 @@ def drive_families(device, run_root, report):
         tag = f"hash/reconstruct/{n}"
         wall, peak, _ = run(tag, with_keys(base, ppo=True, reconstruct=True, cubesize=n))
         stl = post / f"reconstructed_epoch{HASH_EPOCHS - 1}.stl"
-        mesh = load_mesh(str(stl))
-        radii = np.linalg.norm(mesh.vertices, axis=1)
-        row = {"wall_s": wall, "peak_bytes": peak, "faces": len(mesh.faces),
+        vertices, n_faces = stl_vertices(stl, device)
+        radii = np.linalg.norm(vertices, axis=1)
+        row = {"wall_s": wall, "peak_bytes": peak, "faces": n_faces,
                "median_radius": float(np.median(radii)),
                "route": reconstruct.model_route(model, n),
                "stages_s": dict(reconstruct.LAST_STAGE_SECONDS)}
         stl.unlink()
         out[f"reconstruct_{n}"] = row
         print(f"phase 4h (a) HashMLP reconstruct {n}^3 ({card}): {json.dumps(row)}", flush=True)
-        if row["route"] != ("giga" if n == GIGA_N else "hash") or len(mesh.faces) < 1000 \
+        if row["route"] != ("giga" if n == GIGA_N else "hash") or n_faces < 1000 \
                 or abs(row["median_radius"] / 0.85 - 1) > HASH_RADIUS_TOL:
             raise RuntimeError(f"{tag}: not a sphere of radius 0.85 within 1%: {row}")
 
@@ -2777,8 +2953,8 @@ def drive_families(device, run_root, report):
         stl = tpost / f"reconstructed_epoch{FAMILY_EPOCHS - 1}.stl"
         faces, median = 0, math.nan
         if stl.exists():
-            mesh = load_mesh(str(stl))
-            faces, median = len(mesh.faces), float(np.median(np.linalg.norm(mesh.vertices, axis=1)))
+            vertices, faces = stl_vertices(stl, device)
+            median = float(np.median(np.linalg.norm(vertices, axis=1)))
         row["reconstruct"] = {"wall_s": wall, "peak_bytes": peak, "faces": faces,
                                   "median_radius": median,
                                   "stages_s": dict(reconstruct.LAST_STAGE_SECONDS)}
@@ -2846,7 +3022,8 @@ def read_trace(log_dir):
 
 def traced(log_dir, fn, what):
     """fn() inside utils/profiling.trace, its trace read by read_trace; a
-    trace with no kernel event is taken again, up to three times. fn() runs
+    trace with no kernel event (or that trace refuses: NoDeviceEvents) is
+    taken again, up to three times. fn() runs
     once untraced first, timed on the host clock to the card's end (what
     the trace's window costs without the profiler)."""
     from sdf_representation_tpu_torch.utils import profiling
@@ -2859,9 +3036,13 @@ def traced(log_dir, fn, what):
     for attempt in range(1, 4):
         shutil.rmtree(log_dir, ignore_errors=True)
         torch.cuda.synchronize()
-        with profiling.trace(str(log_dir)):
-            fn()
-            torch.cuda.synchronize()
+        try:
+            with profiling.trace(str(log_dir)):
+                fn()
+                torch.cuda.synchronize()
+        except profiling.NoDeviceEvents as exc:
+            print(f"phase 4i (f) {what}: trace {attempt} of 3: {exc}", flush=True)
+            continue
         reading = read_trace(log_dir)
         if reading["kernel_launches"]:
             reading.update(attempts=attempt, untraced_ms=untraced_ms)
@@ -3549,7 +3730,7 @@ def multihost_runs(device, work, configs, igr_x2, report):
     """Phase 4j's runs with no group, (a) and (b); see drive_multihost."""
     from sdf_representation_tpu_torch import cli
     from sdf_representation_tpu_torch.configgen import Configuration
-    from sdf_representation_tpu_torch.training import PointCloudTrainer, Trainer
+    from sdf_representation_tpu_torch.training import PointCloudTrainer, Trainer, graphs
     from sdf_representation_tpu_torch.training import checkpoint as ckpt
 
     def state_of(model):
@@ -3584,8 +3765,12 @@ def multihost_runs(device, work, configs, igr_x2, report):
     pcd_steps = (PCD_POINTS // 16384) * MH_PCD_EPOCHS
     if nccl["backend"] != "nccl" or nccl["world"] != 1:
         raise RuntimeError(f"phase 4j (a): ran on {nccl['backend']} x{nccl['world']}")
-    if nccl["igr"]["launches"]["igr_fwd"] != igr_steps or nccl["igr"]["launches"]["igr_bwd"] != igr_steps:
-        raise RuntimeError(f"phase 4j (a): launches {nccl['igr']['launches']}, {igr_steps} steps")
+    # the rank's steps are graph replays (training/graphs.py), after WARMUP eager steps
+    igr_launches = igr_steps + graphs.WARMUP
+    if nccl["igr"]["launches"]["igr_fwd"] != igr_launches or \
+            nccl["igr"]["launches"]["igr_bwd"] != igr_launches or not nccl["igr"]["graphed"]:
+        raise RuntimeError(f"phase 4j (a): launches {nccl['igr']['launches']}, graphed "
+                           f"{nccl['igr']['graphed']}, {igr_steps} steps")
     got = torch.load(work / "igr_rank0.pt")
     same_igr = (nccl["igr"]["train_loss"] == ref_igr["train_losses"]
                 and nccl["igr"]["val_loss"] == ref_igr["val_losses"]
@@ -3627,6 +3812,7 @@ def multihost_runs(device, work, configs, igr_x2, report):
         reading = param_distance(single_state, want_state, init_state)
         dist_ = param_distance(states[0], want_state, init_state)
         row = {"ranks_bit_equal": equal, "launches_per_rank": launched, "steps": steps,
+               "graphed": [r[name]["graphed"] for r in gloo],
                "train_loss": gloo[0][name]["train_loss"], "mesh_x2_train_loss": want_curve,
                "loss_rel": loss_rel, "param_distance_to_mesh_x2": dist_,
                "single_device_param_distance_to_mesh_x2": reading}
@@ -3635,6 +3821,8 @@ def multihost_runs(device, work, configs, igr_x2, report):
             raise RuntimeError(f"phase 4j (b) {name}: the ranks' parameters differ")
         if any(c["igr_fwd"] != steps or c["igr_bwd"] != steps for c in launched):
             raise RuntimeError(f"phase 4j (b) {name}: not one igr_fwd and igr_bwd per rank and step")
+        if any(row["graphed"]):  # a gloo group stays eager (training/graphs.captures)
+            raise RuntimeError(f"phase 4j (b) {name}: a gloo rank's steps were graph replays")
         if loss_rel > MH_LOSS_RTOL or dist_ > MH_PARAM_RATIO * reading:
             raise RuntimeError(f"phase 4j (b) {name}: off the one-process mesh of two")
         out["gloo_x2"][name] = row
@@ -3663,7 +3851,6 @@ def main() -> int:
     from sdf_representation_tpu_torch import cli, kernels
     from sdf_representation_tpu_torch.configgen import Configuration
     from sdf_representation_tpu_torch.evaluations import reconstruct
-    from sdf_representation_tpu_torch.geometry.mesh_io import load_mesh
     from sdf_representation_tpu_torch.models import ImplicitNet
     from sdf_representation_tpu_torch.ops import fused_igr as fi
     from sdf_representation_tpu_torch.ops import fused_mlp as fm
@@ -3854,19 +4041,19 @@ def main() -> int:
             raise RuntimeError(f"cubesize {cubesize}: marched on the wrong side: stages {stages}")
         if not stl.exists():
             raise RuntimeError(f"cubesize {cubesize}: the entry point wrote no STL")
-        mesh = load_mesh(str(stl))
-        verts = torch.as_tensor(mesh.vertices, dtype=torch.float32, device=device)
-        if len(mesh.faces) < 1000 or not torch.isfinite(verts).all() or verts.abs().max() > 1:
+        vertices, n_faces = stl_vertices(stl, device)
+        verts = torch.as_tensor(vertices, dtype=torch.float32, device=device)
+        if n_faces < 1000 or not torch.isfinite(verts).all() or verts.abs().max() > 1:
             raise RuntimeError(f"the {cubesize}^3 mesh is too small or has vertices off the grid")
         with torch.no_grad():
             p99 = torch.quantile(model(verts).abs(), 0.99).item()
         bound = 2.0 / (cubesize - 1) + checks["fused_points/bfloat16"]
-        print(f"mesh {cubesize}^3: {len(mesh.vertices)} vertices, {len(mesh.faces)} faces; "
+        print(f"mesh {cubesize}^3: {len(vertices)} vertices, {n_faces} faces; "
               f"p99 |f(vertex)| plain f32 {p99:.3e} (bound {bound:.3e})", flush=True)
         if not p99 < bound:
             raise RuntimeError(f"p99 |f| at the vertices {p99} over {bound}")
         main_path[cubesize] = {"launches": launches, "wall_s": wall, "stages_s": stages,
-                               "faces": len(mesh.faces), "p99_abs_f": p99, "p99_bound": bound}
+                               "faces": n_faces, "p99_abs_f": p99, "p99_bound": bound}
     _, count256 = sg.sparse_grid_eval(model, 256, return_count=True)
     print(f"active blocks at 256: {count256} of {32 ** 3}", flush=True)
     report.update(main_path=main_path, active_blocks=count256, checks=checks,

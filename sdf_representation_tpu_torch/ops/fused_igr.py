@@ -850,7 +850,11 @@ def make_fused_value_and_grad_sharded(model, mesh, compute_dtype: torch.dtype = 
     one ``igr_fwd`` launch per shard and, in backward, one ``igr_bwd``
     launch per shard; autograd sums the shards' parameter gradients (the
     psum of the JAX ``shard_map`` transpose). Each distinct device's weights
-    are packed once per call, not once per shard.
+    are packed once per call, not once per shard, on the device: the
+    packing's one host copy, the layout descriptor, is made once per layout
+    and device (``fused_mlp._descriptor``), so a step of this op captures
+    as a CUDA graph (training/graphs.py) whose replays launch k ``igr_fwd``
+    and k ``igr_bwd`` for k shards.
 
     Under a ``ProcessMesh`` (one process per card) each rank runs the fused
     op on its rows of ``x`` (one ``igr_fwd`` and, in backward, one

@@ -23,6 +23,14 @@ the one loss of the whole batch; ``allreduce_grads`` then sums the
 parameter gradients. A term that every rank computes whole would reach
 that sum once per rank: ``count_once`` keeps its gradient on rank 0 only.
 
+A step made of these is captured as a CUDA graph under NCCL
+(training/graphs.py): each collective is one all_reduce of a device tensor
+whose shape the step fixes, with no host read or copy around it, and
+``over_ranks`` and ``count_once`` branch only on shapes and the rank, so
+every replay issues the same collectives in the same order on every rank.
+Under gloo, which stages CUDA tensors through the host, the step stays
+eager.
+
 Users: the sharded streams (``ops/sdf_streams.py``), the sharded grid
 evaluators (``ops/sharded_eval.py``), the sharded fused eikonal op
 (``ops/fused_igr.make_fused_value_and_grad_sharded``) and the trainers'

@@ -34,12 +34,20 @@ one validation batch likewise (``ValRunner``):
     ops/fused_igr.py, ops/fused_mlp.py and ops/sdf_streams.py); the capture
     launches nothing and counts nothing, the warm-up's launches count.
 
+The sharded steps are captured too (``captures`` is the rule): under a
+mesh whose entries all name one card the whole sharded step, every shard's
+launches in one graph; under a process group over NCCL each rank its own
+step, the collectives (``parallel.mesh``: the rows' gather, the gradients'
+all-reduce) inside the graph. Every rank replays the same step, so the
+collectives are issued in the same order on every rank; the warm-up's
+eager steps create the NCCL communicator before the capture.
+
 The same runners run the step as a plain call where nothing was captured:
-on the CPU, under a mesh of several devices or a process group, with
-``debug_nans``, or when the caller asks (the trainers' ``eager`` keyword).
-That eager run is the plain version the tests and chip_smoke.py hold the
-graph against. A capture or a replay that fails raises; nothing falls back
-to the eager step.
+on the CPU, under a mesh of distinct cards in one process or a gloo group,
+with ``debug_nans``, or when the caller asks (the trainers' ``eager``
+keyword). That eager run is the plain version the tests and chip_smoke.py
+hold the graph against. A capture or a replay that fails raises; nothing
+falls back to the eager step.
 
 On a card the trainers' Adam is ``capturable`` with its rate a device
 tensor (``make_adam``), graphed or eager, so that both run the same
@@ -55,10 +63,37 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import torch
 
 from ..ops import fused_igr, fused_mlp, sdf_streams
+from ..parallel.mesh import ProcessMesh
 
 WARMUP = 3  # eager calls of a step before its capture
 # the kernels' launch counters that replays add to
 COUNTERS = (fused_igr.LAUNCHES, fused_mlp.LAUNCHES, sdf_streams.LAUNCHES)
+
+
+def captures(device, mesh, backend: Optional[str], debug_nans: bool, eager: bool) -> bool:
+    """Whether a trainer's training steps and validation batches run as
+    CUDA-graph replays: on a card (``device``, the trainer's) alone, under a
+    mesh whose entries all name that card, or under a ``ProcessMesh`` whose
+    group's ``backend`` is NCCL; unless ``eager`` (the caller asks) or
+    ``debug_nans``. Where it does not capture for a reason of its own it
+    prints one line that says why. Decided before any capture: a capture
+    that fails raises, it never selects the eager step."""
+    if eager:
+        return False
+    why = None
+    if torch.device(device).type != "cuda":
+        why = "the CPU has no CUDA graphs"
+    elif isinstance(mesh, ProcessMesh) and backend != "nccl":
+        why = (f"a {backend} process group stages every CUDA tensor through the host, outside "
+               "any stream")
+    elif mesh is not None and not isinstance(mesh, ProcessMesh) and len(set(mesh)) > 1:
+        why = ("a mesh of distinct cards in one process: a graph's memory pool and its capture "
+               "belong to one device, and the shards' copies cross devices")
+    elif debug_nans:
+        why = "debug_nans reads every backward on the host"
+    if why is not None:
+        print(f"training steps run eagerly: {why}")
+    return why is None
 
 
 def make_adam(params, lr: float, device: torch.device) -> torch.optim.Adam:

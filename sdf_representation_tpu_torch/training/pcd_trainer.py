@@ -25,10 +25,12 @@ in the labelled trainer.
 A loop like ``Trainer.train``: the cloud lives on the device, every epoch
 draws a permutation from a generator seeded from (init_seed + 1, epoch),
 every step reseeds it from (init_seed + 1, epoch, step); losses stay on the
-device within an epoch: one host read per epoch. On a card with one device
-every step is one replay of a CUDA graph (training/graphs.py), the subsample
-and the noise drawn inside it from the step's registered generator; under a
-mesh of several devices or a process group, on the CPU, or with
+device within an epoch: one host read per epoch. On a card every step is one
+replay of a CUDA graph (training/graphs.py), the subsample and the noise
+drawn inside it from the step's registered generator, under the labelled
+trainer's rule (``graphs.captures``: one device, a mesh of one card, or a
+process group over NCCL, where every rank seeds the generator alike); under
+a mesh of distinct cards or a gloo group, on the CPU, or with
 ``train(eager=True)``, the step runs as a plain call. The JAX trainer has no
 multi-epoch block here, and neither has this one.
 

@@ -26,12 +26,15 @@ training, checkpoints and the mode dispatch of ``run``.
     inside a block adopts the device's best, as JAX does; a final partial
     block ends at ``epochs``. The trajectory does not depend on the block:
     ``epochs_per_call = k`` gives the losses and parameters of ``k = 1``.
-  * on a card with one device every training step and every validation
-    batch is one replay of a CUDA graph (training/graphs.py: the JAX
-    trainer's jitted epoch); under a mesh of several devices or a process
-    group, with ``debug_nans``, on the CPU, or when ``train(eager=True)``
-    asks, the same step runs as a plain call. Adam is ``capturable`` on a
-    card either way (``graphs.make_adam``).
+  * on a card every training step and every validation batch is one
+    replay of a CUDA graph (training/graphs.py: the JAX trainer's jitted
+    epoch): with one device, under a mesh whose entries all name one card
+    (the whole sharded step), and under a process group over NCCL (each
+    rank its own step, the collectives inside it). Under a mesh of distinct
+    cards in one process or a gloo group, with ``debug_nans``, on the CPU,
+    or when ``train(eager=True)`` asks, the same step runs as a plain call
+    (``graphs.captures``). Adam is ``capturable`` on a card either way
+    (``graphs.make_adam``).
   * a loss's learnable scalars (``needs_aux``: GaussBonnetLoss's Euler
     characteristic, initial value 2.0) are parameters beside the model's:
     given to Adam, saved in the checkpoints under ``"aux"`` (a key that
@@ -513,22 +516,11 @@ class Trainer:
         return ((self.init_seed + 1) << 44) + ((epoch + 1) << 20) + step
 
     def _captures(self, eager: bool) -> bool:
-        """Whether the training steps and validation batches run as CUDA
-        graph replays (training/graphs.py): on a card with one device,
-        unless ``eager`` or ``debug_nans`` (anomaly detection reads every
-        backward on the host). Under a mesh of several devices or a process
-        group they stay eager (a sharded step copies between devices, and
-        gloo's collectives cannot be captured), and one line says so."""
-        if eager or self.device.type != "cuda":
-            return False
-        if isinstance(self.mesh, ProcessMesh) or (self.mesh is not None and len(self.mesh) > 1):
-            print("training steps run eagerly: steps over a mesh of several devices or a process "
-                  "group are not captured as CUDA graphs")
-            return False
-        if self.config.debug_nans:
-            print("training steps run eagerly: debug_nans reads every backward on the host")
-            return False
-        return True
+        """``graphs.captures`` for this trainer's device, mesh, group and
+        config: whether its steps and validation batches are graph replays."""
+        backend = (torch.distributed.get_backend() if isinstance(self.mesh, ProcessMesh)
+                   else None)
+        return graphs.captures(self.device, self.mesh, backend, self.config.debug_nans, eager)
 
     def _run_epoch(self, runner: graphs.StepRunner, epoch: int, n_train: int,
                    batch: int) -> torch.Tensor:

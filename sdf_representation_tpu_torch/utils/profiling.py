@@ -4,7 +4,10 @@ sdf_representation_tpu/utils/profiling.py.
   * trace(log_dir): a ``torch.profiler`` window around a code block; CPU
     activity, and CUDA activity where a card is present. It writes one
     Chrome trace (``*.pt.trace.json``) into log_dir, which Perfetto,
-    chrome://tracing and TensorBoard's profiler plugin open.
+    chrome://tracing and TensorBoard's profiler plugin open. A window whose
+    host put work on the card but whose trace holds no device event raises
+    ``NoDeviceEvents`` (``check_device_events``) instead of handing back a
+    trace that would read as an idle card.
   * force(x): waits for the device of the first tensor of a nested
     dict / list / tuple (torch returns before the card finishes).
   * StepTimer: per-step wall times; ``summary()`` gives mean/p50/p90/min.
@@ -24,9 +27,35 @@ import numpy as np
 import torch
 
 
+# the CUDA runtime and driver calls that put work on the card
+_DEVICE_WORK = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch", "cudaMemcpy", "cudaMemset")
+
+
+class NoDeviceEvents(RuntimeError):
+    """A profiler window's host put work on the card, and its trace holds
+    none of the card's events."""
+
+
+def check_device_events(events) -> None:
+    """Raise ``NoDeviceEvents`` where ``events`` (a window's profiler
+    events: ``name()``, ``device_type()``) hold a runtime call that put work
+    on the card and no event of the card itself."""
+    launched = on_card = 0
+    for event in events:
+        if event.device_type() == torch.autograd.DeviceType.CUDA:
+            on_card += 1
+        elif event.name().startswith(_DEVICE_WORK):
+            launched += 1
+    if launched and not on_card:
+        raise NoDeviceEvents(f"torch.profiler recorded {launched} launches on the host and no event "
+                             "on the card in this window: its trace would read as an idle card")
+
+
 @contextlib.contextmanager
 def trace(log_dir: str):
-    """torch.profiler trace around a code block; yields the profiler."""
+    """torch.profiler trace around a code block; yields the profiler. With
+    a card, raises ``NoDeviceEvents`` after a window whose trace lost the
+    card's events (``check_device_events``)."""
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
     os.makedirs(log_dir, exist_ok=True)
@@ -35,6 +64,8 @@ def trace(log_dir: str):
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
         yield prof
+    if ProfilerActivity.CUDA in activities:
+        check_device_events(prof.profiler.kineto_results.events())
 
 
 def _leaves(x):
