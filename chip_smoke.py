@@ -269,7 +269,7 @@ Phases, none of which is allowed to fail quietly:
     trace, read by this script, gives the window, the device-busy time (the
     union of kernel intervals), the idle share, the top 5 kernels and
     kernels 8-9's share (a trace with no kernel event is taken again, three
-    tries); StepTimer with force gives the per-step times beside them.
+    tries).
  4j. One process per card (parallel/multihost.py), the ranks spawned by
     this script (`python3 chip_smoke.py --rank R --spec FILE`) with a fixed
     timeout, counts zeroed before each run in each rank: (a) NCCL, one rank
@@ -3057,8 +3057,8 @@ def trace_steps(run_root, data_dir):
     (Trainer.train on ``data_dir``'s CSVs, phase 4b's samples) and around
     IGR_TRACE_STEPS labelled IGRLOSS steps (8x512, TRACE_BATCH points,
     bfloat16; counted once before: one launch of kernels 8 and 9 a step),
-    each trace read by read_trace; StepTimer with force over the same
-    steps. Returns (traces, step times, the counted run's launches)."""
+    each trace read by read_trace. Returns (traces, the counted run's
+    launches)."""
     from sdf_representation_tpu_torch.configgen import Configuration
     from sdf_representation_tpu_torch.data.dataset import load_data
     from sdf_representation_tpu_torch.losses.losses import IGRLOSS
@@ -3091,23 +3091,12 @@ def trace_steps(run_root, data_dir):
     steps = dataset.n_train // TRACE_BATCH  # an epoch's steps
     batches = torch.arange(steps * TRACE_BATCH, device=device).reshape(steps, TRACE_BATCH)
 
-    def timer_steps(step, n):
-        timer = profiling.StepTimer()
-        for i in range(n):
-            with timer:
-                profiling.force(step(X[batches[i]], Y[batches[i]], 0))
-        return timer.summary()
-
-    sup_model = Trainer(cfg).model
-    sup_step = make_train_step(sup_model, cfg.make_loss(),
-                               torch.optim.Adam(sup_model.parameters(), 1e-3), "bfloat16")
-    timer_steps(sup_step, 2)
-    step_times = {"supervised": timer_steps(sup_step, steps)}
     igr_model = ImplicitNet(hidden_dims=(512,) * 8, skip_in=(4,), beta=100.0, radius_init=0.5,
                             generator=torch.Generator().manual_seed(SEED), device=device)
     igr_step = make_train_step(igr_model, IGRLOSS(), torch.optim.Adam(igr_model.parameters(), 1e-4),
                                "bfloat16")
-    timer_steps(igr_step, 2)
+    for i in range(2):  # warm-up: kernel builds and the first launches
+        profiling.force(igr_step(X[batches[i]], Y[batches[i]], 0))
 
     def igr_steps():
         for i in range(IGR_TRACE_STEPS):
@@ -3117,8 +3106,7 @@ def trace_steps(run_root, data_dir):
         igr_steps()
     only_launched(launches, "igr", igr_fwd=IGR_TRACE_STEPS, igr_bwd=IGR_TRACE_STEPS)
     traces["igr_steps"] = traced(root / "trace_igr", igr_steps, "IGR steps")
-    step_times["igr"] = timer_steps(igr_step, IGR_TRACE_STEPS)
-    return traces, step_times, launches["igr"]
+    return traces, launches["igr"]
 
 
 def drive_host_tools(device, run_root, report):
@@ -3406,7 +3394,7 @@ def drive_host_tools(device, run_root, report):
     if res.returncode != 0:
         raise RuntimeError(f"phase 4i (f) failed ({res.returncode}): {res.stderr[-3000:]}")
     (line,) = [ln for ln in res.stdout.splitlines() if ln.startswith("TRACE_STEPS ")]
-    traces, step_times, child_launches = json.loads(line[len("TRACE_STEPS "):])
+    traces, child_launches = json.loads(line[len("TRACE_STEPS "):])
     launches["host_tools/igr_trace_warm"] = child_launches
     timings["trace_process"] = time.perf_counter() - t0
     for tag, reading in traces.items():
@@ -3416,11 +3404,10 @@ def drive_host_tools(device, run_root, report):
               f"{reading['kernel_launches']} kernel launches; top 5: " + json.dumps(reading["top5"])
               + f"; kernels 8-9 {reading['igr_kernels_ms']:.3f} ms ({reading['igr_share_of_busy']:.4f} "
               "of busy)", flush=True)
-    print(f"phase 4i (f) StepTimer with force ({card}): {json.dumps(step_times)}; the process "
-          f"{timings['trace_process']:.1f} s", flush=True)
+    print(f"phase 4i (f) the process {timings['trace_process']:.1f} s", flush=True)
     if not traces["igr_steps"]["igr_kernels_ms"] > 0:
         raise RuntimeError("phase 4i (f): the IGR trace holds no igr_* kernel")
-    out["traces"], out["step_times"] = traces, step_times
+    out["traces"] = traces
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"phase 4i: {out['phase_s']:.1f} s", flush=True)
     report["host_tools"] = out

@@ -29,22 +29,31 @@ never by a matrix product: the cull compares distances against a slack of
 its steps) would eat. Chunks are not padded to groups of ``_DIP_GROUP`` as
 in the JAX package: a padding chunk is never kept and has zero moment.
 
-``LAST_STAGE_SECONDS`` holds the host-clock seconds of the last resident
-call's stages (host_prep — the face sort and tables, and the points' Morton
-sort, which runs on the device —, coarse_bound, cull, streams, dipole,
-refine; each closed with a synchronize on a card) and ``LAST_COUNTS`` its sizes (blocks,
-chunks, surviving pairs sum_kd / sum_kw, shards).
+``LAST_STAGE_SECONDS`` holds the host seconds of the last resident call's
+stages (host_prep — the face sort and tables, and the points' Morton sort,
+which runs on the device —, coarse_bound, cull, streams, dipole, refine),
+each the span ``sdf.culled.<stage>`` (``utils/profiling.span``). No stage
+waits for the card: a stage's seconds are the host's, and the card's work
+lands in whichever later stage first reads a result (the cull's keep
+masks, the labels' copy back). The card's own time per stage is read from
+a trace, where the spans and the kernels share one clock. Inside the stages
+the spans ``sdf.prepare_mesh`` (work that depends on the mesh alone),
+``sdf.upload`` and ``sdf.gather`` (the labels back to the host) name the
+same work as in the dense method. ``LAST_COUNTS`` holds the call's sizes
+(blocks, chunks, surviving pairs sum_kd / sum_kw, shards), and
+``CULL_PAIRS`` the process's running totals of the (block, chunk) pairs
+the distance cull considered and kept (``reset_cull_pairs`` zeroes them).
 """
 
 from __future__ import annotations
 
-import time
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from . import sdf_streams as ss
 from .sdf_exact import _mesh_arrays, _refine_device, _triangle_tables
 
@@ -64,6 +73,12 @@ _BATCH_ENTRIES = 1 << 26
 
 LAST_STAGE_SECONDS: dict = {}
 LAST_COUNTS: dict = {}
+CULL_PAIRS = {"considered": 0, "kept": 0}
+
+
+def reset_cull_pairs() -> None:
+    for key in CULL_PAIRS:
+        CULL_PAIRS[key] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -346,12 +361,13 @@ def _unsort(values: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
 
 
 def _finish(sdf_s, grads_s, order: torch.Tensor, return_normals: bool, return_device: bool):
-    sdf = _unsort(sdf_s, order)
-    grads = _unsort(torch.stack(grads_s, dim=-1), order) if return_normals else None
-    if return_device:
-        return sdf, grads
-    return (sdf.cpu().numpy().astype(np.float64),
-            None if grads is None else grads.cpu().numpy().astype(np.float64))
+    with span("sdf.gather"):
+        sdf = _unsort(sdf_s, order)
+        grads = _unsort(torch.stack(grads_s, dim=-1), order) if return_normals else None
+        if return_device:
+            return sdf, grads
+        return (sdf.cpu().numpy().astype(np.float64),
+                None if grads is None else grads.cpu().numpy().astype(np.float64))
 
 
 def signed_distance_culled(
@@ -418,87 +434,91 @@ def signed_distance_culled(
 
     LAST_STAGE_SECONDS.clear()
     LAST_COUNTS.clear()
-    lap_start = [time.perf_counter()]
 
-    def lap(name: str) -> None:
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        now = time.perf_counter()
-        LAST_STAGE_SECONDS[name] = now - lap_start[0]
-        lap_start[0] = now
+    def stage(name: str) -> span:
+        return span(f"sdf.culled.{name}", LAST_STAGE_SECONDS, name)
 
-    # Morton-sort faces (chunk compactness) and points (block coherence)
-    vertices = np.asarray(vertices, dtype=np.float64)
-    faces = np.asarray(faces, dtype=np.int64)
-    faces_sorted = faces[_morton_order(vertices[faces].mean(axis=1))]
-    tables, F = _triangle_tables(vertices, faces_sorted, tri_chunk)
-    chunk_c, chunk_r, m, cbar = _chunk_geometry(vertices, faces_sorted, tri_chunk)
-    C = len(chunk_c)
-    M = point_chunk
-    order, P_blocks = _sorted_blocks(points, M, device)
-    n_blocks = P_blocks.shape[0]
-    lap("host_prep")
+    with stage("host_prep"):
+        # Morton-sort faces (chunk compactness) and points (block coherence)
+        with span("sdf.prepare_mesh"):
+            vertices = np.asarray(vertices, dtype=np.float64)
+            faces = np.asarray(faces, dtype=np.int64)
+            faces_sorted = faces[_morton_order(vertices[faces].mean(axis=1))]
+            tables, F = _triangle_tables(vertices, faces_sorted, tri_chunk)
+            chunk_c, chunk_r, m, cbar = _chunk_geometry(vertices, faces_sorted, tri_chunk)
+        C = len(chunk_c)
+        M = point_chunk
+        with span("sdf.upload"):
+            order, P_blocks = _sorted_blocks(points, M, device)
+        n_blocks = P_blocks.shape[0]
 
-    if coarse_bound is None:
-        coarse_bound = float(N) * float(F) >= 1e12
-    # f32 rounding is relative to the coordinates' magnitude: the slacks
-    # scale with the scene, so the winning chunk is never culled (the
-    # padded blocks repeat a point: their largest |coordinate| is the points')
-    scale = float(max(np.abs(vertices).max(initial=0.0), P_blocks.abs().max().item(), 1.0))
-    if coarse_bound:
-        P_pad = P_blocks.reshape(-1, 3)
-        # the exact node sweep costs O(grid^3 F); past the budget the sphere
-        # bound is within a chunk radius of it at O(grid^3 C)
-        if 32 ** 3 * float(F) <= _COARSE_EXACT_MAX_PAIRS:
-            ub = _coarse_upper_bound(P_pad, tables, tri_chunk, eps=1e-4 * scale)
+    with stage("coarse_bound"):
+        if coarse_bound is None:
+            coarse_bound = float(N) * float(F) >= 1e12
+        # f32 rounding is relative to the coordinates' magnitude: the slacks
+        # scale with the scene, so the winning chunk is never culled (the
+        # padded blocks repeat a point: their largest |coordinate| is the points')
+        scale = float(max(np.abs(vertices).max(initial=0.0), P_blocks.abs().max().item(), 1.0))
+        if coarse_bound:
+            P_pad = P_blocks.reshape(-1, 3)
+            # the exact node sweep costs O(grid^3 F); past the budget the sphere
+            # bound is within a chunk radius of it at O(grid^3 C)
+            if 32 ** 3 * float(F) <= _COARSE_EXACT_MAX_PAIRS:
+                ub = _coarse_upper_bound(P_pad, tables, tri_chunk, eps=1e-4 * scale)
+            else:
+                ub = _coarse_upper_bound_spheres(P_pad, chunk_c, chunk_r, eps=1e-4 * scale)
+            UB_blocks = ub.reshape(n_blocks, M)
         else:
-            ub = _coarse_upper_bound_spheres(P_pad, chunk_c, chunk_r, eps=1e-4 * scale)
-        UB_blocks = ub.reshape(n_blocks, M)
-    else:
-        UB_blocks = torch.full((n_blocks, M), torch.inf, device=device)
-    lap("coarse_bound")
+            UB_blocks = torch.full((n_blocks, M), torch.inf, device=device)
 
-    kd, kw = _cull(P_blocks, UB_blocks, chunk_c, chunk_r, beta, cbar=cbar,
-                   slack=_CULL_SLACK * scale)
-    if dist_tri_chunk is None or dist_tri_chunk == tri_chunk:
-        d_tc, kd_d, d_tables = tri_chunk, kd, tables
-    else:
-        d_tc = dist_tri_chunk
-        d_tables, _ = _triangle_tables(vertices, faces_sorted, d_tc)
-        cd, rd, _, cbard = _chunk_geometry(vertices, faces_sorted, d_tc)
-        kd_d, _ = _cull(P_blocks, UB_blocks, cd, rd, beta, cbar=cbard, slack=_CULL_SLACK * scale)
-    db, dc, Sd = ss.stream_steps(kd_d, n_blocks)
-    wb, wc, Sw = ss.stream_steps(kw, n_blocks)
-    lap("cull")
+    with stage("cull"):
+        kd, kw = _cull(P_blocks, UB_blocks, chunk_c, chunk_r, beta, cbar=cbar,
+                       slack=_CULL_SLACK * scale)
+        if dist_tri_chunk is None or dist_tri_chunk == tri_chunk:
+            d_tc, kd_d, d_tables = tri_chunk, kd, tables
+        else:
+            d_tc = dist_tri_chunk
+            with span("sdf.prepare_mesh"):
+                d_tables, _ = _triangle_tables(vertices, faces_sorted, d_tc)
+                cd, rd, _, cbard = _chunk_geometry(vertices, faces_sorted, d_tc)
+            kd_d, _ = _cull(P_blocks, UB_blocks, cd, rd, beta, cbar=cbard,
+                            slack=_CULL_SLACK * scale)
+        db, dc, Sd = ss.stream_steps(kd_d, n_blocks)
+        wb, wc, Sw = ss.stream_steps(kw, n_blocks)
 
-    sharded = devices is not None and len(devices) > 1 and n_blocks % len(devices) == 0
-    if sharded:
-        _, best = ss.dist_stream_sharded(P_blocks, db, dc, d_tables, d_tc, devices)
-        w = ss.wind_stream_sharded(P_blocks, wb, wc, tables, tri_chunk, devices)
-        best, w = torch.from_numpy(best).to(device), torch.from_numpy(w).to(device)
-    else:
-        _, best = ss.dist_stream(P_blocks, db, dc, d_tables, d_tc)
-        w = ss.wind_stream(P_blocks, wb, wc, tables, tri_chunk)
-        best, w = best[:n_blocks], w[:n_blocks]
-    lap("streams")
+    with stage("streams"):
+        sharded = devices is not None and len(devices) > 1 and n_blocks % len(devices) == 0
+        if sharded:
+            _, best = ss.dist_stream_sharded(P_blocks, db, dc, d_tables, d_tc, devices)
+            w = ss.wind_stream_sharded(P_blocks, wb, wc, tables, tri_chunk, devices)
+            best, w = torch.from_numpy(best).to(device), torch.from_numpy(w).to(device)
+        else:
+            _, best = ss.dist_stream(P_blocks, db, dc, d_tables, d_tc)
+            w = ss.wind_stream(P_blocks, wb, wc, tables, tri_chunk)
+            best, w = best[:n_blocks], w[:n_blocks]
 
-    # the winding partition: exact over the beta-near chunks, dipole for ~kw
-    omega_far = _dipole_all_blocks(P_blocks, torch.from_numpy(~kw), cbar, m)
-    omega = (w + omega_far).reshape(-1)[:N]
-    lap("dipole")
+    with stage("dipole"):
+        # the winding partition: exact over the beta-near chunks, dipole for ~kw
+        omega_far = _dipole_all_blocks(P_blocks, torch.from_numpy(~kw), cbar, m)
+        omega = (w + omega_far).reshape(-1)[:N]
 
-    best_idx = best.reshape(-1)[:N].clamp(0, F - 1)
-    tri_flat = torch.from_numpy(vertices[faces_sorted].astype(np.float32).reshape(-1)).to(device)
-    flat = P_blocks.reshape(-1, 3)
-    P_cols = (flat[:N, 0], flat[:N, 1], flat[:N, 2])
-    sdf_s, grads_s = _refine_device(P_cols, tri_flat, best_idx, omega, on_surface_eps)
-    out = _finish(sdf_s, grads_s, order, return_normals, return_device)
-    lap("refine")
+    with stage("refine"):
+        best_idx = best.reshape(-1)[:N].clamp(0, F - 1)
+        with span("sdf.upload"):
+            tri_flat = torch.from_numpy(
+                vertices[faces_sorted].astype(np.float32).reshape(-1)).to(device)
+        flat = P_blocks.reshape(-1, 3)
+        P_cols = (flat[:N, 0], flat[:N, 1], flat[:N, 2])
+        sdf_s, grads_s = _refine_device(P_cols, tri_flat, best_idx, omega, on_surface_eps)
+        out = _finish(sdf_s, grads_s, order, return_normals, return_device)
+    sum_kd = int(kd_d.sum())
     LAST_COUNTS.update(points=N, faces=F, blocks=n_blocks, point_chunk=M, tri_chunk=tri_chunk,
                        chunks=C, dist_tri_chunk=d_tc, dist_chunks=kd_d.shape[1],
-                       sum_kd=int(kd_d.sum()), sum_kw=int(kw.sum()), dist_steps=Sd,
+                       sum_kd=sum_kd, sum_kw=int(kw.sum()), dist_steps=Sd,
                        wind_steps=Sw, coarse_bound=bool(coarse_bound),
                        shards=len(devices) if sharded else 1)
+    CULL_PAIRS["considered"] += int(kd_d.size)
+    CULL_PAIRS["kept"] += sum_kd
     return out
 
 

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 
 __all__ = ["signed_distance", "winding_number", "closest_point_on_triangles"]
 
@@ -322,10 +323,24 @@ def signed_distance(
         from .sdf_culled import signed_distance_culled
 
         culled_kwargs = {} if point_chunk is None else {"point_chunk": point_chunk}
-        return signed_distance_culled(
-            points, vertices, faces, return_normals=return_normals, tri_chunk=culled_tc,
-            on_surface_eps=on_surface_eps, return_device=return_device, device=device,
-            devices=devices, **culled_kwargs)
+        with span("sdf.culled"):
+            return signed_distance_culled(
+                points, vertices, faces, return_normals=return_normals, tri_chunk=culled_tc,
+                on_surface_eps=on_surface_eps, return_device=return_device, device=device,
+                devices=devices, **culled_kwargs)
+    with span("sdf.dense"):
+        return _signed_distance_dense(points, vertices, faces, return_normals, point_chunk,
+                                      tri_chunk, on_surface_eps, return_device, device)
+
+
+def _signed_distance_dense(points, vertices, faces, return_normals: bool,
+                           point_chunk: Optional[int], tri_chunk: int, on_surface_eps: float,
+                           return_device: bool, device):
+    """The all-pairs method of ``signed_distance``: the mesh's tables
+    (``sdf.prepare_mesh``), the points and triangles to the device
+    (``sdf.upload``), both streams over every (block, chunk) pair, the
+    refinement, and the labels back (``sdf.gather``)."""
+    n_pts, n_faces = len(points), len(faces)
     device = resolve_device(device)
     if n_pts == 0:
         if return_device:
@@ -341,8 +356,10 @@ def signed_distance(
 
     from .sdf_streams import dist_stream, stream_steps, wind_stream
 
-    tables, F = _triangle_tables(vertices, faces, tri_chunk)
-    blocks, N, _ = _point_blocks(points, point_chunk, device)
+    with span("sdf.prepare_mesh"):
+        tables, F = _triangle_tables(vertices, faces, tri_chunk)
+    with span("sdf.upload"):
+        blocks, N, _ = _point_blocks(points, point_chunk, device)
     n_blocks = blocks.shape[0]
     # a dense keep matrix makes the segmented streams the all-pairs schedule
     sb, sc, _ = stream_steps(np.ones((n_blocks, tables["a"].shape[0]), bool), n_blocks)
@@ -351,19 +368,22 @@ def signed_distance(
     best_idx = best[:n_blocks].reshape(-1)[:N].clamp(0, F - 1)
     omega = omega[:n_blocks].reshape(-1)[:N]
 
-    tri_flat = torch.from_numpy(
-        np.asarray(vertices)[np.asarray(faces)].astype(np.float32).reshape(-1)
-    ).to(device)
+    # the triangles go up while the streams run
+    with span("sdf.upload"):
+        tri_flat = torch.from_numpy(
+            np.asarray(vertices)[np.asarray(faces)].astype(np.float32).reshape(-1)
+        ).to(device)
     flat = blocks.reshape(-1, 3)
     P_cols = (flat[:N, 0], flat[:N, 1], flat[:N, 2])
     sdf, grads = _refine_device(P_cols, tri_flat, best_idx, omega, on_surface_eps)
 
     if return_device:
         return sdf, (torch.stack(grads, dim=-1) if return_normals else None)
-    sdf = sdf.cpu().numpy().astype(np.float64)
-    if not return_normals:
-        return sdf, None
-    return sdf, torch.stack(grads, dim=-1).cpu().numpy().astype(np.float64)
+    with span("sdf.gather"):
+        sdf = sdf.cpu().numpy().astype(np.float64)
+        if not return_normals:
+            return sdf, None
+        return sdf, torch.stack(grads, dim=-1).cpu().numpy().astype(np.float64)
 
 
 def winding_number(

@@ -32,7 +32,8 @@ Host-side pieces of a launch: the distance kernel reads its own table
 once, here), the schedule as per-block chunk ranges (``block_ranges``) and
 the blocks in launch order, longest chunk list first (``launch_order``).
 ``atan2_poly`` is the JAX winding kernel's polynomial atan2, which
-``wind_kernel`` evaluates.
+``wind_kernel`` evaluates. On a card the packing, the ranges and their
+uploads run under the span ``sdf.streams.schedule`` (``utils/profiling.span``).
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ import torch
 
 from .. import kernels
 from ..parallel.mesh import mesh_kind
+from ..utils.profiling import span
 from .sdf_exact import _eberly_st
 
 # distance-table columns (15 used, padded to 16): the tile pass needs P.E0 and
@@ -350,11 +352,12 @@ def _cuda_schedule(P_blocks, step_block, step_chunk, table: np.ndarray):
     B, _ = _check_points(P_blocks)
     if not P_blocks.is_contiguous():
         raise ValueError("kernel inputs must be contiguous")
-    offs, chunks = block_ranges(step_block, step_chunk, B)
-    if len(chunks) and (chunks.min() < 0 or chunks.max() >= table.shape[0]):
-        raise ValueError("a step names a triangle chunk outside the table")
-    dev = P_blocks.device
-    return tuple(torch.from_numpy(a).to(dev) for a in (table, offs, chunks, launch_order(offs)))
+    with span("sdf.streams.schedule"):
+        offs, chunks = block_ranges(step_block, step_chunk, B)
+        if len(chunks) and (chunks.min() < 0 or chunks.max() >= table.shape[0]):
+            raise ValueError("a step names a triangle chunk outside the table")
+        dev = P_blocks.device
+        return tuple(torch.from_numpy(a).to(dev) for a in (table, offs, chunks, launch_order(offs)))
 
 
 def _dist_launch(P_blocks: torch.Tensor, step_block, step_chunk, table: np.ndarray,
@@ -405,8 +408,9 @@ def dist_stream(P_blocks: torch.Tensor, step_block, step_chunk, tables, tri_chun
     if P_blocks.device.type == "cpu":
         return dist_stream_plain(P_blocks, step_block, step_chunk, tables, tri_chunk)
     _check_tiling(tri_chunk, M)
-    out = _dist_launch(P_blocks, step_block, step_chunk,
-                       pack_dist_kernel_table(tables, tri_chunk), tri_chunk)
+    with span("sdf.streams.schedule"):
+        table = pack_dist_kernel_table(tables, tri_chunk)
+    out = _dist_launch(P_blocks, step_block, step_chunk, table, tri_chunk)
     if B:
         LAUNCHES["dist_stream"] += 1
     return out
@@ -421,8 +425,9 @@ def wind_stream(P_blocks: torch.Tensor, step_block, step_chunk, tables,
     if P_blocks.device.type == "cpu":
         return wind_stream_plain(P_blocks, step_block, step_chunk, tables, tri_chunk)
     _check_tiling(tri_chunk, M)
-    out = _wind_launch(P_blocks, step_block, step_chunk, pack_wind_table(tables, tri_chunk),
-                       tri_chunk)
+    with span("sdf.streams.schedule"):
+        table = pack_wind_table(tables, tri_chunk)
+    out = _wind_launch(P_blocks, step_block, step_chunk, table, tri_chunk)
     if B:
         LAUNCHES["wind_stream"] += 1
     return out
@@ -511,7 +516,8 @@ def dist_stream_sharded(P_blocks, step_block, step_chunk, tables, tri_chunk: int
     if mesh_kind(devices) == "cpu":
         return dist_stream_sharded_plain(P_blocks, step_block, step_chunk, tables, tri_chunk,
                                          devices)
-    table = pack_dist_kernel_table(tables, tri_chunk)
+    with span("sdf.streams.schedule"):
+        table = pack_dist_kernel_table(tables, tri_chunk)
     outs = []
     for P, sb, sc in _shards(P_blocks, step_block, step_chunk, tri_chunk, devices):
         outs.append(_dist_launch(P.contiguous(), sb, sc, table, tri_chunk))
@@ -527,7 +533,8 @@ def wind_stream_sharded(P_blocks, step_block, step_chunk, tables, tri_chunk: int
     if mesh_kind(devices) == "cpu":
         return wind_stream_sharded_plain(P_blocks, step_block, step_chunk, tables, tri_chunk,
                                          devices)
-    table = pack_wind_table(tables, tri_chunk)
+    with span("sdf.streams.schedule"):
+        table = pack_wind_table(tables, tri_chunk)
     outs = []
     for P, sb, sc in _shards(P_blocks, step_block, step_chunk, tri_chunk, devices):
         outs.append(_wind_launch(P.contiguous(), sb, sc, table, tri_chunk))

@@ -31,7 +31,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import time
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -39,11 +38,13 @@ import numpy as np
 from ..geometry.mesh_io import Mesh, load_mesh
 from ..ops.sdf_exact import signed_distance
 from ..utils.constants import RANDOM_SEED_DATA_GENERATION
+from ..utils.profiling import span
 
 COLUMNS = ("x", "y", "z", "S", "nx", "ny", "nz")
 
 # host-clock seconds of the stages of the last generate_signed_distance_data
-# ("sample" on the host, "label" up to the labels' arrival on the host)
+# ("sample" on the host, "label" up to the labels' arrival on the host): the
+# spans sampler.draw and sampler.label
 LAST_STAGE_SECONDS: dict = {}
 
 
@@ -156,7 +157,8 @@ def _label(points: np.ndarray, mesh: Mesh, device=None) -> Frame:
         n = np.zeros((1, 3))
     else:
         S, n = signed_distance(points, mesh, device=device)
-    return Frame(COLUMNS, np.column_stack((points, S, n)))
+    with span("sampler.frame"):
+        return Frame(COLUMNS, np.column_stack((points, S, n)))
 
 
 def generate_signed_distance_data(
@@ -172,22 +174,22 @@ def generate_signed_distance_data(
     """Main 3D sampler (cf. data_generator.py:810-910).
 
     Returns (uniform, on_surface, narrow_band) frames, each with columns
-    x,y,z,S,nx,ny,nz."""
-    t0 = time.perf_counter()
-    mesh = _as_mesh(geometry)
-    rng = np.random.default_rng(seed)
-    uniform_pts = rng.uniform(-1.0, 1.0, size=(int(num_points_uniform), 3))
-    surface_pts = sample_surface_points(
-        mesh, num_points_surface, rng, area_weighted=area_weighted
-    )
-    narrow_pts = sample_narrow_band_points(
-        mesh, num_points_surface, num_points_narrow_band, dense_width, rng
-    )
-    t1 = time.perf_counter()
-    on_surface = _label(surface_pts, mesh, device)
-    uniform = _label(uniform_pts, mesh, device)
-    narrow = _label(narrow_pts, mesh, device)
-    LAST_STAGE_SECONDS.update(sample=t1 - t0, label=time.perf_counter() - t1)
+    x,y,z,S,nx,ny,nz. Spans: ``sampler.draw`` (the points drawn) then
+    ``sampler.label``, which holds the three labellings."""
+    with span("sampler.draw", LAST_STAGE_SECONDS, "sample"):
+        mesh = _as_mesh(geometry)
+        rng = np.random.default_rng(seed)
+        uniform_pts = rng.uniform(-1.0, 1.0, size=(int(num_points_uniform), 3))
+        surface_pts = sample_surface_points(
+            mesh, num_points_surface, rng, area_weighted=area_weighted
+        )
+        narrow_pts = sample_narrow_band_points(
+            mesh, num_points_surface, num_points_narrow_band, dense_width, rng
+        )
+    with span("sampler.label", LAST_STAGE_SECONDS, "label"):
+        on_surface = _label(surface_pts, mesh, device)
+        uniform = _label(uniform_pts, mesh, device)
+        narrow = _label(narrow_pts, mesh, device)
     return uniform, on_surface, narrow
 
 

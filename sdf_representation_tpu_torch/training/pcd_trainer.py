@@ -63,6 +63,7 @@ import torch
 
 from ..ops.diffops import sdf_and_gradient_fwd
 from ..parallel.mesh import ProcessMesh, allreduce_grads, count_once
+from ..utils.profiling import span
 from . import checkpoint as ckpt
 from . import graphs
 from .trainer import LAST_RUN, Trainer, bind_apply, use_fused_igr
@@ -173,23 +174,29 @@ class PointCloudTrainer(Trainer):
         log = os.path.join(self.train_path, "train_loss.txt")
         t_start = time.time()
         final_epoch = max(start_epoch - 1, 0)  # a resume with nothing left keeps its epoch
-        # the loop's window in a torch.profiler trace (chip_smoke.py reads it)
-        with torch.profiler.record_function("training_loop"):
+        # the loop's window in a torch.profiler trace (chip_smoke.py and
+        # portbench/metrics read it); the spans inside are per epoch, never per step
+        with span("training_loop"):
             for epoch in range(start_epoch, c.epochs):
                 final_epoch = epoch
-                # the epoch's one host read
-                train_loss = float(self._run_epoch(runner, epoch, n, batch))
-                losses_hist.append(train_loss)
+                with span("train.steps"):
+                    loss = self._run_epoch(runner, epoch, n, batch)
+                with span("train.block_end"):
+                    train_loss = float(loss)  # the epoch's one host read
+                    losses_hist.append(train_loss)
+                    if self.writes:
+                        with open(log, "a") as f:
+                            f.write(f"Epoch {epoch + 1}/{c.epochs}: train loss {train_loss}\n")
                 if not self.writes:
                     continue
-                with open(log, "a") as f:
-                    f.write(f"Epoch {epoch + 1}/{c.epochs}: train loss {train_loss}\n")
-                if epoch % int(1.5 * c.checkpointing) == 0:
-                    ckpt.save_checkpoint(best_path, state_at(epoch))
-                if epoch % c.checkpointing == 0:
-                    ckpt.save_checkpoint(
-                        os.path.join(self.model_save_path, f"model_epoch{epoch}.ckpt"), state_at(epoch))
-                    self._plot_losses(losses_hist, losses_hist)
+                with span("train.checkpoint"):
+                    if epoch % int(1.5 * c.checkpointing) == 0:
+                        ckpt.save_checkpoint(best_path, state_at(epoch))
+                    if epoch % c.checkpointing == 0:
+                        ckpt.save_checkpoint(
+                            os.path.join(self.model_save_path, f"model_epoch{epoch}.ckpt"),
+                            state_at(epoch))
+                        self._plot_losses(losses_hist, losses_hist)
         if self.writes:  # final save so short runs always leave a checkpoint
             ckpt.save_checkpoint(best_path, state_at(final_epoch))
 

@@ -103,6 +103,7 @@ from ..parallel.mesh import (ProcessMesh, allreduce_grads, count_once, gather, g
 from ..parallel.multihost import process_count
 from ..utils.device import matmul_precision, resolve_device
 from ..utils.files import create_directory
+from ..utils.profiling import span
 from . import checkpoint as ckpt
 from . import graphs
 
@@ -645,8 +646,10 @@ class Trainer:
         final_epoch = start_epoch - 1
         snap: Optional[graphs.BestSnapshot] = None
         epoch0, stop = start_epoch, False
-        # the loop's window in a torch.profiler trace (chip_smoke.py reads it)
-        with torch.profiler.record_function("training_loop"):
+        # the loop's window in a torch.profiler trace (chip_smoke.py and
+        # portbench/metrics read it); the spans inside are per epoch and per
+        # block, never per step or validation batch
+        with span("training_loop"):
             while epoch0 < c.epochs and not stop:
                 # one block (JAX trainer.py:585-667): its epochs on the device,
                 # then one host read of its losses and best epoch
@@ -654,62 +657,72 @@ class Trainer:
                 tls, vls = [], []
                 for k in range(block):
                     epoch = epoch0 + k
-                    train_loss = self._run_epoch(runner, epoch, dataset.n_train, batch)
-                    if scheduler is not None:
-                        scheduler.step()
-                    val_loss = train_loss if validate is None else validate(epoch)
-                    if snap is None:  # Adam's state exists after the first step
-                        snap = graphs.BestSnapshot(
-                            graphs.state_tensors(self.model, self.aux, optimizer))
-                    if k == 0:
-                        snap.start(best_val)
-                    snap.offer(k, val_loss, host_record())
+                    with span("train.steps"):
+                        train_loss = self._run_epoch(runner, epoch, dataset.n_train, batch)
+                        if scheduler is not None:
+                            scheduler.step()
+                    if validate is None:
+                        val_loss = train_loss
+                    else:
+                        with span("train.validate"):
+                            val_loss = validate(epoch)
+                    with span("train.snapshot"):
+                        if snap is None:  # Adam's state exists after the first step
+                            snap = graphs.BestSnapshot(
+                                graphs.state_tensors(self.model, self.aux, optimizer))
+                        if k == 0:
+                            snap.start(best_val)
+                        snap.offer(k, val_loss, host_record())
                     tls.append(train_loss)
                     vls.append(val_loss)
-                read = torch.cat([torch.stack(tls), torch.stack(vls),
-                                  snap.idx.to(torch.float32).reshape(1)]).tolist()
-                tl_vec, vl_vec, best_k = read[:block], read[block:2 * block], int(read[-1])
+                with span("train.block_end"):
+                    read = torch.cat([torch.stack(tls), torch.stack(vls),
+                                      snap.idx.to(torch.float32).reshape(1)]).tolist()
+                    tl_vec, vl_vec, best_k = read[:block], read[block:2 * block], int(read[-1])
 
-                lines = []
-                for k in range(block):
-                    epoch = epoch0 + k
-                    final_epoch = epoch
-                    train_losses.append(tl_vec[k])
-                    val_losses.append(vl_vec[k])
-                    lines.append(f"{epoch} {tl_vec[k]} {vl_vec[k]}\n")
-                    if vl_vec[k] < best_val:
-                        best_val = vl_vec[k]
-                        epochs_no_improve = 0
-                    else:
-                        epochs_no_improve += 1
-                    if epoch >= c.minepochs and epochs_no_improve >= c.patience:
-                        print(f"Early stopping at epoch {epoch}")
-                        stop = True
-                        break
-                if self.writes:
-                    with open(loss_log, "a") as f:
-                        f.writelines(lines)
-                if best_k >= 0:
-                    # the device kept the block's best epoch (it compares the
-                    # same float32 losses as the host loop, so every improvement
-                    # the host saw is one): save THAT state. After an early stop
-                    # inside the block it may come from an epoch after the stop
-                    # (JAX trainer.py:624-657): adopt it, with the history
-                    # reaching its epoch
-                    best_val = vl_vec[best_k]
-                    hist_end = max(final_epoch - epoch0, best_k) + 1
-                    kept = len(train_losses) - (final_epoch - epoch0 + 1)
+                    lines = []
+                    for k in range(block):
+                        epoch = epoch0 + k
+                        final_epoch = epoch
+                        train_losses.append(tl_vec[k])
+                        val_losses.append(vl_vec[k])
+                        lines.append(f"{epoch} {tl_vec[k]} {vl_vec[k]}\n")
+                        if vl_vec[k] < best_val:
+                            best_val = vl_vec[k]
+                            epochs_no_improve = 0
+                        else:
+                            epochs_no_improve += 1
+                        if epoch >= c.minepochs and epochs_no_improve >= c.patience:
+                            print(f"Early stopping at epoch {epoch}")
+                            stop = True
+                            break
                     if self.writes:
-                        ckpt.save_checkpoint(best_path, best_state(
-                            snap, best_k, epoch0 + best_k, train_losses[:kept] + tl_vec[:hist_end],
-                            val_losses[:kept] + vl_vec[:hist_end]))
-                block_end = epoch0 + block
-                if ((block_end % c.checkpointing) < block or block >= c.checkpointing) and self.writes:
-                    ckpt.save_checkpoint(
-                        os.path.join(self.model_save_path, f"model_epoch{final_epoch}.ckpt"),
-                        state_at(final_epoch),
-                    )
-                    self._plot_losses(train_losses, val_losses)
+                        with open(loss_log, "a") as f:
+                            f.writelines(lines)
+                with span("train.checkpoint"):
+                    if best_k >= 0:
+                        # the device kept the block's best epoch (it compares the
+                        # same float32 losses as the host loop, so every improvement
+                        # the host saw is one): save THAT state. After an early stop
+                        # inside the block it may come from an epoch after the stop
+                        # (JAX trainer.py:624-657): adopt it, with the history
+                        # reaching its epoch
+                        best_val = vl_vec[best_k]
+                        hist_end = max(final_epoch - epoch0, best_k) + 1
+                        kept = len(train_losses) - (final_epoch - epoch0 + 1)
+                        if self.writes:
+                            ckpt.save_checkpoint(best_path, best_state(
+                                snap, best_k, epoch0 + best_k,
+                                train_losses[:kept] + tl_vec[:hist_end],
+                                val_losses[:kept] + vl_vec[:hist_end]))
+                    block_end = epoch0 + block
+                    if (((block_end % c.checkpointing) < block or block >= c.checkpointing)
+                            and self.writes):
+                        ckpt.save_checkpoint(
+                            os.path.join(self.model_save_path, f"model_epoch{final_epoch}.ckpt"),
+                            state_at(final_epoch),
+                        )
+                        self._plot_losses(train_losses, val_losses)
                 epoch0 = block_end
 
         elapsed = time.time() - t_start

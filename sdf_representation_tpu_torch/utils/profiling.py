@@ -1,6 +1,13 @@
-"""Tracing and step timing — counterpart of
-sdf_representation_tpu/utils/profiling.py.
+"""Tracing and spans — counterpart of sdf_representation_tpu/utils/profiling.py.
 
+  * span(name, stages=None, key=None): a named range of the program on the
+    profiler's clock. It opens ``torch.profiler.record_function(name)`` only
+    while a profiler records (the check costs a fraction of a microsecond,
+    an unguarded range about ten), so a trace can name the stage the host
+    was in when the card sat idle. With ``stages`` it also writes the
+    block's host seconds into ``stages[key or name]``: the modules'
+    ``LAST_STAGE_SECONDS`` are written this way. Names are dotted by layer
+    (``sampler.*``, ``sdf.*``, ``train.*``); ``portbench/metrics`` reads them.
   * trace(log_dir): a ``torch.profiler`` window around a code block; CPU
     activity, and CUDA activity where a card is present. It writes one
     Chrome trace (``*.pt.trace.json``) into log_dir, which Perfetto,
@@ -10,7 +17,6 @@ sdf_representation_tpu/utils/profiling.py.
     trace that would read as an idle card.
   * force(x): waits for the device of the first tensor of a nested
     dict / list / tuple (torch returns before the card finishes).
-  * StepTimer: per-step wall times; ``summary()`` gives mean/p50/p90/min.
   * debug_nans(): anomaly detection in autograd (the JAX package's
     jax_debug_nans switch; the reference called
     torch.autograd.set_detect_anomaly unconditionally, executor.py:159).
@@ -21,10 +27,38 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Optional
 
-import numpy as np
 import torch
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+class span:
+    """``with span("sdf.gather"): ...``: a profiler range named ``name``
+    where a profiler records, and the block's host seconds in
+    ``stages[key or name]`` where ``stages`` is given. Spans nest."""
+
+    __slots__ = ("name", "stages", "key", "_range", "_t0")
+
+    def __init__(self, name: str, stages: Optional[dict] = None, key: Optional[str] = None):
+        self.name, self.stages, self.key = name, stages, key
+        self._range = None
+
+    def __enter__(self) -> "span":
+        if _profiler_enabled():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        if self.stages is not None:
+            self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.stages is not None:
+            self.stages[self.key or self.name] = time.perf_counter() - self._t0
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
 
 
 # the CUDA runtime and driver calls that put work on the card
@@ -87,34 +121,6 @@ def force(x) -> None:
             if leaf.device.type == "cuda":
                 torch.cuda.synchronize(leaf.device)
             return
-
-
-class StepTimer:
-    """Accumulates per-step wall times; `summary()` gives mean/p50/p90/min."""
-
-    def __init__(self):
-        self.times: List[float] = []
-        self._t0: Optional[float] = None
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.times.append(time.perf_counter() - self._t0)
-
-    def summary(self) -> Dict[str, float]:
-        if not self.times:
-            return {}
-        arr = np.asarray(self.times)
-        return {
-            "n": len(arr),
-            "mean_s": float(arr.mean()),
-            "p50_s": float(np.percentile(arr, 50)),
-            "p90_s": float(np.percentile(arr, 90)),
-            "min_s": float(arr.min()),
-            "total_s": float(arr.sum()),
-        }
 
 
 def debug_nans(enable: bool = True) -> None:

@@ -1,34 +1,17 @@
 """The port's profiling helpers and plots on the CPU.
 
-``StepTimer`` keeps the JAX package's summary keys and values (numpy
-percentiles over the same times: equal); ``trace`` writes one Chrome trace;
-``force`` reaches the first tensor of a nested structure; ``debug_nans``
+``trace`` writes one Chrome trace; ``force`` reaches the first tensor of a nested structure; ``debug_nans``
 switches autograd's anomaly detection and is restored. The plots need
 matplotlib (and PIL for the GIF): where it is missing they skip."""
 
 import json
-import time
 
 import numpy as np
 import pytest
 import torch
 
-from sdf_representation_tpu.utils import profiling as jax_profiling
 from sdf_representation_tpu_torch.geometry.mesh_io import Mesh, save_mesh
 from sdf_representation_tpu_torch.utils import profiling
-
-
-def test_step_timer_summary_equals_jax():
-    ours, theirs = profiling.StepTimer(), jax_profiling.StepTimer()
-    assert ours.summary() == theirs.summary() == {}
-    for _ in range(4):
-        with ours:
-            time.sleep(0.002)
-    theirs.times = list(ours.times)
-    got, want = ours.summary(), theirs.summary()
-    assert list(got) == list(want) == ["n", "mean_s", "p50_s", "p90_s", "min_s", "total_s"]
-    assert got == want and got["n"] == 4 and got["min_s"] >= 0.002
-    assert got["total_s"] == pytest.approx(sum(ours.times))
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
