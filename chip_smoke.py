@@ -16,7 +16,8 @@ Phases, none of which is allowed to fail quietly:
     only) must issue HGMMA and use no local memory, and the two FP32
     stream kernels of sdf_streams.cu (dist_kernel,
     wind_kernel) no local memory (cuobjdump's SASS and resource usage,
-    printed per entry, with the streams' CTA shape).
+    printed per entry, with the streams' CTA shape); ptxas may serialise
+    the wgmma of no kernel (its report, C7514 / C7511).
  3. Kernels against their plain PyTorch versions on the flagship net
     (configs/mesh_sdf.ini: ImplicitNet 8x512, skip at layer 4, beta 100;
     geometric init, radius 0.5, seeded weights), in f32 and bf16: the points
@@ -570,7 +571,7 @@ def plain_dropping(net, x, drop, product=None):
 def plain_kernel_order(net, x):
     """The bf16 forward over (M, 3) points on the card with each hidden-input
     product summed as the bf16 kernels sum it (the kSumK-deep tensor-core
-    sums of csrc/hopper.cuh's mma_stream, each a cuBLAS bf16 product with an f32 result,
+    sums of csrc/hopper.cuh's stream, each a cuBLAS bf16 product with an f32 result,
     added in order in f32) and every other step the plain version's in f32:
     held against the kernel, it leaves the epilogue's own errors (the
     cheaper softplus, the order of bias and scale). Only the 255^3 max uses
@@ -3858,7 +3859,8 @@ def main() -> int:
 
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    report["build_s"] = kernels.build_all(["fused_mlp", "sdf_streams", "fused_igr"], verbose=True)
+    ptxas = {}
+    report["build_s"] = kernels.build_all(["fused_mlp", "sdf_streams", "fused_igr"], verbose=True, reports=ptxas)
     print(f"build: {report['build_s']} s per source, {time.perf_counter() - t0:.1f} s in all "
           "(one nvcc each, started together)", flush=True)
     # fused_mlp: points, grid, blocks x widths 128-512, bf16 and f32 (split
@@ -3870,6 +3872,10 @@ def main() -> int:
                       **check_sass(kernels.library_path("fused_igr"), r"4tf32\d+igr_", 17, tf32=True),
                       **check_sass(kernels.library_path("sdf_streams"), r"(dist|wind)_kernel", 2,
                                    tensor_cores=False)}
+    # a kernel whose wgmma ptxas serialises has lost its issue schedule
+    serialised = [k for text in ptxas.values() for k in kernels.serialised_wgmma(text)]
+    if serialised:
+        raise RuntimeError(f"ptxas serialises the wgmma of {serialised}")
     report["stream_layout"] = ss.kernel_layout()
     print(f"stream kernels: {report['stream_layout']}", flush=True)
 

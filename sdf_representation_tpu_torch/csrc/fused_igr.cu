@@ -23,8 +23,21 @@
 // consumer warpgroups each hold a 64-row tile of bf16 activations in shared
 // memory in the 128-byte swizzled K-major image (the A operand as it
 // stands), each layer runs as 64-column chunks of m64n64k16 products whose
-// 32-deep sums are added in f32, and finished chunks wait in registers
-// until the layer's last products have read the tile (the in-place hazard).
+// 32-deep sums are added in f32, and finished chunks wait until the layer's
+// last products have read the tile (the in-place hazard): igr_fwd's in
+// registers and shared memory (chunked_layer), igr_bwd's in the workspace
+// it writes anyway (image_layer), from which the tile is read back.
+//   * The routine's schedule is a pipeline (hopper.cuh, stream): two 32-deep
+//     groups in flight, each group's f32 add under the next group's
+//     products, a stage handed back once both its groups have completed,
+//     and where the registers allow it (igr_bwd; igr_fwd below 512 columns)
+//     the next chunk's first group under each chunk's epilogue. It moves no
+//     arithmetic: every tensor-core sum has the same operands and depth,
+//     the adds are the same f32 adds in the same order and the epilogues
+//     are unchanged, so no output depends on the schedule, to the bit
+//     (tests/test_torch_cuda_kernels.py holds them to recorded digests). The
+//     chunk loop is not unrolled: unrolled, the kernels were twice as long
+//     and an epilogue took 2.5x as long (PERF.md).
 //   * The reverse products dz W^T need B = W itself, K-major over the
 //     layer's outputs, where the forward products need W^T. The host lays out
 //     a second staged image (FusedNet.igr_tiles: the forward stages, then
@@ -907,13 +920,13 @@ constexpr long long kImgBlock = kRows * kKBlock;      // elements of one 64 x 64
 //          tangent row of the backward; igr_fwd then keeps dx there
 //   dbs    igr_bwd: per consumer 4 warps x kHMax column sums of dz
 //   seeds  igr_bwd: per consumer the 64 rows' rounded seeds
-//   park   per consumer the finished chunks of a layer that wait in shared
-//          memory rather than registers (chunked_layer): kFwdPark / kBwdPark
-//          of them, what the registers cannot hold beside the epilogue's
+//   park   igr_fwd: per consumer the finished chunks of a layer that wait
+//          in shared memory rather than registers (chunked_layer): kFwdPark
+//          of them, what the registers cannot hold beside the pipeline's.
+//          igr_bwd parks none: its layers' outputs go to the workspace as
+//          each chunk finishes (image_layer)
 //   full, empty  the ring's mbarriers
-constexpr int kFwdPark = 3;
-constexpr int kBwdPark = 2;
-constexpr size_t kParkBytes = size_t(kChunkN / 4) * kWgThreads * sizeof(uint32_t);  // a chunk: 8 KB
+constexpr int kFwdPark = parked_chunks(kHMax / kChunkN);
 constexpr size_t kOffRing = size_t(kCtaTiles) * kHBytes;
 constexpr size_t kOffX = kOffRing + size_t(kStages) * kStageBytes;
 constexpr size_t kOffTail = kOffX + size_t(kCtaTiles) * kRows * 4 * sizeof(float);
@@ -922,8 +935,7 @@ constexpr size_t kFwdOffBar = kFwdOffPark + size_t(kCtaTiles) * kFwdPark * kPark
 constexpr size_t kFwdSmem = kFwdOffBar + 2 * kStages * sizeof(uint64_t) + 1024;  // + alignment slack
 constexpr size_t kOffDb = kOffTail;
 constexpr size_t kOffSeed = kOffDb + size_t(kCtaTiles) * 4 * kHMax * sizeof(float);
-constexpr size_t kBwdOffPark = kOffSeed + size_t(kCtaTiles) * kRows * sizeof(float);
-constexpr size_t kBwdOffBar = kBwdOffPark + size_t(kCtaTiles) * kBwdPark * kParkBytes;
+constexpr size_t kBwdOffBar = kOffSeed + size_t(kCtaTiles) * kRows * sizeof(float);
 constexpr size_t kBwdSmem = kBwdOffBar + 2 * kStages * sizeof(uint64_t) + 1024;
 static_assert(kFwdSmem <= 232448 && kBwdSmem <= 232448, "shared memory of a block");
 
@@ -1240,7 +1252,6 @@ igr_bwd_kernel(const float* __restrict__ x, const float* __restrict__ a, const f
   }
   regs_increase<kConsumerRegs>();
   const int c = threadIdx.x / kWgThreads - 1;  // consumer 0 or 1: tile 2 blockIdx.x + c
-  uint32_t* park = reinterpret_cast<uint32_t*>(smem + kBwdOffPark + c * kBwdPark * kParkBytes);
   const int lt = threadIdx.x - (c + 1) * kWgThreads;
   const int warp = lt >> 5, lane = lt & 31;
   const int r0 = 16 * warp + (lane >> 2), cq = 2 * (lane & 3);
@@ -1295,8 +1306,8 @@ igr_bwd_kernel(const float* __restrict__ x, const float* __restrict__ a, const f
   // rematerialise both chains: [act(z); tcz sigma(z)] per hidden layer
   for (int l = 0; l < n_lin - 1; ++l) {
     const LayerArgs L = layer_args(desc, l, d_in, beta, rb, W, B);
-    chunked_layer<kChunks, kBwdPark>(H, L.k / kKBlock, ring, 1 + c, lt, [](int) {},
-                           [&](int ch, const float (&acc)[kAcc], auto sink) {
+    image_layer<kChunks>(H, L.k / kKBlock, ring, 1 + c, lt, [](int) {},
+                         [&](int ch, const float (&acc)[kAcc], auto sink) {
 #pragma unroll
       for (int j = 0; j < kChunkN / 8; ++j) {
         float v[2][2] = {{acc[4 * j], acc[4 * j + 1]}, {acc[4 * j + 2], acc[4 * j + 3]}};
@@ -1310,8 +1321,7 @@ igr_bwd_kernel(const float* __restrict__ x, const float* __restrict__ a, const f
         sink(j, 0, pack_bf16x2(hv[0], hv[1]));
         sink(j, 1, pack_bf16x2(tv[0], tv[1]));
       }
-    }, park);
-    copy_out(H, tile_image(ws, tiles_all, sets.stash(l), kChunks, T), n, lt);
+    }, reinterpret_cast<uint8_t*>(tile_image(ws, tiles_all, sets.stash(l), kChunks, T)));
   }
 
   // head: (z, Tcz) of the last layer and the seeds on them
@@ -1392,7 +1402,7 @@ igr_bwd_kernel(const float* __restrict__ x, const float* __restrict__ a, const f
     const float scale = d[2] != 0 ? kInvSqrt2 : 1.f;
     const uint8_t* S = reinterpret_cast<const uint8_t*>(tile_image(ws, tiles_all, sets.stash(l - 1), kChunks, T));
     uint32_t hs[kChunkN / 8], ts[kChunkN / 8];
-    chunked_layer<kChunks, kBwdPark>(
+    image_layer<kChunks>(
         H, static_cast<int>(d[1]) / kKBlock, ring, 1 + c, lt,
         [&](int ch) {
 #pragma unroll
@@ -1415,9 +1425,8 @@ igr_bwd_kernel(const float* __restrict__ x, const float* __restrict__ a, const f
             sink(j, 0, pack_bf16x2(bf16_rne(z[0]), bf16_rne(z[1])));
             sink(j, 1, pack_bf16x2(bf16_rne(t[0]), bf16_rne(t[1])));
           }
-        }, park);
+        }, reinterpret_cast<uint8_t*>(tile_image(ws, tiles_all, sets.cot(l - 1), kChunks, T)));
     db_finish(static_cast<int>(desc[kDesc * (l - 1) + 3]), n);
-    copy_out(H, tile_image(ws, tiles_all, sets.cot(l - 1), kChunks, T), n, lt);
   }
 }
 

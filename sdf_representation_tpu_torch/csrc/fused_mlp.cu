@@ -47,10 +47,11 @@
 //     (approximate ex2/lg2, a product by RN(1/beta)); phase 3 of
 //     chip_smoke.py holds it to the unchanged bf16 limits.
 // Measured on an H100 (chip_smoke.py, PERF.md): the sweep is bound by
-// neither the tensor cores nor L2 but by latency on the consumers' side:
-// each 32-deep sum is waited for before it is added, and the epilogue's
-// dependent chains run on two warps per scheduler; without the epilogue's
-// arithmetic the sweep takes about half the time.
+// neither the tensor cores nor L2 but by the consumers' issue: the
+// epilogue's dependent chains run on two warps per scheduler. Each 32-deep
+// sum is added while the next group's products run (hopper.cuh's
+// pipelined schedule, the same sums in the same order), and each epilogue
+// is one copy of code in a chunk loop that is not unrolled.
 // The ring, the chunk routine (chunked_layer) and the epilogue functions
 // are csrc/hopper.cuh's, shared with the eikonal kernels (csrc/fused_igr.cu).
 // Activations stay in shared memory as bf16 in the same swizzled K-major
@@ -419,10 +420,13 @@ tf32_blocks_kernel(const int* __restrict__ ids, const int* __restrict__ count, i
 constexpr int kCtaTiles = 2;                    // 64-point tiles per CTA, one per consumer warpgroup
 constexpr int kCtaRows = kCtaTiles * kTileP;    // 128 points
 constexpr int kWgmmaThreads = 3 * kWgThreads;   // producer + two consumers
+constexpr int kPark = hopper::parked_chunks(kHMax / kChunkN);  // finished chunks parked per warpgroup
 constexpr size_t kOffRing = size_t(kCtaTiles) * kHBytes;
 constexpr size_t kOffX = kOffRing + size_t(kStages) * kStageBytes;
-constexpr size_t kOffBar = kOffX + size_t(kCtaRows) * 4 * sizeof(float);
+constexpr size_t kOffPark = kOffX + size_t(kCtaRows) * 4 * sizeof(float);
+constexpr size_t kOffBar = kOffPark + size_t(kCtaTiles) * kPark * hopper::kParkBytes;
 constexpr size_t kWgmmaSmem = kOffBar + 2 * kStages * sizeof(uint64_t) + 1024;  // + alignment slack
+static_assert(kWgmmaSmem <= 232448, "shared memory of a block");
 
 // Shared memory (from a 1024-byte aligned base):
 //   H[2]     each consumer warpgroup's 64 x kHMax bf16 activations, as
@@ -431,6 +435,8 @@ constexpr size_t kWgmmaSmem = kOffBar + 2 * kStages * sizeof(uint64_t) + 1024;  
 //   ring     kStages weight stages of kChunkN rows x 64 K columns, the
 //            same image, filled by bulk copies from FusedNet.tiles
 //   xs       128 x 4 f32 coordinates (bf16 values)
+//   park     per consumer the kPark finished chunks of a layer that wait in
+//            shared memory rather than registers (hopper::chunked_layer)
 //   full, empty  the ring's mbarriers
 
 using hopper::activate_bf16;
@@ -458,11 +464,12 @@ __device__ __forceinline__ void hidden_epilogue(const float (&acc)[kAcc], int c,
 // One hidden layer (n = 128 NQ outputs) over a warpgroup's 64 rows.
 template <int NQ, bool kSoftplus>
 __device__ __forceinline__ void hidden_layer(const LayerArgs& L, uint8_t* H, Ring& ring, int wg, int lt,
-                                             const float (&x)[2][4]) {
+                                             const float (&x)[2][4], uint32_t* park) {
   const int cq = 2 * (lt & 3);
-  hopper::chunked_layer<NQ * 128 / kChunkN>(
+  hopper::chunked_layer<NQ * 128 / kChunkN, kPark>(
       H, L.k / kKBlock, ring, 1 + wg, lt, [](int) {},
-      [&](int c, const float (&acc)[kAcc], auto sink) { hidden_epilogue<kSoftplus>(acc, c, cq, L, x, sink); });
+      [&](int c, const float (&acc)[kAcc], auto sink) { hidden_epilogue<kSoftplus>(acc, c, cq, L, x, sink); },
+      park);
 }
 
 // The last layer: one output, column 0 of an m64n8k16 product; emit(row, v)
@@ -528,6 +535,7 @@ __device__ __forceinline__ void wgmma_forward(const long long* __restrict__ desc
   const int lt = threadIdx.x - wg * kWgThreads;
   const int r0 = 16 * (lt >> 5) + ((lt & 31) >> 2);
   uint8_t* H = smem + c * kHBytes;
+  uint32_t* park = reinterpret_cast<uint32_t*>(smem + kOffPark + c * kPark * hopper::kParkBytes);
   const float* xs = reinterpret_cast<const float*>(smem + kOffX) + kTileP * c * 4;
   float x[2][4];
 #pragma unroll
@@ -541,9 +549,9 @@ __device__ __forceinline__ void wgmma_forward(const long long* __restrict__ desc
     if (l == n_lin - 1) {
       last_layer(L, H, ring, lt, x, [&](int row, float v) { emit(kTileP * c + row, v); });
     } else if (beta > 0.f) {
-      hidden_layer<NQ, true>(L, H, ring, c, lt, x);
+      hidden_layer<NQ, true>(L, H, ring, c, lt, x, park);
     } else {
-      hidden_layer<NQ, false>(L, H, ring, c, lt, x);
+      hidden_layer<NQ, false>(L, H, ring, c, lt, x, park);
     }
   }
 }

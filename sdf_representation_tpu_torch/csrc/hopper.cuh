@@ -477,86 +477,251 @@ __device__ __forceinline__ void wgmma_tile(float (&acc)[N], uint64_t da, uint64_
   }
 }
 
-// acc = A(64 x 64 kbs, the warpgroup's activations) * B(the next kbs stages
-// of the ring), as kSumK-deep tensor-core sums added in order in f32; each
-// stage is handed back to the producer once its products have completed.
+// The issue schedule. A product is acc = A(64 x 64 kbs, the warpgroup's
+// activations H) * B(the next kbs stages of the ring); each stage is two
+// groups of kSumK-deep tensor-core sums, each summed into registers of its
+// own (a part) and added to acc in f32, in order: acc = ((0 + p0) + p1) + ...
+// Two groups are in flight: a stage's group 1 is issued before its group
+// 0's sum is added, and the next stage's group 0 before its group 1's sum
+// is, so the adds and the ring's barriers run under the tensor cores' work.
+// Nothing of the arithmetic moves: every sum is the same 32-deep
+// tensor-core sum of the same operands, and the adds are the same f32 adds
+// in the same order, so no result depends on the schedule, to the bit.
+// A stage goes back to the producer once both its groups have completed.
+// The group that crosses a loop edge (the next stage's, the next chunk's)
+// is read only after a full wait: ptxas serialises every wgmma of a kernel
+// in which such a group is read after a partial wait (C7514). The stages
+// stay a loop: unrolled, they left too few registers for the pipeline
+// (C7511, and spills).
+static_assert(kKBlock == 2 * kSumK, "a stage holds two groups");
+
+// group g (0 or 1) of the ring's current stage: H's K block kb times the
+// stage's K columns kSumK g .. kSumK g + kSumK - 1, into part, as one
+// committed wgmma group
 template <int N>
-__device__ __forceinline__ void mma_stream(float (&acc)[N], const uint8_t* H, int kbs, Ring& ring, bool signal) {
+__device__ __forceinline__ void issue_group(float (&part)[N], const uint8_t* H, int kb, const Ring& ring, int g) {
+  const uint8_t* a = H + kb * kBlockBytes;
+  const uint8_t* b = ring.stage();
+  wgmma_fence();  // part was last read by an add
+#pragma unroll
+  for (int u = 0; u < kSumK / 16; ++u) {
+    const int off = 2 * (g * kSumK + 16 * u);  // bytes along the 128-byte row
+    wgmma_tile(part, desc_k_sw128(a + off), desc_k_sw128(b + off), u > 0);
+  }
+  wgmma_commit();
+}
+
+// acc += part, once the caller has waited for part's group
+template <int N>
+__device__ __forceinline__ void add_group(float (&acc)[N], float (&part)[N]) {
+  fence_registers(part);
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
+}
+
+// a product's first group: waits for the ring's current stage and issues its
+// group 0 into p[0], where stream() takes it up
+template <int N>
+__device__ __forceinline__ void stream_open(float (&p)[2][N], const uint8_t* H, Ring& ring) {
+  mbar_wait(&ring.full[ring.s], ring.phase);
+  issue_group(p[0], H, 0, ring, 0);
+}
+
+// one stage of stream(), whose group 0 is in flight in p[0]: its group 1
+// goes out, group 0 is added, then (kOpen) the ring's next stage's group 0
+// goes out into p[0] (of stage kb_next) before group 1 is added
+template <bool kOpen, int N>
+__device__ __forceinline__ void stream_stage(float (&acc)[N], float (&p)[2][N], const uint8_t* H, int kb,
+                                             int kb_next, Ring& ring, bool signal) {
+  wgmma_wait<0>();
+  issue_group(p[1], H, kb, ring, 1);
+  add_group(acc, p[0]);
+  uint64_t* read = &ring.empty[ring.s];
+  ring.advance();
+  if constexpr (kOpen) {
+    mbar_wait(&ring.full[ring.s], ring.phase);
+    issue_group(p[0], H, kb_next, ring, 0);
+    wgmma_wait<1>();
+  } else {
+    wgmma_wait<0>();
+  }
+  add_group(acc, p[1]);
+  if (signal) mbar_arrive(read);  // both groups of stage kb have completed
+}
+
+// acc = the product over kbs >= 1 stages whose first group stream_open
+// issued. With kNext the next product over the same H (the layer's next
+// chunk) is opened before the last group is added, and its first group is
+// in flight on return; else every group has completed.
+template <bool kNext, int N>
+__device__ __forceinline__ void stream(float (&acc)[N], float (&p)[2][N], const uint8_t* H, int kbs, Ring& ring,
+                                       bool signal) {
 #pragma unroll
   for (int i = 0; i < N; ++i) acc[i] = 0.f;
-  for (int kb = 0; kb < kbs; ++kb) {
-    mbar_wait(&ring.full[ring.s], ring.phase);
-    const uint8_t* a = H + kb * kBlockBytes;
-    const uint8_t* b = ring.stages + ring.s * kStageBytes;
-#pragma unroll
-    for (int g = 0; g < kKBlock / kSumK; ++g) {
-      float part[N];
-      wgmma_fence();
-#pragma unroll
-      for (int u = 0; u < kSumK / 16; ++u) {
-        const int off = 2 * (g * kSumK + 16 * u);  // bytes along the 128-byte row
-        wgmma_tile(part, desc_k_sw128(a + off), desc_k_sw128(b + off), u > 0);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_registers(part);
-#pragma unroll
-      for (int i = 0; i < N; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
-    }
-    if (signal) mbar_arrive(&ring.empty[ring.s]);
-    ring.advance();
-  }
+  for (int kb = 0; kb < kbs - 1; ++kb) stream_stage<true>(acc, p, H, kb, kb + 1, ring, signal);
+  stream_stage<kNext>(acc, p, H, kbs - 1, 0, ring, signal);
 }
+
+// acc = A(64 x 64 kbs, H) * B(the next kbs stages of the ring), a product
+// by itself (a one-output layer); zero for kbs = 0
+template <int N>
+__device__ __forceinline__ void mma_stream(float (&acc)[N], const uint8_t* H, int kbs, Ring& ring, bool signal) {
+  if (kbs == 0) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) acc[i] = 0.f;
+    return;
+  }
+  float p[2][N];
+  stream_open(p, H, ring);
+  stream<false>(acc, p, H, kbs, ring, signal);
+}
+
+// Finished chunks that a consumer keeps in registers beside the two groups
+// in flight, and the chunks of a layer of `chunks` that wait in shared
+// memory instead (chunked_layer's kParked): a kernel sizes its park from its
+// widest layer's chunk count.
+constexpr int kHeldMax = 4;
+__host__ __device__ constexpr int parked_chunks(int chunks) {
+  return chunks - 1 > kHeldMax ? chunks - 1 - kHeldMax : 0;
+}
+constexpr int kParkBytes = kChunkN / 4 * kWgThreads * 4;  // a parked chunk of a warpgroup: 8 KB
 
 // One layer over a warpgroup's tile: kChunks products of 64 output columns,
 // each H (64 x 64 kbs) times the next kbs stages of the ring, whose outputs
-// replace H. A 64 x 512 f32 accumulator does not fit the registers, so the
-// layer runs chunk by chunk; finished chunks wait as packed bf16 until the
-// last chunk's products have completed, then all are written back (the
-// in-place hazard): the first kParked chunks in shared memory at `park`
-// (kParked x kChunkN / 4 x 128 words, each thread its own), the others in
-// registers. before(c) runs before chunk c's products (to issue loads its
-// epilogue needs); epilogue(c, acc, sink) turns chunk c's sums into packed
-// bf16 pairs, sink(j, h, pair) taking columns kChunkN c + 8 j + cq, + 1 of
-// row r0 + 8 h (r0 = 16 warp + lane / 4, cq = 2 (lane % 4)). Returns after
-// a barrier of the warpgroup (`bar`): H holds the outputs, visible to the
-// next product.
+// replace H (kbs = 0: no hidden input, the first layer). A 64 x 512 f32
+// accumulator does not fit the registers, so the layer runs chunk by
+// chunk; finished chunks wait as packed bf16 until the last chunk's
+// products have completed, then all are written back (the in-place
+// hazard): the first kPark in shared memory at `park` (kPark x kChunkN / 4
+// x 128 words, each thread its own), the others in registers. epilogue(c,
+// acc, sink) turns chunk c's sums into packed bf16 pairs, sink(j, h, pair)
+// taking columns kChunkN c + 8 j + cq, + 1 of row r0 + 8 h (r0 = 16 warp +
+// lane / 4, cq = 2 (lane % 4)); before(c) issues loads chunk c's epilogue
+// needs, ahead of it. Returns after a barrier of the warpgroup (`bar`): H
+// holds the outputs, visible to the next product.
+//
+// The chunk boundary is no barrier: where the registers allow it (fewer
+// than kHeldMax chunks held), chunk c + 1's first group is issued before
+// chunk c's epilogue, which runs under it (before(c + 1) follows the epilogue,
+// whose loads it would overwrite). Only a layer's last chunk completes
+// before its outputs overwrite H. The chunk loop is not unrolled: each
+// epilogue is one copy of code, which the instruction cache holds (unrolled
+// over 8 chunks, the kernels were 2.2x longer and an epilogue took 2.5x as
+// long as at 4 chunks). Its outputs go to the top row of `held`, which
+// moves down a row before a held chunk's epilogue, so that held[k] ends as
+// chunk kPark + k.
 template <int kChunks, int kParked = 0, class Before, class Epilogue>
 __device__ __forceinline__ void chunked_layer(uint8_t* H, int kbs, Ring& ring, int bar, int lt, Before before,
                                               Epilogue epilogue, uint32_t* park = nullptr) {
   constexpr int kPark = kParked < kChunks - 1 ? kParked : kChunks - 1;
   constexpr int kHeld = kChunks - 1 - kPark;
+  constexpr int kTop = kHeld > 0 ? kHeld - 1 : 0;
+  constexpr bool kAhead = kHeld < kHeldMax;  // the next chunk's first group under the epilogue
+  constexpr int kPairs = kChunkN / 4;
   const int warp = lt >> 5, lane = lt & 31;
   const int r0 = 16 * warp + (lane >> 2), cq = 2 * (lane & 3);
-  uint32_t held[kHeld > 0 ? kHeld : 1][kChunkN / 4];  // finished chunks, packed bf16
   auto store = [&](int c, int j, int h, uint32_t pair) {
     *reinterpret_cast<uint32_t*>(H + act_offset(r0 + 8 * h, kChunkN * c + 8 * j + cq)) = pair;
   };
+  float acc[kAcc];
+  if (kbs == 0) {  // no hidden input: no product reads H, the outputs go straight to it
 #pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-    before(c);
-    float acc[kAcc];
-    mma_stream(acc, H, kbs, ring, lt == 0);
-    if (c < kPark) {
-      epilogue(c, acc, [&](int j, int h, uint32_t pair) { park[((c * kChunkN / 4) + 2 * j + h) * kWgThreads + lt] = pair; });
-    } else if (c < kChunks - 1) {
-      epilogue(c, acc, [&](int j, int h, uint32_t pair) { held[c - kPark][2 * j + h] = pair; });
-    } else {
-      // every product of this layer has read H: overwrite it
-      named_barrier(bar, kWgThreads);
-#pragma unroll
-      for (int cc = 0; cc < kPark; ++cc)
-#pragma unroll
-        for (int i = 0; i < kChunkN / 4; ++i) store(cc, i >> 1, i & 1, park[(cc * kChunkN / 4 + i) * kWgThreads + lt]);
-#pragma unroll
-      for (int cc = kPark; cc < kChunks - 1; ++cc)
-#pragma unroll
-        for (int i = 0; i < kChunkN / 4; ++i) store(cc, i >> 1, i & 1, held[cc - kPark][i]);
+    for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+    named_barrier(bar, kWgThreads);
+#pragma unroll 1
+    for (int c = 0; c < kChunks; ++c) {
+      before(c);
       epilogue(c, acc, [&](int j, int h, uint32_t pair) { store(c, j, h, pair); });
-      fence_proxy_async();  // the next layer's wgmma reads what was just written
-      named_barrier(bar, kWgThreads);
     }
+    fence_proxy_async();
+    named_barrier(bar, kWgThreads);
+    return;
   }
+  uint32_t held[kTop + 1][kPairs];  // finished chunks, packed bf16
+  float p[2][kAcc];
+  before(0);
+  stream_open(p, H, ring);
+#pragma unroll 1
+  for (int c = 0; c < kChunks - 1; ++c) {
+    stream<kAhead>(acc, p, H, kbs, ring, lt == 0);
+    if (c > kPark) {
+#pragma unroll
+      for (int k = 0; k < kTop; ++k)
+#pragma unroll
+        for (int i = 0; i < kPairs; ++i) held[k][i] = held[k + 1][i];
+    }
+    epilogue(c, acc, [&](int j, int h, uint32_t pair) { held[kTop][2 * j + h] = pair; });
+    if (c < kPark) {
+#pragma unroll
+      for (int i = 0; i < kPairs; ++i) park[(c * kPairs + i) * kWgThreads + lt] = held[kTop][i];
+    }
+    before(c + 1);
+    if (!kAhead) stream_open(p, H, ring);
+  }
+  stream<false>(acc, p, H, kbs, ring, lt == 0);
+  // every product of this layer has read H: overwrite it
+  named_barrier(bar, kWgThreads);
+#pragma unroll
+  for (int cc = 0; cc < kPark; ++cc)
+#pragma unroll
+    for (int i = 0; i < kPairs; ++i) store(cc, i >> 1, i & 1, park[(cc * kPairs + i) * kWgThreads + lt]);
+#pragma unroll
+  for (int cc = kPark; cc < kChunks - 1; ++cc)
+#pragma unroll
+    for (int i = 0; i < kPairs; ++i) store(cc, i >> 1, i & 1, held[cc - kPark][i]);
+  epilogue(kChunks - 1, acc, [&](int j, int h, uint32_t pair) { store(kChunks - 1, j, h, pair); });
+  fence_proxy_async();  // the next layer's wgmma reads what was just written
+  named_barrier(bar, kWgThreads);
+}
+
+// chunked_layer for a caller that writes each layer's outputs to device
+// memory anyway (the eikonal backward's workspace): finished chunks go
+// straight to `image` (global, the same swizzled image as H, block c at byte
+// c kBlockBytes), and once the last chunk's products have completed H is
+// read back from it, so nothing waits in registers or shared memory and
+// the next chunk's first group always runs under the epilogue. On return
+// the image holds the whole layer too.
+template <int kChunks, class Before, class Epilogue>
+__device__ __forceinline__ void image_layer(uint8_t* H, int kbs, Ring& ring, int bar, int lt, Before before,
+                                            Epilogue epilogue, uint8_t* image) {
+  const int warp = lt >> 5, lane = lt & 31;
+  const int r0 = 16 * warp + (lane >> 2), cq = 2 * (lane & 3);
+  auto at = [&](uint8_t* base, int c, int j, int h) {
+    return reinterpret_cast<uint32_t*>(base + act_offset(r0 + 8 * h, kChunkN * c + 8 * j + cq));
+  };
+  float acc[kAcc];
+  if (kbs == 0) {  // no hidden input: no product reads H, the outputs go straight to it
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+    named_barrier(bar, kWgThreads);
+#pragma unroll 1
+    for (int c = 0; c < kChunks; ++c) {
+      before(c);
+      epilogue(c, acc, [&](int j, int h, uint32_t pair) { *at(H, c, j, h) = *at(image, c, j, h) = pair; });
+    }
+    fence_proxy_async();
+    named_barrier(bar, kWgThreads);
+    return;
+  }
+  float p[2][kAcc];
+  before(0);
+  stream_open(p, H, ring);
+#pragma unroll 1
+  for (int c = 0; c < kChunks - 1; ++c) {
+    stream<true>(acc, p, H, kbs, ring, lt == 0);
+    epilogue(c, acc, [&](int j, int h, uint32_t pair) { *at(image, c, j, h) = pair; });
+    before(c + 1);
+  }
+  stream<false>(acc, p, H, kbs, ring, lt == 0);
+  // every product of this layer has read H, and the image holds chunks 0 .. kChunks - 2
+  named_barrier(bar, kWgThreads);
+  const uint4* src = reinterpret_cast<const uint4*>(image);
+  uint4* dst = reinterpret_cast<uint4*>(H);
+  for (int i = lt; i < (kChunks - 1) * kBlockBytes / 16; i += kWgThreads) dst[i] = src[i];
+  epilogue(kChunks - 1, acc,
+           [&](int j, int h, uint32_t pair) { *at(H, kChunks - 1, j, h) = *at(image, kChunks - 1, j, h) = pair; });
+  fence_proxy_async();  // the next layer's wgmma reads what was just written
+  named_barrier(bar, kWgThreads);
 }
 
 // x . w over the d_in coordinates, the products exact in f32

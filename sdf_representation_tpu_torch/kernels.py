@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
@@ -80,11 +80,11 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str, verbose: bool = False) -> float:
+def build(name: str, verbose: bool = False, reports: Optional[Dict[str, str]] = None) -> float:
     """Compile ``csrc/<name>.cu`` unless it is built already. Returns the
     wall seconds nvcc took (0.0 when there was nothing to do). ``verbose``
     adds ``-Xptxas=-v`` and prints nvcc's report (registers, shared memory,
-    spills)."""
+    spills, ptxas's performance notes); ``reports[name]`` receives it too."""
     out = library_path(name)
     if out.exists():
         return 0.0
@@ -98,18 +98,31 @@ def build(name: str, verbose: bool = False) -> float:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}{proc.stderr}")
     if verbose:
         print(f"[nvcc {name}.cu]\n{proc.stdout}{proc.stderr}", flush=True)
+    if reports is not None:
+        reports[name] = proc.stdout + proc.stderr
     os.replace(tmp, out)
     return time.perf_counter() - t0
 
 
-def build_all(names: Iterable[str], verbose: bool = False) -> Dict[str, float]:
+_SERIALISED = re.compile(r"wgmma\.mma_async instructions are serialized .*?function '(\S+)'")
+
+
+def serialised_wgmma(report: str) -> List[str]:
+    """The kernels whose wgmma ptxas serialised, by its report (the notes
+    C7514, C7511: a pipeline it could not prove safe or give registers),
+    each once, sorted."""
+    return sorted(set(_SERIALISED.findall(report)))
+
+
+def build_all(names: Iterable[str], verbose: bool = False,
+              reports: Optional[Dict[str, str]] = None) -> Dict[str, float]:
     """Build several sources at once, one nvcc process each, all started
     together; returns the wall seconds per source."""
     from concurrent.futures import ThreadPoolExecutor
 
     names = list(names)
     with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
-        return dict(zip(names, pool.map(lambda n: build(n, verbose=verbose), names)))
+        return dict(zip(names, pool.map(lambda n: build(n, verbose=verbose, reports=reports), names)))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -4,7 +4,9 @@ and no skip, ReLU, a ragged last grid tile, 2-d points; the exact-SDF streams
 at ragged tilings, sparse schedules and unvisited blocks, and sharded over
 the card listed several times; the culled signed distance; the fused
 (f, grad_x f) kernels and their backward at those widths, at point counts
-below a tile and off a tile multiple, and through autograd. Needs an NVIDIA card:
+below a tile and off a tile multiple, and through autograd; the bf16 kernels'
+outputs bit for bit against digests recorded from the serial schedule of
+their layer routine. Needs an NVIDIA card:
 a CUDA kernel has no CPU mode, so elsewhere these skip. On the card:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda_kernels.py -q
@@ -12,6 +14,8 @@ a CUDA kernel has no CPU mode, so elsewhere these skip. On the card:
 (--noconftest: tests/conftest.py sets JAX up for the JAX package's tests;
 these tests need no JAX, and the card's machine lacks flax.)
 """
+
+import hashlib
 
 import pytest
 import torch
@@ -454,6 +458,66 @@ def test_igr_sharded_with_empty_shards(device, dt):
     for u, v in zip(four, one):
         assert torch.isfinite(u).all()
         torch.testing.assert_close(u, v, rtol=1e-5, atol=1e-6 * float(v.abs().max()))
+
+
+# The bf16 tensor-core routine of csrc/hopper.cuh adds its 32-deep sums in a
+# fixed order, whatever its issue schedule, so its outputs are held bit for
+# bit: (hidden width, depth, skip, beta, N), seeded inputs and weights.
+BF16_IGR_CASES = {"8x512/n16384": (512, 8, (4,), 100.0, 16384),
+                  "8x256/n5461": (256, 8, (4,), 100.0, 5461),
+                  "4x512/relu": (512, 4, (2,), 0.0, 4096)}
+
+
+def _digest(t):
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def bf16_igr_digests(case, device):
+    """Digests of the bf16 igr_fwd outputs (f, grad f) and the packed igr_bwd
+    outputs (dW, db) of a case of BF16_IGR_CASES."""
+    hidden, depth, skip, beta, n = BF16_IGR_CASES[case]
+    gen = torch.Generator().manual_seed(hidden + depth + n)
+    model = ImplicitNet(hidden_dims=(hidden,) * depth, skip_in=skip, beta=beta, radius_init=0.5,
+                        generator=gen, device=device)
+    net = fm.FusedNet(model, torch.bfloat16)
+    x = (torch.rand(n, 3, generator=gen) * 2 - 1).to(device)
+    a = (torch.randn(n, generator=gen) / n).to(device)
+    c = (torch.randn(n, 3, generator=gen) / n).to(device)
+    f, g = fi.fused_value_and_grad(net, x)
+    gw, gb, _ = fi._bwd_cuda(net, x, a, c)
+    torch.cuda.synchronize()
+    return {"f": _digest(f), "grad_f": _digest(g), "dw": _digest(gw), "db": _digest(gb)}
+
+
+def bf16_grid_digest(device):
+    """Digest of one bf16 fused_grid call at n = 128 on the seeded 8x512 net."""
+    model = ImplicitNet(hidden_dims=(512,) * 8, skip_in=(4,), beta=100.0, radius_init=0.5,
+                        generator=torch.Generator().manual_seed(128), device=device)
+    out = fm.fused_grid(fm.FusedNet(model, torch.bfloat16), 128)
+    torch.cuda.synchronize()
+    return _digest(out)
+
+
+# recorded on an NVIDIA H100 80GB HBM3 from commit 3778b76 (the serial
+# schedule: each group waited for before its add)
+BF16_IGR_DIGESTS = {
+    "8x512/n16384": {"f": "f8de6782203c43fb", "grad_f": "26317e9907d72b59", "dw": "eb92889b621cfb03",
+                     "db": "2374e33c381522d3"},
+    "8x256/n5461": {"f": "77faeeb1e37ee1d0", "grad_f": "26d015763c2829fd", "dw": "a05f1992a2e3eaf2",
+                    "db": "fb61d4c5e536c2df"},
+    "4x512/relu": {"f": "958a6a2f13f27ce9", "grad_f": "52933652254255cd", "dw": "c1ef766fcd23f13e",
+                   "db": "00e976efaafb1757"},
+}
+BF16_GRID_DIGEST = "41eefb8e032fd399"  # the same commit and card
+
+
+@pytest.mark.parametrize("case", sorted(BF16_IGR_CASES))
+def test_igr_bf16_bit_equal_to_recorded(device, case):
+    assert bf16_igr_digests(case, device) == BF16_IGR_DIGESTS[case]
+
+
+def test_fused_grid_bf16_bit_equal_to_recorded(device):
+    assert bf16_grid_digest(device) == BF16_GRID_DIGEST
 
 
 def test_igr_autograd_on_the_card(device):

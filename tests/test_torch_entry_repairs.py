@@ -204,6 +204,39 @@ def test_debug_nans_turns_on_anomaly_detection(tmp_path):
         torch.autograd.set_detect_anomaly(was)
 
 
+def test_build_hands_nvcc_report_to_the_caller(tmp_path, monkeypatch):
+    """``reports`` receives nvcc's output of a build that ran; a source built
+    already runs nothing and adds nothing."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text("int k() { return 1; }\n")
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\ntouch "$2"\n'
+                    'echo "ptxas info    : Used 168 registers"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(kernels, "CSRC", csrc)
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(kernels, "_nvcc", lambda: str(nvcc))
+    reports = {}
+    assert kernels.build("k", reports=reports) > 0.0
+    assert reports == {"k": "ptxas info    : Used 168 registers\n"}
+    assert kernels.library_path("k").exists()
+    again = {}
+    assert kernels.build("k", reports=again) == 0.0 and again == {}
+
+
+def test_serialised_wgmma_names_the_kernels():
+    note = ("ptxas info    : (C{}) Potential Performance Loss: wgmma.mma_async instructions are serialized due "
+            "to {} in the function '{}'\n")
+    report = (note.format(7514, "non wgmma instructions reading accumulator registers of  a wgmma between start "
+                          "and end of the pipeline stage", "_Z1bv")
+              + "ptxas info    : Used 168 registers, used 16 barriers\n"
+              + note.format(7511, "insufficient register resources for the wgmma pipeline", "_Z1av")
+              + note.format(7514, "non wgmma instructions reading accumulator registers", "_Z1bv"))
+    assert kernels.serialised_wgmma(report) == ["_Z1av", "_Z1bv"]
+    assert kernels.serialised_wgmma("ptxas info    : Used 168 registers\n") == []
+
+
 def test_build_cache_key_covers_included_headers(tmp_path, monkeypatch):
     csrc = tmp_path / "csrc"
     csrc.mkdir()
