@@ -10,10 +10,11 @@ Each variant gives the numbers that a run compares, on each seed:
                    cell: set-up and three passes); its numbers are the lower
                    readings.
   control          the reference put in the program's place, one precision
-                   below the configuration's: training in float8 e4m3 for a
-                   bfloat16 configuration, TF32 for a float32 one
-                   (``reference.train``); labels of points rounded to
-                   bfloat16, worked out in bfloat16.
+                   below the configuration's: the forward of the cell's
+                   model family (``spec.family_module``) in float8 e4m3 for
+                   a bfloat16 configuration, TF32 for a float32 one (the
+                   modes of ``reference.train``); labels of points rounded
+                   to bfloat16, worked out in bfloat16.
   fault_half       training: the reference's steps on half of each batch,
                    the mean taken over the rest.
   fault_unchanged  training: the reference's steps at a rate of 0, so that
@@ -23,10 +24,10 @@ Each variant gives the numbers that a run compares, on each seed:
                    kept) moved by 0.05; a point-cloud step's loss reported
                    1% high (each reported loss, in the window and the steps).
 
-The training variants follow the program's own inputs (its labels, its
-cloud), as the check does. One JSON line per variant and seed goes to
-standard output. The test ``tests/test_controls.py`` runs the same at a
-size a CPU holds.
+The training variants run through the cell's model family, as the check's
+reference does, and follow the program's own inputs (its labels, its
+cloud). One JSON line per variant and seed goes to standard output. The
+test ``tests/test_controls.py`` runs the same at a size a CPU holds.
 """
 
 import argparse

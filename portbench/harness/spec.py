@@ -4,9 +4,11 @@ A cell (a ``workloads`` entry) names a configuration, whose file is
 ``configs/<config>.json`` as ``BENCHMARK.json`` lists it, and a traffic mix,
 ``traffic/<traffic>.json``. Its limits for ``correct`` are
 ``limits/<cell>.json``. A per-layer metric is read by ``metrics/<name>.py``,
-whose ``read(reading)`` returns a number or None. Adding a cell, a
-configuration, a mix or a metric adds files and entries; nothing here
-changes.
+whose ``read(reading)`` returns a number or None. A training
+configuration's model family is the plain reference that its file's
+``"reference"`` key names, ``reference/<name>.py`` (``implicitnet`` where
+the key is absent). Adding a cell, a configuration, a family, a mix or a
+metric adds files and entries; nothing here changes.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from typing import Callable, Dict, List
 
 BENCH_DIR = Path(__file__).resolve().parent.parent
 ROOT = BENCH_DIR.parent
+FAMILIES = BENCH_DIR / "reference"
+DEFAULT_FAMILY = "implicitnet"
 
 
 @dataclasses.dataclass
@@ -71,14 +75,28 @@ def assemble(bench: Dict, name: str, config: str, traffic: str, chips: int = 1,
         end_to_end=end_to_end, per_layer=per_layer)
 
 
-def metric_module(name: str):
-    """``metrics/<name>.py``: its ``read``, and ``PER_STEP``, the patterns of
-    kernels that each training step runs alike, where it reads such kernels."""
-    path = BENCH_DIR / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"portbench_metric_{name.replace('.', '_')}", path)
+def _load(path: Path, module_name: str):
+    spec = importlib.util.spec_from_file_location(module_name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def metric_module(name: str):
+    """``metrics/<name>.py``: its ``read``, and ``PER_STEP``, the patterns of
+    kernels that each training step runs alike, where it reads such kernels."""
+    return _load(BENCH_DIR / "metrics" / f"{name}.py", f"portbench_metric_{name.replace('.', '_')}")
+
+
+def family_module(config: Dict):
+    """The plain reference of a configuration's model family (``FAMILIES``
+    / ``<config["reference"]>.py``): its ``net``, ``init_params``,
+    ``forward``, ``work`` and ``TINY``, as ``reference/implicitnet.py`` says."""
+    name = config.get("reference", DEFAULT_FAMILY)
+    path = FAMILIES / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no model family {name!r}: {path} is not there")
+    return _load(path, f"portbench_family_{name.replace('.', '_')}")
 
 
 def metric_reader(name: str) -> Callable:

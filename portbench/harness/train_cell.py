@@ -20,11 +20,12 @@ trainer's capture of its step (one per call), every step, the validation
 batches, each block's host read and checkpoint writes.
 
 The check, once the window has closed, follows the window's first
-``CHECK_EPOCHS`` epochs: the reference makes the initial weights from the
-seed and takes the same steps in float32, batch for batch, the rows of each
-drawn by the trainer's seeding rule, on the rows the window trained on. It
-compares each epoch's mean loss and, for labelled points, the checkpoint
-that the window kept as its best; for the point cloud, the parameters that
+``CHECK_EPOCHS`` epochs: the reference, the plain model of the
+configuration's family (``spec.family_module``), makes the initial weights
+from the seed and takes the same steps in float32, batch for batch, the
+rows of each drawn by the trainer's seeding rule, on the rows the window
+trained on. It compares each epoch's mean loss and, for labelled points,
+the checkpoint that the window kept as its best; for the point cloud, the parameters that
 the window's checkpoint of its first epoch holds. The window shows its state only once an epoch, and over an epoch the
 trajectories of two sound runs part about as far as a lower precision or
 half a batch moves them; so the reference also follows the set-up's steps
@@ -51,7 +52,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from . import compare, counts, data
+from . import compare, data, spec
 from ..reference import sampling as ref_sampling
 from ..reference import sdf as ref_sdf
 from ..reference import train as ref_train
@@ -87,6 +88,7 @@ class TrainCell:
         self.sections = _merged(cell.config, cell.traffic)
         self.pointcloud = cell.traffic["trainer"] == "pointcloud"
         self.loss_name = self.sections["Loss"]["loss_function"]
+        self.family = spec.family_module(cell.config)
         self.result: Optional[Dict] = None
         self._truth: Optional[Dict] = None
 
@@ -242,28 +244,17 @@ class TrainCell:
     # -- the per-layer context -------------------------------------------------
 
     def work(self) -> Dict:
-        """Counts of the work, for the per-layer readers."""
-        net = self.net()
-        shapes = counts.layer_shapes(net["d_in"], net["hidden"], net["n_hidden"], net["skip"])
+        """Counts of the work, for the per-layer readers: the family's, and
+        the step's batch, loss and span."""
         eik_rows = max(1, self.batch // 3) if self.pointcloud else self.batch
-        out = {"shapes": shapes, "batch": self.batch, "loss": self.loss_name,
-               "flops_per_point": counts.step_flops_per_point(self.loss_name, shapes, self.batch,
-                                                              eik_rows),
-               "span": "training_loop"}
-        fused = self.sections.get("TPU", {}).get("train_matmul_precision") == "bfloat16"
-        if fused and self.loss_name in ("IGRLOSS", "IGRLOSSPCD"):
-            fwd = counts.igr_fwd_cost(shapes, eik_rows)
-            bwd = counts.igr_bwd_cost(shapes, eik_rows)
-            out["igr_bound_s_per_step"] = (counts.bound_seconds(*fwd) + counts.bound_seconds(*bwd))
-        return out
+        precision = self.sections.get("TPU", {}).get("train_matmul_precision")
+        return {"batch": self.batch, "loss": self.loss_name, "span": "training_loop",
+                **self.family.work(self.net(), self.loss_name, self.batch, eik_rows, precision)}
 
     # -- the check -------------------------------------------------------------
 
     def net(self) -> Dict:
-        m = self.sections["Model"]
-        skip = (int(m["skip_connection"]),) if int(m["skip_connection"]) else ()
-        return {"d_in": int(m["input_dim"]), "hidden": int(m["hidden_dim"]),
-                "n_hidden": int(m["num_hidden_layers"]), "skip": skip, "beta": float(m["beta"])}
+        return self.family.net(self.sections["Model"])
 
     def loss_cfg(self) -> Dict:
         return {k: float(v) for k, v in self.sections["Loss"].items() if k != "loss_function"}
@@ -345,16 +336,15 @@ class TrainCell:
         window's first epochs and of the set-up's steps, in the terms of
         ``compare.train_numbers``: ``window`` and ``steps``. ``scale``
         multiplies the losses it reports."""
-        net = self.net()
-        params0 = ref_train.init_params(net["d_in"], net["hidden"], net["n_hidden"], net["skip"],
-                                        data.init_seed(self.seed), self.device)
+        net, forward = self.net(), self.family.forward
+        params0 = self.family.init_params(net, data.init_seed(self.seed), self.device)
         rate = float(self.sections["Training"]["lr"]) if lr is None else lr
         val = self.validation()
         out = {}
         for part, rows, n_epochs in (("window", None, CHECK_EPOCHS),
                                      ("steps", self.step_rows, STEPS)):
-            fit = ref_train.fit(self.loss_name, params0, self.epochs(rows, n_epochs, half), net,
-                                self.loss_cfg(), rate, mode, val)
+            fit = ref_train.fit(self.loss_name, forward, params0, self.epochs(rows, n_epochs, half),
+                                net, self.loss_cfg(), rate, mode, val)
             change = [[p - q for p, q in zip(ps, params0)] for ps in fit["params"]]
             res = {"epoch_losses": [v * scale for v in fit["epoch_losses"]], "grad1": fit["grad1"]}
             if val is not None:
@@ -362,7 +352,7 @@ class TrainCell:
                 k = int(np.argmin(fit["val_losses"]))
                 if part == "window":
                     res["best"] = (res["val_losses"][k], ref_train.validation_loss(
-                        self.loss_name, fit["params"][k], val, net, self.loss_cfg()))
+                        self.loss_name, forward, fit["params"][k], val, net, self.loss_cfg()))
                 else:
                     res["change"] = change[k]
             elif part == "window":
@@ -395,8 +385,8 @@ class TrainCell:
         best_state, best = self.kept["best"], None
         if best_state["epoch"] == int(np.argmin(vals)):
             best = (vals[best_state["epoch"]], ref_train.validation_loss(
-                self.loss_name, [p.to(dev) for p in best_state["params"]], self.validation(), self.net(),
-                self.loss_cfg()))
+                self.loss_name, self.family.forward, [p.to(dev) for p in best_state["params"]],
+                self.validation(), self.net(), self.loss_cfg()))
         step_vals, kept = self.steps_result["val_losses"], self.steps_kept["best"]
         return {"window": {"epoch_losses": self.result["train_losses"][:e], "val_losses": vals[:e],
                            "best": best},

@@ -1,16 +1,15 @@
-"""Plain training of an ImplicitNet, for the benchmark's comparison.
+"""Plain training of a model family, for the benchmark's comparison.
 
-The network of Gropp et al., Implicit Geometric Regularization (arXiv:
-2002.10099), as the DeepSDF / IGR code writes it: layers of widths
-``[d_in] + hidden * n + [1]``, the layer that a skip feeds returns ``width -
-d_in`` features, the skip layer reads ``concat(h, x) / sqrt(2)``, Softplus
-with beta between layers, geometric initialisation (weights ~ N(0, sqrt(2) /
-sqrt(fan_out)), the last layer's sqrt(pi) / sqrt(fan_in) + N(0, 1e-5), its
-bias -1), drawn layer by layer from ``torch.Generator().manual_seed(seed)``.
-Losses: the weighted smooth L2 of the clamped distance, IGR's loss with its
-normal and eikonal terms, and the point-cloud loss mean |f| + lambda mean
-(|grad f| - 1)^2. Adam (beta 0.9 / 0.999, eps 1e-8) as Kingma and Ba state
-it. Gradients by autograd, the eikonal ones by double backward.
+The network is the family's: a training configuration's ``"reference"`` key
+names its module, ``reference/<name>.py`` (``harness/spec.family_module``),
+which gives the sizes, the initial parameters and the forward in each mode.
+What does not depend on the family is here: the losses (the weighted smooth
+L2 of the clamped distance, IGR's loss with its normal and eikonal terms,
+and the point-cloud loss mean |f| + lambda mean (|grad f| - 1)^2), Adam
+(beta 0.9 / 0.999, eps 1e-8) as Kingma and Ba state it, and the modes.
+Gradients by autograd, the eikonal ones by double backward. The losses,
+``fit`` and ``validation_loss`` take the family's ``forward(params, x, net,
+mode) -> (N,)``.
 
 ``mode``, the arithmetic of every matrix product:
   "f32"   float32 with TF32 off: the reference.
@@ -20,41 +19,20 @@ it. Gradients by autograd, the eikonal ones by double backward.
           the weights and the activations that enter each product rounded to
           float8 e4m3 (a scale per tensor), and each product rounded so
           before its bias is added; the gradients that flow back through
-          them rounded alike. The loss is taken in float32.
+          them rounded alike (``quantizer``, which the family's forward
+          applies). The loss is taken in float32.
 """
 
 from __future__ import annotations
 
-import math
-from typing import Dict, Iterable, List, Optional, Sequence
+from typing import Callable, Dict, Iterable, Optional, Sequence
 
 import torch
 
 BETAS, EPS = (0.9, 0.999), 1e-8
 MODES = ("f32", "tf32", "fp8")
 
-
-def layer_shapes(d_in: int, hidden: int, n_hidden: int, skip: Sequence[int]):
-    """(fan_in, fan_out) per layer; the layer that a skip feeds gives width - d_in."""
-    dims = [d_in] + [hidden] * n_hidden + [1]
-    return [(dims[i], dims[i + 1] - (d_in if i + 1 in skip else 0)) for i in range(len(dims) - 1)]
-
-
-def init_params(d_in: int, hidden: int, n_hidden: int, skip: Sequence[int], seed: int,
-                device) -> List[torch.Tensor]:
-    """[W0, b0, W1, b1, ...] float32, geometric initialisation."""
-    gen = torch.Generator().manual_seed(seed)
-    shapes = layer_shapes(d_in, hidden, n_hidden, skip)
-    out = []
-    for i, (fan_in, fan_out) in enumerate(shapes):
-        if i == len(shapes) - 1:
-            w = math.sqrt(math.pi) / math.sqrt(fan_in) + 1e-5 * torch.randn(fan_out, fan_in, generator=gen)
-            b = torch.full((fan_out,), -1.0)
-        else:
-            w = math.sqrt(2.0) / math.sqrt(fan_out) * torch.randn(fan_out, fan_in, generator=gen)
-            b = torch.zeros(fan_out)
-        out += [w.float().to(device), b.float().to(device)]
-    return out
+Forward = Callable[..., torch.Tensor]
 
 
 def _round_fp8(x: torch.Tensor) -> torch.Tensor:
@@ -74,6 +52,12 @@ class _Fp8(torch.autograd.Function):
         return _Fp8.apply(g)
 
 
+def quantizer(mode: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    """What a family's forward applies to each operand and product of a
+    matrix product: the float8 rounding in "fp8", nothing otherwise."""
+    return _Fp8.apply if mode == "fp8" else (lambda t: t)
+
+
 class arithmetic:
     """TF32 on for "tf32", off otherwise, within the block; restored on exit."""
 
@@ -90,44 +74,25 @@ class arithmetic:
         torch.backends.cuda.matmul.allow_tf32 = self.keep
 
 
-def forward(params: Sequence[torch.Tensor], x: torch.Tensor, skip: Sequence[int], beta: float,
-            mode: str = "f32") -> torch.Tensor:
-    """(N, d_in) -> (N,)"""
-    q = _Fp8.apply if mode == "fp8" else (lambda t: t)
-    h = x
-    n = len(params) // 2
-    for i in range(n):
-        if i in skip:
-            h = torch.cat([h, x], dim=-1) / math.sqrt(2.0)
-        z = q(q(h) @ q(params[2 * i]).T) + params[2 * i + 1]
-        if i < n - 1:
-            bz = beta * z
-            h = (torch.clamp_min(bz, 0.0) + torch.log1p(torch.exp(-bz.abs()))) / beta
-        else:
-            h = z
-    return h[:, 0]
-
-
-def value_and_grad_x(params, x, skip, beta, mode):
+def value_and_grad_x(forward: Forward, params, x, net: Dict, mode: str):
     x = x.detach().requires_grad_(True)
-    f = forward(params, x, skip, beta, mode)
+    f = forward(params, x, net, mode)
     (g,) = torch.autograd.grad(f.sum(), x, create_graph=True)
     return f, g
 
 
-def loss(kind: str, params, batch: Dict[str, torch.Tensor], net: Dict, loss_cfg: Dict,
-         mode: str) -> torch.Tensor:
-    skip, beta = net["skip"], net["beta"]
+def loss(kind: str, forward: Forward, params, batch: Dict[str, torch.Tensor], net: Dict,
+         loss_cfg: Dict, mode: str) -> torch.Tensor:
     x = batch["x"]
     if kind == "WeightedSmoothL2Loss":
         d = loss_cfg.get("delta", 0.1)
         true = batch["y"][:, 0].clamp(-d, d)
-        pred = forward(params, x, skip, beta, mode).clamp(-d, d)
+        pred = forward(params, x, net, mode).clamp(-d, d)
         weight = 1.0 + loss_cfg.get("weight_factor", 0.5) * torch.exp(-true.abs())
         return torch.mean(weight * (true - pred) ** 2)
     if kind == "IGRLOSS":
         d = loss_cfg.get("delta", 0.1)
-        f, g = value_and_grad_x(params, x, skip, beta, mode)
+        f, g = value_and_grad_x(forward, params, x, net, mode)
         true = batch["y"][:, 0].clamp(-d, d)
         sdf = (f.clamp(-d, d) - true) ** 2
         gn = g.norm(dim=-1)
@@ -138,23 +103,24 @@ def loss(kind: str, params, batch: Dict[str, torch.Tensor], net: Dict, loss_cfg:
         eik = torch.where(near, (gn - 1.0) ** 2, torch.full_like(gn, 1e-8))
         return sdf.mean() + loss_cfg.get("tau", 1.0) * reg.mean() + loss_cfg.get("lambda_g", 0.1) * eik.mean()
     if kind == "IGRLOSSPCD":
-        surface = forward(params, x, skip, beta, mode).abs().mean()
-        _, g = value_and_grad_x(params, x[batch["idx"]] + batch["noise"], skip, beta, mode)
+        surface = forward(params, x, net, mode).abs().mean()
+        _, g = value_and_grad_x(forward, params, x[batch["idx"]] + batch["noise"], net, mode)
         return surface + loss_cfg.get("lambda_g", 0.1) * ((g.norm(dim=-1) - 1.0) ** 2).mean()
     raise ValueError(f"no reference for the loss {kind}")
 
 
-def validation_loss(kind: str, params, batches: Iterable[Dict], net: Dict, loss_cfg: Dict,
-                    mode: str = "f32") -> float:
+def validation_loss(kind: str, forward: Forward, params, batches: Iterable[Dict], net: Dict,
+                    loss_cfg: Dict, mode: str = "f32") -> float:
     """The mean over the batches of each batch's loss, the parameters held."""
     fixed = [p.detach() for p in params]
     with arithmetic(mode):
-        values = [float(loss(kind, fixed, b, net, loss_cfg, mode).detach()) for b in batches]
+        values = [float(loss(kind, forward, fixed, b, net, loss_cfg, mode).detach()) for b in batches]
     return sum(values) / len(values)
 
 
-def fit(kind: str, params0: Sequence[torch.Tensor], epochs: Sequence[Iterable[Dict]], net: Dict,
-        loss_cfg: Dict, lr: float, mode: str = "f32", val: Optional[Sequence[Dict]] = None) -> Dict:
+def fit(kind: str, forward: Forward, params0: Sequence[torch.Tensor], epochs: Sequence[Iterable[Dict]],
+        net: Dict, loss_cfg: Dict, lr: float, mode: str = "f32",
+        val: Optional[Sequence[Dict]] = None) -> Dict:
     """Adam from ``params0``, one step per batch, epoch after epoch. Per
     epoch: the mean of its steps' losses, the validation loss after it
     (``val``), the parameters after it. Also the
@@ -169,7 +135,7 @@ def fit(kind: str, params0: Sequence[torch.Tensor], epochs: Sequence[Iterable[Di
             losses = []
             for batch in batches:
                 t += 1
-                value = loss(kind, params, batch, net, loss_cfg, mode)
+                value = loss(kind, forward, params, batch, net, loss_cfg, mode)
                 grads = torch.autograd.grad(value, params)
                 if out["grad1"] is None:
                     out["grad1"] = [g.detach().clone() for g in grads]
@@ -184,5 +150,5 @@ def fit(kind: str, params0: Sequence[torch.Tensor], epochs: Sequence[Iterable[Di
             out["epoch_losses"].append(sum(losses) / len(losses))
             out["params"].append([p.detach().clone() for p in params])
             if val is not None:
-                out["val_losses"].append(validation_loss(kind, params, val, net, loss_cfg, mode))
+                out["val_losses"].append(validation_loss(kind, forward, params, val, net, loss_cfg, mode))
         return out

@@ -3,8 +3,9 @@ CPU holds: the control (the reference one precision below, put in the
 program's place), the faults planted in the reference's place, and the
 faults planted in the program underneath a whole run.
 
-The cells are the shipped ones, and those of the labelled trainer that the
-harness holds for a later cell, cut to CPU size (``conftest.tiny``); the
+The cells are the shipped ones, those of the labelled trainer that the
+harness holds for a later cell, and a cell of a second model family
+(``conftest.SECOND_FAMILY``), cut to CPU size (``conftest.cut``); the
 limits are the tiny cells' float32 ones. On the card the same readings, at
 each cell's own size, set the shipped limits (``calibrate.py``)."""
 
@@ -16,9 +17,9 @@ import torch
 
 from portbench import calibrate
 from portbench.harness import compare, runner, spec
-from portbench.tests.conftest import HARNESS_ONLY
+from portbench.tests.conftest import HARNESS_ONLY, SECOND_FAMILY
 
-CELLS = [w["name"] for w in spec.load_benchmark()["workloads"]] + HARNESS_ONLY
+CELLS = [w["name"] for w in spec.load_benchmark()["workloads"]] + HARNESS_ONLY + [SECOND_FAMILY]
 TRAIN = [c for c in CELLS if ".train-" in c]
 
 
@@ -29,6 +30,22 @@ def test_the_control_fails_where_the_program_passes(tiny_cell, name):
     out = calibrate.readings(cell, seed, ["program", "control"], "cpu")
     assert compare.judge(out["program"], cell.limits)[0], out["program"]
     assert not compare.judge(out["control"], cell.limits)[0], out["control"]
+
+
+LABELLED = [c for c in TRAIN if not c.endswith(".train-pcd")]
+
+
+@pytest.mark.parametrize("name", LABELLED)
+def test_the_familys_float8_forward_fails_the_training_numbers(tiny_cell, tmp_path, name):
+    """A tiny labelled cell steps in float32, whose control on a CPU (no
+    TF32) fails by its labels alone: the family's forward one step below
+    bfloat16 fails the training numbers by itself."""
+    cell = tiny_cell(name)
+    entry = runner.make_entry(cell, 2**31 + 41, "cpu", str(tmp_path / "run"))
+    entry.setup()
+    entry.release()
+    numbers = entry.train_numbers(entry.reference_fit("fp8"))
+    assert not compare.judge(numbers, cell.limits)[0], numbers
 
 
 @pytest.mark.parametrize("name", TRAIN)

@@ -12,6 +12,7 @@ import time
 import pytest
 
 from portbench.harness import counts, result, runner, spec, tracing
+from portbench.reference import implicitnet
 from portbench.harness.tracing import Event, Trace
 
 ROOT = spec.ROOT
@@ -60,17 +61,17 @@ def test_every_cell_resolves_its_files_by_name(name):
 
 
 def test_macs_equal_the_hand_counts():
-    big = counts.layer_shapes(3, 512, 8, (4,))
-    small = counts.layer_shapes(3, 256, 8, (4,))
-    assert counts.macs(big) == 3 * 512 + 2 * 512 * 512 + 512 * 509 + 4 * 512 * 512 + 512 == 1_835_520
-    assert counts.macs(small) == 459_008
-    assert counts.supervised_macs(big) == 3 * 1_835_520 - 1536
-    assert counts.eikonal_step_macs(big) == 6 * 1_835_520 - 1536 - 512
-    ops, nbytes = counts.igr_fwd_cost(big, 16384)
+    big = implicitnet.layer_shapes(3, 512, 8, (4,))
+    small = implicitnet.layer_shapes(3, 256, 8, (4,))
+    assert implicitnet.macs(big) == 3 * 512 + 2 * 512 * 512 + 512 * 509 + 4 * 512 * 512 + 512 == 1_835_520
+    assert implicitnet.macs(small) == 459_008
+    assert implicitnet.supervised_macs(big) == 3 * 1_835_520 - 1536
+    assert implicitnet.eikonal_step_macs(big) == 6 * 1_835_520 - 1536 - 512
+    ops, nbytes = implicitnet.igr_fwd_cost(big, 16384)
     assert ops == 2 * 16384 * 2 * 1_835_520
     weights = sum(fi * fo * 2 + fo * 4 for fi, fo in big)
     assert nbytes == 16384 * 3 * 4 + weights + 16384 * 4 * 4
-    ops, nbytes = counts.igr_bwd_cost(big, 16384)
+    ops, nbytes = implicitnet.igr_bwd_cost(big, 16384)
     params = sum(fi * fo + fo for fi, fo in big)
     assert nbytes == 16384 * 7 * 4 + weights + params * 4
     assert counts.bound_seconds(989e12, 0.0) == 1.0
