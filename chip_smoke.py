@@ -229,7 +229,10 @@ Phases, none of which is allowed to fail quietly:
     reconstruction at 256^3 (hash_grid_eval, marched on the card) and at
     1024^3 (the giga route through the x-slab evaluator), each mesh's
     median vertex radius within 1% of 0.85; no run launches kernels 1-3 or
-    any other kernel. Then hash_grid_eval at 256^3 within rtol 2e-5 / atol
+    any other kernel but, where the HashMLP runs forward in float32, the
+    hash encoding's forward kernel (training: graphs.WARMUP calls and one a
+    validation batch and epoch; the bfloat16 step's plain encoding is the
+    one plain version allowed). Then hash_grid_eval at 256^3 within rtol 2e-5 / atol
     2e-6 of the module's pointwise f32 forward, the first three 1024^3
     x-slabs (three planes each) within the same limits and the plane two
     slabs share bit-equal in both, and 131,072 points' corner indices
@@ -239,7 +242,20 @@ Phases, none of which is allowed to fail quietly:
     (a)'s samples: training (finite, falling losses), the audit at 128^3
     (evaluate_points; whether its chunk was quartered is printed) and the
     reconstruction at 128^3 (evaluate_grid on the card). Wall time, points/s
-    and peak device memory per run.
+    and peak device memory per run. (c) The hash encoding's kernel pair
+    (csrc/hash_grid.cu, built in phase 2 with ptxas's report: no spill, no
+    local memory) at portbench's hashmlp-16x2e19 sizes (16 levels of 2^19 x
+    2, resolutions 16 to 2048) on one batch of 16,384 points: features and
+    the tables' gradient within float32 summation's error bound of the
+    float64 sums of the same terms, the plain path alike (drive_hash_kernels
+    says why); both kernels and the plain path timed beside their bounds;
+    how far bfloat16 points move the corners at each level. (d) That
+    configuration's float32 step through the Trainer, one graphed epoch of
+    20 steps and 2 validation batches, counts zeroed just before it: the
+    backward kernel once a step, the forward once a step and a validation
+    batch (and graphs.WARMUP calls before each capture), no plain encoding,
+    nothing else. Phase 4h alone, (c), (d), then (a) and (b): python3
+    chip_smoke.py --hash.
  4i. The host tools, counts zeroed before each run and read after it: (a)
     `python -m sdf_representation_tpu_torch.sampling` at configs/mesh_sdf.ini's
     sizes (100000 / 15 / 15 / 0.1) on phase 4b's rescaled icosphere(5), as a
@@ -326,7 +342,9 @@ Phases, none of which is allowed to fail quietly:
     expected kernel is taken again (three tries), and the kernels found
     must equal the expected ones. Rows 8 and 9 of the kernels line carry
     phase 4j's per-rank step times and its launches.
- 6. A `kernels` JSON line with eleven entries, then the contract line
+ 6. A `kernels` JSON line with thirteen entries (the last two the hash
+    encoding's pair: its launches on phase 4h's runs, phase 4h (c)'s times
+    and bounds), then the contract line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Details go to build/chip_smoke.json.
@@ -487,6 +505,16 @@ HASH_N, GIGA_N, FAMILY_N = 256, 1024, 128  # cubesizes: audit and mesh, the giga
 HASH_TOL = (2e-5, 2e-6)   # rtol, atol
 HASH_RADIUS_TOL = 0.01    # |median vertex radius / 0.85 - 1|
 HASH_INDEX_POINTS = 131072  # x 8 corners: ~1M indices a level against numpy
+# phase 4h (c): the encoding's kernel pair at portbench/configs/hashmlp-16x2e19.json's
+# sizes, one batch of its cell; tables uniform in +-HASH_SPREAD, so that the
+# features carry more than the initial +-1e-4
+HASH_KERNEL_SIZES = dict(n_levels=16, n_features=2, log2_table_size=19, base_resolution=16,
+                         max_resolution=2048, include_xyz=False)
+HASH_KERNEL_POINTS = 16384
+HASH_SPREAD = 0.1
+HASH_TIMED = 50  # launches a CUDA-event timing averages over
+# phase 4h (d): one graphed epoch of the cell's step on this many batches
+HASH_STEP_BATCHES, HASH_STEP_VAL = 20, 2
 # phase 4i: the sampler CLI at configs/mesh_sdf.ini's sizes; the normal audit
 # on the 64^3 grid. Its limits, stated before the card's first run: the f32
 # net of phase 4b was fitted to values clamped to +-0.1 (WeightedSmoothL2Loss),
@@ -1575,22 +1603,26 @@ def canon_mesh(verts, faces):
 
 
 @contextlib.contextmanager
-def counted(launches, tag):
+def counted(launches, tag, plain_ok=()):
     """Every launch count zeroed on entry and read into launches[tag] on
-    exit, the card synchronized at both ends; fails if a plain version ran."""
+    exit, the card synchronized at both ends; fails if a plain version ran,
+    but for those named in ``plain_ok`` (the hash encoding's plain route
+    serves a bfloat16 step: ops/hash_grid.py)."""
     from sdf_representation_tpu_torch.ops import fused_igr as fi
     from sdf_representation_tpu_torch.ops import fused_mlp as fm
+    from sdf_representation_tpu_torch.ops import hash_grid as hg
     from sdf_representation_tpu_torch.ops import sdf_streams as ss
 
     torch.cuda.synchronize()
-    for counters in (fm, ss, fi):
+    for counters in (fm, ss, fi, hg):
         counters.reset_launches()
-    with counting_plain_calls((fm, ss, fi)) as plain:
+    with counting_plain_calls((fm, ss, fi, hg)) as plain:
         yield
         torch.cuda.synchronize()
-    launches[tag] = {**fm.LAUNCHES, **ss.LAUNCHES, **fi.LAUNCHES}
-    if any(plain.values()):
-        raise RuntimeError(f"{tag}: a plain version ran on the card's path: {plain}")
+    launches[tag] = {**fm.LAUNCHES, **ss.LAUNCHES, **fi.LAUNCHES, **hg.LAUNCHES}
+    ran = {name: n for name, n in plain.items() if n and name not in plain_ok}
+    if ran:
+        raise RuntimeError(f"{tag}: a plain version ran on the card's path: {ran}")
 
 
 def only_launched(launches, tag, **expected):
@@ -2779,7 +2811,7 @@ def drive_families(device, run_root, report):
     from sdf_representation_tpu_torch.ops import hash_grid_eval as hge
     from sdf_representation_tpu_torch.ops.grid_eval import evaluate_grid
     from sdf_representation_tpu_torch.sampling import sampler
-    from sdf_representation_tpu_torch.training import Trainer
+    from sdf_representation_tpu_torch.training import Trainer, graphs
     from sdf_representation_tpu_torch.training import trainer as trainer_module
 
     card = report["card"]
@@ -2792,14 +2824,18 @@ def drive_families(device, run_root, report):
                      min_epochs=HASH_EPOCHS, checkpointing=HASH_EPOCHS)
     launches, out = {}, {}
 
-    def run(tag, text, *streams):
+    def run(tag, text, *streams, hash_fwd=False, plain_ok=()):
         """The entry point on ``text`` (an INI), counts zeroed; returns
-        (wall s, peak device bytes, what it printed)."""
+        (wall s, peak device bytes, what it printed). ``streams`` must
+        launch; ``hash_fwd``: the hash encoding's forward kernel may launch
+        (a float32 forward of the HashMLP on the card: validation batches,
+        the giga route's pointwise fallback); ``plain_ok``: plain versions
+        that may run (the bfloat16 step's plain encoding)."""
         path = root / (tag.replace("/", "_") + ".ini")
         path.write_text(text)
         torch.cuda.reset_peak_memory_stats()
         printed = io.StringIO()
-        with counted(launches, tag), contextlib.redirect_stdout(printed):
+        with counted(launches, tag, plain_ok), contextlib.redirect_stdout(printed):
             t0 = time.perf_counter()
             if cli.main([str(path)]) != 0:
                 raise RuntimeError(f"{tag}: the entry point failed")
@@ -2808,8 +2844,8 @@ def drive_families(device, run_root, report):
         print(printed.getvalue(), end="", flush=True)
         peak = torch.cuda.max_memory_allocated()
         # the streams where the labels need them, and nothing else
-        only_launched(launches, tag, **{k: v for k, v in launches[tag].items()
-                                        if k in ("dist_stream", "wind_stream")})
+        allowed = ("dist_stream", "wind_stream") + (("hash_encode_fwd",) if hash_fwd else ())
+        only_launched(launches, tag, **{k: v for k, v in launches[tag].items() if k in allowed})
         need(launches, tag, *streams)
         return wall, peak, printed.getvalue()
 
@@ -2818,12 +2854,19 @@ def drive_families(device, run_root, report):
                         "dist_stream", "wind_stream")
     out["sampling"] = {"wall_s": wall, "peak_bytes": peak,
                        "stages_s": dict(sampler.LAST_STAGE_SECONDS)}
-    wall, peak, _ = run("hash/train", base)
+    # the bfloat16 step takes the plain encoding (bfloat16 tables); each
+    # float32 validation batch the forward kernel: graphs.WARMUP calls before
+    # the capture, then one replay a batch and epoch
+    wall, peak, _ = run("hash/train", base, "hash_encode_fwd", hash_fwd=True, plain_ok=("encode_plain",))
+    val_batches, rest = divmod(launches["hash/train"]["hash_encode_fwd"] - graphs.WARMUP, HASH_EPOCHS)
+    if rest or val_batches < 1:
+        raise RuntimeError(f"hash/train: {launches['hash/train']['hash_encode_fwd']} forward launches are "
+                           f"not {graphs.WARMUP} + {HASH_EPOCHS} epochs x the validation batches")
     stats = dict(trainer_module.LAST_RUN)
     trainer = Trainer(Configuration(str(root / "hash_train.ini")))
     model = trainer.model
     curve = np.loadtxt(pathlib.Path(trainer.train_path) / "train_loss.txt")
-    out["train"] = {"wall_s": wall, "peak_bytes": peak, **stats,
+    out["train"] = {"wall_s": wall, "peak_bytes": peak, **stats, "validation_batches": val_batches,
                     "train_loss": curve[:, 1].tolist(), "val_loss": curve[:, 2].tolist()}
     print(f"phase 4h (a) HashMLP train ({card}): 8 levels x 2^15 x 2, 3x64, batch 16384, "
           f"bfloat16, {HASH_EPOCHS} epochs: {json.dumps(out['train'])}", flush=True)
@@ -2835,7 +2878,7 @@ def drive_families(device, run_root, report):
     post = pathlib.Path(trainer.postprocess_save_path)
 
     wall, peak, _ = run(f"hash/audit/{HASH_N}", with_keys(base, ppo=True, cubesize=HASH_N),
-                        "dist_stream", "wind_stream")
+                        "dist_stream", "wind_stream", hash_fwd=True)
     header, *rows = (post / "results.csv").read_text().splitlines()
     result = dict(zip(header.split(","), map(float, rows[-1].split(","))))
     out["audit"] = {"cubesize": HASH_N, "wall_s": wall, "peak_bytes": peak, "result": result,
@@ -2847,7 +2890,7 @@ def drive_families(device, run_root, report):
 
     for n in (HASH_N, GIGA_N):
         tag = f"hash/reconstruct/{n}"
-        wall, peak, _ = run(tag, with_keys(base, ppo=True, reconstruct=True, cubesize=n))
+        wall, peak, _ = run(tag, with_keys(base, ppo=True, reconstruct=True, cubesize=n), hash_fwd=True)
         stl = post / f"reconstructed_epoch{HASH_EPOCHS - 1}.stl"
         vertices, n_faces = stl_vertices(stl, device)
         radii = np.linalg.norm(vertices, axis=1)
@@ -2963,6 +3006,227 @@ def drive_families(device, run_root, report):
         out[name] = row
     report["phase_4h"] = out
     return launches
+
+
+def drive_hash_kernels(device, report, ptxas=None):
+    """Phase 4h (c): the kernel pair of csrc/hash_grid.cu against the plain
+    path (``ops.hash_grid.encode_plain``) at ``HASH_KERNEL_SIZES`` (5 dense
+    levels, 11 hashed), on one batch of the cell: uniform points over
+    [-1.05, 1.05]^3, the lattice's corners and edges among them. Features,
+    and the tables' gradient of seeded normal upstream gradients, each
+    against the float64 sum of the same float32 terms (weights and rows by
+    ``corner_rows``, whose float32 arithmetic the kernels repeat). Limit,
+    float32 summation's error bound: |got - exact| <= (k + 1) * 2^-24 *
+    sum |terms| where k terms meet, the 8 corners of a feature (the kernel's
+    FMA chain, the plain version's rounded products and sum) or the corners
+    that hit a table entry (the backward's atomics add them in an order the
+    card picks, so its last bits vary). Any corner or weight that differs
+    moves a term whole, far past it. ptxas (its report from phase 2's build
+    in ``ptxas``, else built here): no spill, no local memory. Then both
+    kernels and the plain path timed with CUDA events beside their bounds
+    (the bytes of the batch's own distinct corner rows, and of the
+    reference's count for evenly spread points, ``hash_bound_s``), and how
+    far the corners move when the points are bfloat16, as the bfloat16 step
+    casts them (``corner_rows`` on bfloat16 points against float32)."""
+    from sdf_representation_tpu_torch import kernels
+    from sdf_representation_tpu_torch.models import HashMLP
+    from sdf_representation_tpu_torch.ops import hash_grid as hg
+
+    card, out, u = report["card"], {}, 2.0 ** -24
+    if ptxas is None:
+        ptxas = {}
+        out["build_s"] = kernels.build_all(["hash_grid"], verbose=True, reports=ptxas)
+    out["sass"] = check_sass(kernels.library_path("hash_grid"), r"hash_encode_(fwd|bwd)_kernel", 4,
+                             tensor_cores=False)
+    if "hash_encode" not in ptxas.get("hash_grid", ""):
+        raise RuntimeError("no ptxas report of csrc/hash_grid.cu: it was built before this phase")
+    if re.search(r"[1-9]\d* bytes spill", ptxas["hash_grid"]):
+        raise RuntimeError("ptxas spills in csrc/hash_grid.cu")
+    gen = torch.Generator().manual_seed(SEED)
+    model = HashMLP(generator=gen, device=device, **HASH_KERNEL_SIZES)
+    L, T, F = model.tables.shape
+    with torch.no_grad():
+        model.tables.copy_((torch.rand(L, T, F, generator=gen) * 2 - 1) * HASH_SPREAD)
+    res = model.resolutions
+    x = torch.rand(HASH_KERNEL_POINTS, 3, generator=gen) * 2.1 - 1.05
+    x[:6] = torch.tensor([[-1, -1, -1], [1, 1, 1], [0, 0, 0], [0.5, -0.25, 1], [1, -1, 0.75],
+                          [-0.5, 0.25, 0.125]])
+    x = x.to(device)
+    upstream = torch.randn(HASH_KERNEL_POINTS, L * F, generator=gen).to(device)
+    tables = model.tables.detach()
+
+    idx, w = hg.corner_rows(x, res, T)  # (B, L, 8)
+    rows = tables.reshape(L * T, F)[idx.reshape(-1)].reshape(*idx.shape, F).double()
+    terms = w.double()[..., None] * rows                      # (B, L, 8, F)
+    exact, size = terms.sum(2).reshape(len(x), -1), terms.abs().sum(2).reshape(len(x), -1)
+    g_terms = (w.double()[..., None] * upstream.reshape(len(x), L, 1, F).double()).reshape(-1, F)
+    flat = idx.reshape(-1)
+    g_exact = torch.zeros(L * T, F, dtype=torch.float64, device=device).index_add_(0, flat, g_terms)
+    g_size = torch.zeros_like(g_exact).index_add_(0, flat, g_terms.abs())
+    g_count = torch.zeros(L * T, dtype=torch.float64, device=device).index_add_(
+        0, flat, torch.ones_like(flat, dtype=torch.float64))[:, None]
+
+    def over(got, want, size, k):
+        """The worst |got - want| less its bound, and the largest |got - want|."""
+        diff = (got.double() - want).abs()
+        return (diff - (k + 1) * u * size).max().item(), diff.max().item()
+
+    hg.reset_launches()
+    feats = hg.encode_fwd_cuda(x, tables, res)
+    grad = hg.encode_bwd_cuda(x, upstream, (L, T, F), res)
+    plain_t = tables.clone().requires_grad_(True)
+    plain = hg.encode_plain(x, plain_t, res)
+    plain.backward(upstream)
+    torch.cuda.synchronize()
+    checks = {"features": over(feats, exact, size, 8), "plain_features": over(plain, exact, size, 8),
+              "grad": over(grad.reshape(L * T, F), g_exact, g_size, g_count),
+              "plain_grad": over(plain_t.grad.reshape(L * T, F), g_exact, g_size, g_count)}
+    out["checks"] = {k: {"over_bound": a, "max_abs_err": b} for k, (a, b) in checks.items()}
+    out["max_terms_per_entry"] = int(g_count.max().item())
+    again = hg.encode_bwd_cuda(x, upstream, (L, T, F), res)
+    out["grad_bits_equal_on_a_second_launch"] = bool(torch.equal(again, grad))
+    out["launches"] = dict(hg.LAUNCHES)
+    print(f"phase 4h (c) hash encoding kernels against the float64 sums ({card}): "
+          + json.dumps(out), flush=True)
+    if any(a > 0 for a, _ in checks.values()) or out["launches"] != {"hash_encode_fwd": 1,
+                                                                      "hash_encode_bwd": 2}:
+        raise RuntimeError(f"the hash encoding kernels are off their bound: {out['checks']}")
+
+    def timed(fn):
+        fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(HASH_TIMED):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / HASH_TIMED
+
+    def plain_step():
+        t = tables.clone().requires_grad_(True)
+        hg.encode_plain(x, t, res).backward(upstream)
+
+    zero_fill = lambda: torch.zeros((L, T, F), dtype=torch.float32, device=device)  # noqa: E731
+    out["ms"] = {"fwd": timed(lambda: hg.encode_fwd_cuda(x, tables, res)),
+                 "bwd": timed(lambda: hg.encode_bwd_cuda(x, upstream, (L, T, F), res)),
+                 "bwd_zero_fill": timed(zero_fill),
+                 "plain_fwd": timed(lambda: hg.encode_plain(x, tables, res)),
+                 "plain_fwd_bwd": timed(plain_step)}
+    # bounds, bytes at MEM_BW (the weighted sums are far under the peak):
+    # the points, the features or their gradient, and each distinct corner
+    # row once (backward: read and written); the rows this batch touches,
+    # and the reference's count for evenly spread points, R (1 - (1 -
+    # 1/R)^(8B)) a level of R rows (portbench/reference/hashmlp.py)
+    level_rows = [min((r + 1) ** 3, T) for r in res]
+    touched = {"batch": int(torch.unique(idx).numel()),
+               "even": sum(r * -math.expm1(8 * len(x) * math.log1p(-1 / r)) for r in level_rows)}
+    edge = len(x) * 3 * 4 + len(x) * L * F * 4
+    out["rows_touched"] = touched
+    out["bound_ms"] = {"fwd": (edge + touched["batch"] * F * 4) / MEM_BW * 1e3,
+                       "bwd": (edge + 2 * touched["batch"] * F * 4) / MEM_BW * 1e3,
+                       "fwd_even": (edge + touched["even"] * F * 4) / MEM_BW * 1e3,
+                       "bwd_even": (edge + 2 * touched["even"] * F * 4) / MEM_BW * 1e3}
+    # how far bfloat16 points move the corners (cells, per level)
+    p32 = torch.stack([torch.floor(torch.clamp((x + 1) * 0.5, 0, 1) * r) for r in res], 1)
+    xb = x.to(torch.bfloat16)
+    p16 = torch.stack([torch.floor(torch.clamp((xb + 1) * 0.5, 0, 1) * r).float() for r in res], 1)
+    moved = (p16 - p32).abs().amax(-1)  # (B, L) cells of the farthest axis
+    out["bf16_corner_shift"] = {str(r): {"max_cells": moved[:, i].max().item(),
+                                         "points_moved": float((moved[:, i] > 0).float().mean().item())}
+                                for i, r in enumerate(res)}
+    print(f"phase 4h (c) hash encoding times, ms a batch of {HASH_KERNEL_POINTS} ({card}): "
+          f"{json.dumps(out['ms'])}; bounds {json.dumps(out['bound_ms'])}, distinct corner rows "
+          f"{json.dumps(out['rows_touched'])}; corners under bfloat16 points: "
+          f"{json.dumps(out['bf16_corner_shift'])}", flush=True)
+    report["phase_4h_kernels"] = out
+
+
+def drive_hash_step(run_root, report):
+    """Phase 4h (d): the hashmlp-16x2e19 cell's step on the main path. The
+    configuration's INI sections as portbench/configs/hashmlp-16x2e19.json
+    holds them (float32; epochs 1), through the Trainer: one graphed epoch
+    of HASH_STEP_BATCHES steps and HASH_STEP_VAL validation batches on a
+    sphere's exact labels at uniform points, counts zeroed just before
+    ``train``. The backward kernel launches once a step, the forward once a
+    step and once a validation batch, each after graphs.WARMUP eager calls
+    before its capture; no plain encoding runs, nothing else launches.
+    Returns the run's launches."""
+    import configparser
+
+    from sdf_representation_tpu_torch.configgen import Configuration
+    from sdf_representation_tpu_torch.data.dataset import SDFDataset
+    from sdf_representation_tpu_torch.ops import hash_grid as hg
+    from sdf_representation_tpu_torch.training import Trainer, graphs
+    from sdf_representation_tpu_torch.training import trainer as trainer_module
+
+    root = run_root / "hash_step"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    sections = json.loads((REPO / "portbench" / "configs" / "hashmlp-16x2e19.json").read_text())["ini"]
+    parser = configparser.ConfigParser()
+    parser.optionxform = str
+    parser["Files"] = {"geometry": str(root / "none"), "directory": f"{root}/", "name": "hash_step"}
+    for section, values in sections.items():
+        parser[section] = {k: str(v) for k, v in values.items()}
+    parser["Training"].update(epochs="1", min_epochs="1", checkpointing="1")
+    path = root / "hash_step.ini"
+    with open(path, "w") as f:
+        parser.write(f)
+    batch = int(sections["Training"]["batch_size"])
+    n_train, n_val = HASH_STEP_BATCHES * batch, HASH_STEP_VAL * batch
+    x = np.random.default_rng(SEED).uniform(-1, 1, (n_train + n_val, 3)).astype(np.float32)
+    r = np.linalg.norm(x, axis=1, keepdims=True)
+    y = np.concatenate([r - 0.5, x / r], axis=1).astype(np.float32)
+    data = SDFDataset(x[:n_train], y[:n_train], x[n_train:], y[n_train:])
+    trainer = Trainer(Configuration(str(path)))
+    model = trainer.model
+    if (tuple(model.tables.shape), model.resolutions[-1], trainer.config.train_matmul_precision) \
+            != ((16, 1 << 19, 2), 2048, "float32"):
+        raise RuntimeError("phase 4h (d): not the hashmlp-16x2e19 configuration")
+    launches, tag = {}, "hash/step"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with counted(launches, tag):
+        result = trainer.train(data)
+    wall = time.perf_counter() - t0
+    stats = dict(trainer_module.LAST_RUN)
+    steps, w = HASH_STEP_BATCHES, graphs.WARMUP
+    out = {"steps": steps, "validation_batches": HASH_STEP_VAL, "wall_s": wall,
+           "peak_bytes": torch.cuda.max_memory_allocated(), **stats, "launches": launches[tag],
+           "route": dict(hg.ROUTE), "train_loss": result["train_losses"], "val_loss": result["val_losses"]}
+    print(f"phase 4h (d) hashmlp-16x2e19 float32 step, one graphed epoch ({report['card']}): "
+          + json.dumps(out), flush=True)
+    if not (stats["graphed"] and np.isfinite(out["train_loss"] + out["val_loss"]).all()):
+        raise RuntimeError(f"phase 4h (d): {out}")
+    only_launched(launches, tag, hash_encode_bwd=steps + w, hash_encode_fwd=steps + w + HASH_STEP_VAL + w)
+    report["phase_4h_step"] = out
+    return launches
+
+
+def hash_main() -> int:
+    """``python3 chip_smoke.py --hash``: phase 4h alone, after the card's
+    name and power limit; its readings in build/chip_smoke_hash.json."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    from sdf_representation_tpu_torch.utils.device import resolve_device
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    report = {"card": card}
+    device, run_root = resolve_device(), REPO / "build" / "chip_smoke_run"
+    stamp("phase 4h (c): the hash encoding's kernel pair")
+    drive_hash_kernels(device, report)
+    stamp("phase 4h (d): the hashmlp-16x2e19 step")
+    launches = drive_hash_step(run_root, report)
+    stamp("phase 4h (a), (b): model families")
+    launches.update(drive_families(device, run_root, report))
+    report["launches"] = launches
+    (REPO / "build" / "chip_smoke_hash.json").write_text(json.dumps(report, indent=1))
+    stamp("done")
+    return 0
 
 
 def write_msh_v41(path, points_2d):
@@ -3860,7 +4124,8 @@ def main() -> int:
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     ptxas = {}
-    report["build_s"] = kernels.build_all(["fused_mlp", "sdf_streams", "fused_igr"], verbose=True, reports=ptxas)
+    report["build_s"] = kernels.build_all(["fused_mlp", "sdf_streams", "fused_igr", "hash_grid"], verbose=True,
+                                          reports=ptxas)
     print(f"build: {report['build_s']} s per source, {time.perf_counter() - t0:.1f} s in all "
           "(one nvcc each, started together)", flush=True)
     # fused_mlp: points, grid, blocks x widths 128-512, bf16 and f32 (split
@@ -4069,6 +4334,8 @@ def main() -> int:
     runs.update(drive_export_two_dim(device, run_root, report))
     stamp("phase 4h: model families")
     runs.update(drive_families(device, run_root, report))
+    drive_hash_kernels(device, report, ptxas)
+    runs.update(drive_hash_step(run_root, report))
     stamp("phase 4i: host tools")
     runs.update(drive_host_tools(device, run_root, report))
     stamp("phase 4j: one process per card")
@@ -4419,6 +4686,23 @@ def main() -> int:
         if entry["launches"] < 1:
             raise RuntimeError(f"{name} was launched on no run of the main path")
         kernels_line.append(entry)
+    # the hash encoding's pair: launches on the main path (phase 4h (a)'s
+    # runs and (d)'s graphed epoch of the hashmlp-16x2e19 step), times and
+    # bounds of phase 4h (c)'s batch at the configuration's sizes
+    hash_out = report["phase_4h_kernels"]
+    for name, key, plain_key in (("hash_encode_fwd", "fwd", "plain_fwd"),
+                                 ("hash_encode_bwd", "bwd", "plain_fwd_bwd")):
+        by_run = {tag: counts[name] for tag, counts in runs.items() if counts.get(name)}
+        entry = {"name": name, "route": "cuda", "source": "sdf_representation_tpu_torch/csrc/hash_grid.cu",
+                 "replaces": "sdf_representation_tpu/models/hash_mlp.py:126 encode"
+                             + (" (its gather's autograd scatter-add)" if key == "bwd" else ""),
+                 "launches": sum(by_run.values()), "launches_by_run": by_run, "dtype": "float32",
+                 "points": HASH_KERNEL_POINTS, "ms": hash_out["ms"][key],
+                 "plain_ms": hash_out["ms"][plain_key], "bound_ms": hash_out["bound_ms"][key],
+                 "bound_by": "bytes"}
+        if by_run.get("hash/step", 0) < 1:
+            raise RuntimeError(f"{name} was not launched by the hashmlp-16x2e19 step: {by_run}")
+        kernels_line.append(entry)
     # the whole evaluators and the data-parallel eikonal step, x1 / x2 / x4
     stamp("phase 5: the sharded evaluators and steps")
     from sdf_representation_tpu_torch.losses.losses import IGRLOSS
@@ -4521,4 +4805,6 @@ def graphs_main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:
         sys.exit(rank_main(sys.argv[1:]))
+    if sys.argv[1:] == ["--hash"]:
+        sys.exit(hash_main())
     sys.exit(graphs_main() if sys.argv[1:] == ["--graphs"] else main())

@@ -7,6 +7,8 @@ Kept from the JAX package: every section and field name, the rule that
 reference config_reader.py:26-32), and the optional ``[TPU]`` keys.
 ``use_pallas`` keeps its name: here it means "use the hand-written kernels",
 and ``False`` is accepted only on the CPU, where the plain path runs anyway.
+A HashMLP's ``[Model]`` may also set its encoding (``HASH_ENCODING_KEYS``),
+which the JAX package's reader does not read.
 ``epochs_per_call`` sizes the labelled trainer's block, as it sizes the JAX
 trainer's jitted multi-epoch call: that many epochs and their validation
 run with the best epoch's state kept on the device, and the host reads the
@@ -23,6 +25,14 @@ import torch
 from ..losses.losses import get_loss_class
 from ..models import KAN, FeedForwardNetwork, HashMLP, ImplicitNet, Siren
 from ..models.registry import get_model_class
+
+
+# [Model] keys of a HashMLP's encoding, each optional: absent, the model's
+# own default (8 levels of 2^15 x 2, resolutions 8 to 256, the point read
+# beside the features). ``num_hidden_layers`` counts its affine layers
+# (``num_layers = max(2, n)``): two hidden layers are 3.
+HASH_ENCODING_KEYS = ("n_levels", "n_features", "log2_table_size", "base_resolution",
+                      "max_resolution", "include_xyz")
 
 
 class Configuration:
@@ -109,6 +119,16 @@ class Configuration:
         tp = self.config.get("TPU", "train_matmul_precision", fallback="default")
         self.train_matmul_precision = None if tp in ("default", "none") else tp
 
+    def hash_encoding(self) -> dict:
+        """The ``HASH_ENCODING_KEYS`` that a HashMLP's ``[Model]`` sets (a
+        method, so that the parsed fields stay the JAX package's)."""
+        out = {}
+        for key in HASH_ENCODING_KEYS if self.model_name == "HashMLP" else ():
+            if self.config.has_option("Model", key):
+                read = self.config.getboolean if key == "include_xyz" else self.config.getint
+                out[key] = read("Model", key)
+        return out
+
     def make_model(self, generator: torch.Generator | None = None,
                    device: torch.device | str | None = None):
         """Build the torch model from the parsed fields, as the JAX package's
@@ -135,7 +155,7 @@ class Configuration:
             return KAN(layers_hidden=layers, **kw)
         if self.model_name == "HashMLP":
             return HashMLP(d_in=self.input_dim, hidden_dim=self.hidden_dim,
-                           num_layers=max(2, self.num_hidden_layers), **kw)
+                           num_layers=max(2, self.num_hidden_layers), **self.hash_encoding(), **kw)
         if self.model_name == "Siren":
             return Siren(d_in=self.input_dim,
                          hidden_dims=(self.hidden_dim,) * self.num_hidden_layers,

@@ -15,7 +15,10 @@ Kept from the JAX package:
     multiply and xor kernels on some backends, so it is computed in int64
     and masked to 32 bits: the same indices bit for bit;
   * the one fused gather of ``encode``: the B*L*8 corner rows come from the
-    stacked (L*T, F) tables in one index (its backward, one scatter-add);
+    stacked (L*T, F) tables in one index (its backward, one scatter-add),
+    on the CPU and wherever the kernels do not serve; on a card, float32
+    tables and points that need no gradient go through the kernel pair of
+    ``ops/hash_grid.py`` (``csrc/hash_grid.cu``) instead;
   * init: tables uniform in +-1e-4, MLP weights uniform in +-1/sqrt(fan_in),
     zero biases, drawn from a ``torch.Generator`` (not ``jax.random``'s
     numbers).
@@ -31,33 +34,12 @@ then bfloat16 arithmetic, as in JAX.
 
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
 from torch import nn
 
-PRIMES = (1, 2654435761, 805459861)
-_MASK32 = 0xFFFFFFFF
-
-# the 8 corner offsets, dx-major (the JAX order)
-_OFFSETS = ((0, 0, 0), (0, 0, 1), (0, 1, 0), (0, 1, 1),
-            (1, 0, 0), (1, 0, 1), (1, 1, 0), (1, 1, 1))
-
-
-@functools.lru_cache(maxsize=None)
-def _offsets(device) -> torch.Tensor:
-    """``_OFFSETS`` as an int64 tensor, made once per device (a copy from
-    the host inside a captured training step would synchronise)."""
-    return torch.tensor(_OFFSETS, dtype=torch.int64, device=device)
-
-
-def hash_index(cx: torch.Tensor, cy: torch.Tensor, cz: torch.Tensor, table_size: int) -> torch.Tensor:
-    """uint32 (cx * P0) ^ (cy * P1) ^ (cz * P2) mod ``table_size`` of
-    non-negative integer corners, computed in int64 (the low 32 bits of the
-    products and of their xor are the uint32 ones)."""
-    h = (cx.long() * PRIMES[0]) ^ (cy.long() * PRIMES[1]) ^ (cz.long() * PRIMES[2])
-    return torch.remainder(h & _MASK32, table_size)
+from ..ops import hash_grid
 
 
 class Affine(nn.Module):
@@ -123,42 +105,24 @@ class HashMLP(nn.Module):
         (indexed directly) rather than being hashed."""
         return (self.level_resolution(level) + 1) ** 3 <= self.table_size
 
+    @property
+    def resolutions(self):
+        return tuple(self.level_resolution(level) for level in range(self.n_levels))
+
     def corner_indices(self, x: torch.Tensor):
         """(idx (B, L, 8) int64 rows of the stacked (L*T, F) tables, weights
         (B, L, 8) in x's dtype) of every point's 8 corners at every level,
         with the JAX arithmetic: x01 = clip((x+1)/2), pos = x01*res,
-        p0 = floor(pos), frac = pos - p0, all in x's dtype."""
-        x01 = torch.clamp((x + 1.0) * 0.5, 0.0, 1.0)
-        offs = _offsets(x.device)  # (8, 3)
-        T = self.table_size
-        idx_all, w_all = [], []
-        for level in range(self.n_levels):
-            res = self.level_resolution(level)
-            pos = x01 * res
-            p0 = torch.floor(pos).long()
-            frac = pos - p0.to(pos.dtype)
-            corner = torch.clamp(p0[:, None, :] + offs[None], 0, res)  # (B, 8, 3)
-            if self.is_dense(level):
-                ci = corner[..., 0] * (res + 1) * (res + 1) + corner[..., 1] * (res + 1) + corner[..., 2]
-            else:
-                ci = hash_index(corner[..., 0], corner[..., 1], corner[..., 2], T)
-            idx_all.append(ci + level * T)
-            w = torch.ones_like(frac[:, :1]).expand(-1, 8)
-            for axis in range(3):
-                pick = offs[None, :, axis] == 1
-                w = w * torch.where(pick, frac[:, None, axis], 1.0 - frac[:, None, axis])
-            w_all.append(w)
-        return torch.stack(idx_all, dim=1), torch.stack(w_all, dim=1)
+        p0 = floor(pos), frac = pos - p0, all in x's dtype
+        (``ops.hash_grid.corner_rows``)."""
+        return hash_grid.corner_rows(x, self.resolutions, self.table_size)
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, d_in) -> (B, L*F [+ d_in]) features: one gather of B*L*8 rows
-        from the stacked tables, weighted and summed over the corners."""
-        B = x.shape[0]
-        L, F = self.n_levels, self.n_features
-        idx, w = self.corner_indices(x)
-        big = self.tables.reshape(L * self.table_size, F)
-        g = big[idx.reshape(-1)].reshape(B, L, 8, F)
-        feats = torch.sum(w[..., None] * g, dim=2).reshape(B, L * F)
+        """(B, d_in) -> (B, L*F [+ d_in]) features: ``ops.hash_grid.encode``,
+        the kernels on a card for float32 tables and points that need no
+        gradient, else one gather of B*L*8 rows from the stacked tables,
+        weighted and summed over the corners."""
+        feats = hash_grid.encode(x, self.tables, self.resolutions)
         if self.include_xyz:
             feats = torch.cat([feats, x], dim=-1)
         return feats

@@ -26,7 +26,8 @@ from __future__ import annotations
 
 import torch
 
-from ..models.hash_mlp import HashMLP, hash_index
+from ..models.hash_mlp import HashMLP
+from .hash_grid import hash_index
 from ..utils.device import matmul_precision
 
 

@@ -31,7 +31,8 @@ one validation batch likewise (``ValRunner``):
     first step.
   * replays do not call the kernels' wrappers, so ``Graph.replay`` adds the
     launches its capture recorded to their counters (``LAUNCHES`` of
-    ops/fused_igr.py, ops/fused_mlp.py and ops/sdf_streams.py); the capture
+    ops/fused_igr.py, ops/fused_mlp.py, ops/sdf_streams.py and
+    ops/hash_grid.py); the capture
     launches nothing and counts nothing, the warm-up's launches count.
 
 The sharded steps are captured too (``captures`` is the rule): under a
@@ -62,12 +63,12 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
-from ..ops import fused_igr, fused_mlp, sdf_streams
+from ..ops import fused_igr, fused_mlp, hash_grid, sdf_streams
 from ..parallel.mesh import ProcessMesh
 
 WARMUP = 3  # eager calls of a step before its capture
 # the kernels' launch counters that replays add to
-COUNTERS = (fused_igr.LAUNCHES, fused_mlp.LAUNCHES, sdf_streams.LAUNCHES)
+COUNTERS = (fused_igr.LAUNCHES, fused_mlp.LAUNCHES, sdf_streams.LAUNCHES, hash_grid.LAUNCHES)
 
 
 def captures(device, mesh, backend: Optional[str], debug_nans: bool, eager: bool) -> bool:

@@ -56,6 +56,9 @@ what the JAX package leaves to XLA. Validation always takes the latter, in
 float32, as the JAX package's does. The other families (HashMLP,
 FeedForwardNetwork, Siren, KAN) have no fast path in either package: their
 (f, grad_x f) is forward-mode passes, as ``jax.jvp`` serves them there.
+A HashMLP's encoding runs on the kernels of ops/hash_grid.py wherever its
+tables are float32 on a card and the points need no gradient (any step but
+"bfloat16", every validation batch; not the forward-mode passes).
 
 ``train_matmul_precision``:
   None            float32 everywhere.

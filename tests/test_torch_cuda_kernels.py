@@ -4,7 +4,9 @@ and no skip, ReLU, a ragged last grid tile, 2-d points; the exact-SDF streams
 at ragged tilings, sparse schedules and unvisited blocks, and sharded over
 the card listed several times; the culled signed distance; the fused
 (f, grad_x f) kernels and their backward at those widths, at point counts
-below a tile and off a tile multiple, and through autograd; the bf16 kernels'
+below a tile and off a tile multiple, and through autograd; the hash
+encoding's kernel pair against its plain version, its route and a graph's
+capture of it; the bf16 kernels'
 outputs bit for bit against digests recorded from the serial schedule of
 their layer routine. Needs an NVIDIA card:
 a CUDA kernel has no CPU mode, so elsewhere these skip. On the card:
@@ -20,10 +22,11 @@ import hashlib
 import pytest
 import torch
 
-from sdf_representation_tpu_torch.models import ImplicitNet
+from sdf_representation_tpu_torch.models import HashMLP, ImplicitNet
 from sdf_representation_tpu_torch.geometry.primitives import make_box, make_icosphere
 from sdf_representation_tpu_torch.ops import fused_igr as fi
 from sdf_representation_tpu_torch.ops import fused_mlp as fm
+from sdf_representation_tpu_torch.ops import hash_grid as hg
 from sdf_representation_tpu_torch.ops import sdf_exact as se
 from sdf_representation_tpu_torch.ops import sdf_streams as ss
 from sdf_representation_tpu_torch.ops import sparse_grid as sg
@@ -607,3 +610,81 @@ def test_sharded_igr_on_the_card(device):
     assert fi.LAUNCHES == {"igr_fwd": 4, "igr_bwd": 4}
     for one, shd in zip(*grads):
         torch.testing.assert_close(shd, one, rtol=2e-4, atol=2e-5)
+
+
+def _hash_model(device, n_features=2, seed=4):
+    """4 levels of 2^9 rows (resolution 4 dense, 8-32 hashed), tables in +-0.1."""
+    model = HashMLP(n_levels=4, n_features=n_features, log2_table_size=9, base_resolution=4,
+                    max_resolution=32, hidden_dim=16, num_layers=3,
+                    generator=torch.Generator().manual_seed(seed), device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        model.tables.uniform_(-0.1, 0.1, generator=gen)
+    x = torch.rand(3001, 3, device=device, generator=gen) * 2.1 - 1.05
+    x[:3] = torch.tensor([[-1.0, -1, -1], [1, 1, 1], [0, 0, 0]], device=device)
+    return model, x
+
+
+@pytest.mark.parametrize("n_features", [2, 3])
+def test_hash_encoding_kernels_match_the_plain_path(device, n_features):
+    """hash_encode_fwd / bwd (F = 2 compiled, 3 at run time) against
+    encode_plain: features within 1e-6, the tables' gradient within 1e-6 of
+    its largest entry (float32 sums in other orders: the corners' FMA chain,
+    the atomics)."""
+    model, x = _hash_model(device, n_features)
+    tables, res = model.tables.detach(), model.resolutions
+    up = torch.randn(len(x), 4 * n_features, device=device)
+    hg.reset_launches()
+    got = hg.encode_fwd_cuda(x, tables, res)
+    grad = hg.encode_bwd_cuda(x, up, tuple(tables.shape), res)
+    plain_t = tables.clone().requires_grad_(True)
+    want = hg.encode_plain(x, plain_t, res)
+    want.backward(up)
+    torch.cuda.synchronize()
+    assert hg.LAUNCHES == {"hash_encode_fwd": 1, "hash_encode_bwd": 1}
+    assert (got - want).abs().max().item() <= 1e-6
+    assert (grad - plain_t.grad).abs().max().item() <= 1e-6 * plain_t.grad.abs().max().item()
+
+
+def test_hash_encoding_route_on_the_card(device):
+    """Float32 tables and points that need no gradient take the kernels;
+    points that need one and bfloat16 tables the plain path; both agree.
+    Float64 points with float32 tables raise."""
+    model, x = _hash_model(device)
+    hg.reset_launches()
+    f_kernel = model(x)
+    f_plain = model(x.clone().requires_grad_(True))
+    torch.func.functional_call(model, {k: v.to(torch.bfloat16) for k, v in model.state_dict().items()},
+                               (x.to(torch.bfloat16),))
+    assert hg.ROUTE == {"kernel": 1, "plain": 2} and hg.LAUNCHES["hash_encode_fwd"] == 1
+    assert (f_kernel - f_plain).abs().max().item() <= 1e-6
+    with pytest.raises(ValueError):
+        model(x.double())
+
+
+def test_hash_encoding_in_a_captured_graph(device):
+    """Forward and backward captured once: each replay gives the eager
+    features and, within the atomics' reordering, the eager gradient."""
+    model, x = _hash_model(device)
+    up = torch.randn(len(x), 8, device=device)
+
+    def step():
+        model.tables.grad = None
+        feats = hg.encode(x, model.tables, model.resolutions)
+        feats.backward(up)
+        return feats.detach(), model.tables.grad
+
+    eager_f, eager_g = (t.clone() for t in step())
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_f, out_g = step()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out_f, eager_f)
+        assert (out_g - eager_g).abs().max().item() <= 1e-6 * eager_g.abs().max().item()
